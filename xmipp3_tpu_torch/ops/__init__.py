@@ -1,0 +1,1 @@
+"""Torch ops of the port and the wrappers of its CUDA kernels."""
