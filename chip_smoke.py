@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 chip_smoke.py [--seed 0] [--views 10000]
+    python3 chip_smoke.py [--seed 0]
 
 Phases; any failure exits non-zero before the result line is printed:
 
@@ -16,8 +16,8 @@ Phases; any failure exits non-zero before the result line is printed:
    order) and timed with CUDA events beside its plain version, its bound
    and, for K1, three index_add_ calls.
 3. End to end through the CLI: an analytic Gaussian phantom's projections
-   at N=128 (by default 10,000 views, the repo's headline reconstruction
-   workload; uniform on the sphere, random psi, small shifts) are
+   at N=128 (10,000 views, the repo's headline reconstruction workload;
+   uniform on the sphere, random psi, small shifts) are
    written as an .mrcs stack with an .xmd, and
    `python -m xmipp3_tpu_torch.programs reconstruct_fourier` runs
    in-process on the card with --interp kb, tri+kb and nn. Every kernel's
@@ -27,8 +27,11 @@ Phases; any failure exits non-zero before the result line is printed:
    nn.
 4. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
-It needs one card, builds everything from the checkout and writes its data
-under chip_smoke_data/ in the checkout, which it removes at the end.
+It needs one card and the checkout around it: it imports xmipp3_tpu_torch
+from beside itself (from any working directory), builds every kernel from
+the checkout's sources and writes its data under chip_smoke_data/ in the
+checkout, which it removes at the end. Without a card, or without the
+package beside it, it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N, P, BATCH = 128, 256, 256
+VIEWS = 10000  # BASELINE config 3: 10k particles at N=128
 DEVICE = "cuda"
 TOL = 1e-4
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
@@ -280,7 +284,7 @@ def write_dataset(root: Path, views: int, seed: int):
     return fn
 
 
-def end_to_end(views, seed):
+def end_to_end(seed):
     import torch
     from xmipp3_tpu_torch.core import timing
     from xmipp3_tpu_torch.core.image import Image
@@ -293,8 +297,8 @@ def end_to_end(views, seed):
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir()
     t0 = time.perf_counter()
-    md = write_dataset(root, views, seed)
-    log(f"phase 3: {views} phantom views at N={N} written in "
+    md = write_dataset(root, VIEWS, seed)
+    log(f"phase 3: {VIEWS} phantom views at N={N} written in "
         f"{time.perf_counter() - t0:.2f} s")
     ref = phantom(N)
     launches, runs = {}, []
@@ -328,11 +332,11 @@ def end_to_end(views, seed):
             corr = float((a * b).sum() / np.sqrt((a * a).sum()
                                                  * (b * b).sum()))
             run = {"interp": interp, "kernel": kname, "launches": counts,
-                   "wall_s": wall, "images_per_s": views / wall,
+                   "wall_s": wall, "images_per_s": VIEWS / wall,
                    "fsc_min_to_half_nyquist": float(half.min()),
                    "corr": corr,
                    "phases_s": {k: v[0] for k, v in phases.items()}}
-            log(f"  --interp {interp}: {wall:.3f} s, {views / wall:.1f} "
+            log(f"  --interp {interp}: {wall:.3f} s, {VIEWS / wall:.1f} "
                 f"images/s, launches {counts}, min FSC to Nyquist/2 "
                 f"{half.min():.4f}, corr {corr:.4f}, phases "
                 + ", ".join(f"{k} {v[0]:.3f} s" for k, v in phases.items()))
@@ -356,9 +360,12 @@ def end_to_end(views, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--views", type=int, default=10000)
     args = ap.parse_args(argv)
 
+    if not (ROOT / "xmipp3_tpu_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no xmipp3_tpu_torch package beside {ROOT}; run "
+              "this script inside a checkout of the repo", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -385,7 +392,7 @@ def main(argv=None) -> int:
 
     try:
         kernels = kernels_vs_plain(args.seed)
-        launches = end_to_end(args.views, args.seed)
+        launches = end_to_end(args.seed)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from pathlib import Path
 
 import torch
@@ -45,25 +46,19 @@ def _nvcc() -> str:
                        "built from csrc/ with the CUDA toolkit")
 
 
-def sources() -> list[str]:
-    """Names of the kernel sources (csrc/<name>.cu)."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
-
-
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict[str, str]:
-    """Compile every named source (default: all) whose library is missing,
-    one nvcc process per source, started together. Returns each compiled
-    source's ptxas report (registers, spills); raises if any build fails."""
-    names = sources() if names is None else list(names)
+def build() -> dict[str, str]:
+    """Compile every source in csrc/ whose library is missing, one nvcc
+    process per source, started together. Returns each compiled source's
+    ptxas report (registers, spills); raises if any build fails."""
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = {}
-    for name in names:
+    for name in sorted(p.stem for p in CSRC.glob("*.cu")):
         src, lib = _target(name)
         if lib.exists():
             continue
@@ -97,9 +92,11 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+@lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: tuple) -> ctypes._CFuncPtr:
     """A C function of csrc/<name>.cu with its argument types set (every
-    pointer and the stream as c_void_p, so none is cut to 32 bits)."""
+    pointer and the stream as c_void_p, so none is cut to 32 bits), set up
+    once and cached."""
     fn = getattr(library(name), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
@@ -120,10 +117,10 @@ def check_launch(rc: int, what: str) -> None:
                            f"{rc}")
 
 
-def check_operands(what: str, dtype: torch.dtype, numel: int | None = None,
+def check_operands(what: str, dtype: torch.dtype, numel: int,
                    **tensors: torch.Tensor) -> torch.device:
-    """All tensors on one device, of `dtype`, contiguous and (when given)
-    of `numel` elements; returns their device. Raises on anything else."""
+    """All tensors on one device, of `dtype`, contiguous and of `numel`
+    elements; returns their device. Raises on anything else."""
     device = None
     for key, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -132,7 +129,7 @@ def check_operands(what: str, dtype: torch.dtype, numel: int | None = None,
             raise TypeError(f"{what}: {key} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {key} must be contiguous")
-        if numel is not None and t.numel() != numel:
+        if t.numel() != numel:
             raise ValueError(f"{what}: {key} has {t.numel()} elements, "
                              f"expected {numel}")
         if device is None:

@@ -27,8 +27,8 @@ from xmipp3_tpu_torch.ops import _cuda_build as cb
 # reset; a run sets it to 0 and reads it to show its path used the kernel.
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int64,
-                                     ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_void_p)
 
 
 def scatter_add_3ch_plain(c0, c1, c2, idx, v0, v1, v2):

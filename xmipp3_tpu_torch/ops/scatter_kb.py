@@ -39,9 +39,9 @@ POLY_DEG = 7
 KB_TAPS = [(dz, dy, dx) for dz in range(-1, 3) for dy in range(-1, 3)
            for dx in range(-1, 3)]
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int64, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p,
-                                     ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int64, ctypes.c_int,
+                                      ctypes.c_float, ctypes.c_void_p,
+                                      ctypes.c_void_p)
 
 
 @lru_cache(maxsize=8)

@@ -34,8 +34,8 @@ launches = 0
 TRI_TAPS = [(dz, dy, dx) for dz in range(2) for dy in range(2)
             for dx in range(2)]
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int64, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int64, ctypes.c_int,
+                                      ctypes.c_void_p)
 
 # The TPU kernel's packed accumulator: (ntiles, LO2, NCH*HI2) with
 # TILE = LO2*HI2 cells per tile, holding P^3 + 2P^2 cells per channel.
