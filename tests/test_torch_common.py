@@ -24,9 +24,12 @@ PORT = REPO / "xmipp3_tpu_torch"
 
 
 def rel_err(a, b) -> float:
-    """max |a - b| / max |b| over numpy arrays or tensors."""
-    a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a, np.float64)
-    b = np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b, np.float64)
+    """max |a - b| / max |b| over numpy arrays or tensors, real or complex."""
+    a, b = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+            for x in (a, b))
+    wide = np.complex128 if np.iscomplexobj(a) or np.iscomplexobj(b) \
+        else np.float64
+    a, b = a.astype(wide), b.astype(wide)
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
@@ -81,8 +84,13 @@ import sys
 import xmipp3_tpu_torch
 import xmipp3_tpu_torch.programs
 from xmipp3_tpu_torch.programs import get_program
-get_program("reconstruct_fourier")
-from xmipp3_tpu_torch.ops import fsc, reconstruct, scatter, scatter_kb, scatter_tri
+for name in ("reconstruct_fourier", "angular_project_library",
+             "angular_projection_matching"):
+    get_program(name)
+from xmipp3_tpu_torch.core import metadata_program, sampling
+from xmipp3_tpu_torch.ops import (cross, dft_mm, fourier, fsc, geo, match, polar,
+                                  project, reconstruct, scatter, scatter_kb,
+                                  scatter_tri, shear_rotate, shift)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"
              or m.startswith("xmipp3_tpu."))

@@ -58,3 +58,68 @@ def test_metadata_written_by_the_port_reads_in_the_reference(tmp_path):
         row = theirs.getRow(oid)
         for key, value in rows[i].items():
             assert row[key] == value
+
+
+@pytest.mark.parametrize("name", ["s.mrcs", "s.stk", "v.mrc"])
+@pytest.mark.parametrize("indices", [
+    [0, 1, 2, 3, 4, 5, 6], [2, 3, 4], [5, 0, 3], [1, 2, 6, 7, 8, 4, 4, 5],
+    [8]])
+def test_read_slices_equals_the_slice_by_slice_read(tmp_path, name, indices):
+    """Runs of consecutive slices are fetched with one read each; the
+    arrays are those of the slice-by-slice read, bit for bit."""
+    data = np.random.default_rng(6).standard_normal(
+        (9, 10, 14)).astype(np.float32)
+    path = str(tmp_path / name)
+    timage.save_image(path, data)
+    one_by_one = np.stack([np.squeeze(timage.Image(f"{i + 1}@{path}").data)
+                           for i in indices])
+    got = timage.Image.read_slices(path, indices)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, one_by_one)
+    np.testing.assert_array_equal(got, data[indices])
+    np.testing.assert_array_equal(got, jimage.Image.read_slices(path, indices))
+
+
+def test_read_slices_of_other_dtypes_and_out_of_range(tmp_path):
+    data = np.random.default_rng(7).integers(-100, 100, (5, 6, 8)).astype(
+        np.int16)
+    path = str(tmp_path / "i.mrcs")
+    timage.write_mrc(path, data, dtype=np.int16)
+    got = timage.Image.read_slices(path, [1, 2, 4])
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, data[[1, 2, 4]].astype(np.float32))
+    with pytest.raises(XmippError):
+        timage.Image.read_slices(path, [3, 5])
+    # a format without the run reader still goes slice by slice
+    tif = str(tmp_path / "a.tif")
+    timage.save_image(tif, data[0].astype(np.float32))
+    np.testing.assert_array_equal(timage.Image.read_slices(tif, [0])[0],
+                                  data[0])
+
+
+def test_load_image_rows_and_prefetcher(tmp_path):
+    from xmipp3_tpu.core import metadata_program as jmp
+    from xmipp3_tpu_torch.core import metadata_program as tmp
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((6, 8, 8)).astype(np.float32)
+    b = rng.standard_normal((4, 8, 8)).astype(np.float32)
+    pa, pb, pc = (str(tmp_path / n) for n in ("a.mrcs", "b.stk", "c.spi"))
+    timage.save_image(pa, a)
+    timage.save_image(pb, b)
+    timage.save_image(pc, a[0])
+    names = ([f"{i + 1}@{pa}" for i in (0, 1, 2, 5, 4)] + [pc]
+             + [f"{i + 1:06d}@{pb}" for i in (3, 0, 1, 2)] + [f"3@{pa}"])
+    rows = [{"image": n, "k": i} for i, n in enumerate(names)]
+    want = np.stack([a[0], a[1], a[2], a[5], a[4], a[0], b[3], b[0], b[1],
+                     b[2], a[2]])
+    got = tmp.load_image_rows(rows)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jmp.load_image_rows(rows))
+    seen = list(tmp.BatchPrefetcher(rows, 4))
+    assert [s for s, _, _ in seen] == [0, 4, 8]
+    assert [len(c) for _, c, _ in seen] == [4, 4, 3]
+    np.testing.assert_array_equal(np.concatenate([i for _, _, i in seen]),
+                                  want)
+    with pytest.raises(XmippError):
+        list(tmp.BatchPrefetcher([{"image": f"1@{tmp_path}/none.mrcs"}], 2))

@@ -1,5 +1,6 @@
 """On a card only: each CUDA kernel of the port against its plain version,
-and the whole reconstruction on the card against the same on the CPU.
+and the whole reconstruction and the matching program on the card against
+the same on the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -16,7 +17,7 @@ import torch
 from test_torch_common import phantom_batch, rel_err, require_cuda
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.ops import reconstruct as trec
-from xmipp3_tpu_torch.ops import scatter, scatter_kb, scatter_tri
+from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
 
 KB = dict(radius=1.9, alpha=15.0, order=0)
 KERNELS = ["scatter_add_3ch", "tri_scatter", "kb_scatter_3ch"]
@@ -119,3 +120,136 @@ def test_reconstruct_on_the_card_matches_the_cpu(interp, tol):
     want = trec.reconstruct_fourier(*args, **kw, device="cpu")
     assert got.is_cuda and got.shape == (32, 32, 32)
     assert rel_err(got, want) <= tol
+
+
+def _ring_spectra(B, nr, R, K, seed=5):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.as_tensor(
+        (rng.standard_normal(s) + 1j * rng.standard_normal(s)).astype(
+            np.complex64), device="cuda")
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, nr).astype(np.float32),
+                        device="cuda")
+    return mk(B, nr, K), mk(R, nr, K), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 31, 200, 64), (5, 3, 7, 9),
+                                   (33, 17, 50, 70)])
+@pytest.mark.parametrize("mirror", [False, True])
+def test_cross_spectrum_kernel_matches_plain(shape, mirror):
+    """K4 at the main path's ring and harmonic counts and at ragged sizes
+    that exercise every edge mask; <= 1e-5 * max (fixed summation order,
+    no atomics)."""
+    require_cuda()
+    fi, fr, w = _ring_spectra(*shape)
+    before = cross.launches
+    got = cross.cross_spectrum(fi, fr, w, mirror=mirror)
+    torch.cuda.synchronize()
+    assert cross.launches == before + 1
+    want = cross.cross_spectrum_plain(fi, fr, w, mirror=mirror)
+    for g, p in zip(got if mirror else [got], want if mirror else [want]):
+        assert g.shape == (shape[0], shape[2], shape[3])
+        assert rel_err(g, p) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_streams_kernel_matches_plain():
+    """K5 on the 8 trilinear tap streams of a batch; <= 1e-4 * max (the
+    atomics add in another order)."""
+    require_cuda()
+    coords, vals, P = _card_samples()
+    idx, u0, u1, u2 = scatter_tri.tri_expand(*coords, *vals, P)
+    idx = idx.view(8, -1)
+    v = torch.stack([u.view(8, -1) for u in (u0, u1, u2)], dim=1).contiguous()
+    ck = [torch.zeros(P ** 3, device="cuda") for _ in range(3)]
+    cp = [torch.zeros(P ** 3, device="cuda") for _ in range(3)]
+    before = scatter.streams_launches
+    scatter.scatter_add_3ch_streams(*ck, idx, v)
+    scatter.scatter_add_3ch_streams_plain(*cp, idx, v)
+    torch.cuda.synchronize()
+    assert scatter.streams_launches == before + 1
+    for a, b in zip(ck, cp):
+        assert rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cross_and_streams_wrappers_reject_operands_off_the_card():
+    require_cuda()
+    fi, fr, w = _ring_spectra(4, 3, 5, 8)
+    before = cross.launches, scatter.streams_launches
+    with pytest.raises(ValueError, match="on"):
+        cross.cross_spectrum(fi, fr.cpu(), w)
+    with pytest.raises(ValueError, match="on"):
+        cross.cross_spectrum(fi.cpu(), fr.cpu(), w)
+    c = [torch.zeros(10, device="cuda") for _ in range(3)]
+    with pytest.raises(ValueError, match="on"):
+        scatter.scatter_add_3ch_streams(
+            *c, torch.zeros((2, 4), dtype=torch.int32),
+            torch.zeros((2, 3, 4), device="cuda"))
+    assert (cross.launches, scatter.streams_launches) == before
+
+
+@pytest.mark.cuda
+def test_matching_program_on_the_card_matches_the_cpu(tmp_path):
+    """Gallery and matching programs on the card against --device cpu:
+    the same gallery to 1e-4 * max; the same reference and flip (the exact
+    antipodal-mirror tie counted as the same direction) for >= 98 % of the
+    particles and, on the same rows, psi <= 0.5 deg and shifts <= 0.05 px."""
+    require_cuda()
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.sampling import directions_from_angles
+    from xmipp3_tpu_torch.ops.geo import apply_alignment_2d
+    from xmipp3_tpu_torch.programs import get_program
+    N, B = 32, 48
+    z, y, x = np.mgrid[0:N, 0:N, 0:N].astype(np.float32) - N // 2
+    vol = sum(a * np.exp(-((z - cz) ** 2 + (y - cy) ** 2 + (x - cx) ** 2)
+                         / (2 * s ** 2))
+              for cz, cy, cx, s, a in [(0, 0, 0, 3.0, 1.0), (4, -3, 3, 2.0, .8),
+                                       (-3, 3, -2, 2.5, .6), (2, 4, -4, 1.8, .9),
+                                       (-5, -5, 1, 1.5, 1.1)])
+    save_image(str(tmp_path / "v.vol"), vol.astype(np.float32))
+    for dev in ("cpu", "cuda"):
+        assert get_program("angular_project_library").run_with_args(
+            ["-i", str(tmp_path / "v.vol"), "-o", str(tmp_path / dev),
+             "--sampling_rate", "15", "--device", dev]) == 0
+    refs = np.squeeze(Image(str(tmp_path / "cpu.stk")).data)
+    assert rel_err(np.squeeze(Image(str(tmp_path / "cuda.stk")).data),
+                   refs) <= 1e-4
+    rng = np.random.default_rng(9)
+    idx = rng.integers(0, len(refs), B)
+    imgs = apply_alignment_2d(
+        refs[idx], rng.uniform(-180, 180, B).astype(np.float32),
+        rng.uniform(-3, 3, B).astype(np.float32),
+        rng.uniform(-3, 3, B).astype(np.float32), device="cpu").numpy()
+    imgs += 0.1 * refs.std() * rng.standard_normal(imgs.shape).astype(
+        np.float32)
+    save_image(str(tmp_path / "p.mrcs"), imgs)
+    MetaData.fromRows({"image": f"{i + 1}@{tmp_path}/p.mrcs"}
+                      for i in range(B)).write(str(tmp_path / "p.xmd"))
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        before = cross.launches
+        assert get_program("angular_projection_matching").run_with_args(
+            ["-i", str(tmp_path / "p.xmd"), "-o", str(tmp_path / f"{dev}.xmd"),
+             "--ref", str(tmp_path / "cpu"), "--max_shift", "4", "--batch",
+             "32", "--device", dev]) == 0
+        # 13 trial shifts x 2 batches on the card, none on the CPU
+        assert cross.launches - before == (26 if dev == "cuda" else 0)
+        md = MetaData(str(tmp_path / f"{dev}.xmd"))
+        rows[dev] = [md.getRow(i) for i in md]
+    col = lambda dev, k: np.array([float(r[k]) for r in rows[dev]])
+    gal = MetaData(str(tmp_path / "cpu.doc"))
+    d = directions_from_angles(np.array(
+        [[gal.getRow(i)["angleRot"], gal.getRow(i)["angleTilt"]]
+         for i in gal], float))
+    ref_c, ref_g = (col(dev, "ref").astype(int) - 1 for dev in ("cpu", "cuda"))
+    flips = col("cpu", "flip") != col("cuda", "flip")
+    same = (ref_c == ref_g) & ~flips
+    tie = ~same & flips & ((d[ref_c] * d[ref_g]).sum(-1) < -0.9999)
+    assert (same | tie).mean() >= 0.98 and same.mean() >= 0.8
+    dpsi = np.abs((col("cpu", "anglePsi") - col("cuda", "anglePsi") + 180)
+                  % 360 - 180)
+    assert dpsi[same].max() <= 0.5
+    for k in ("shiftX", "shiftY"):
+        assert np.abs(col("cpu", k) - col("cuda", k))[same].max() <= 0.05

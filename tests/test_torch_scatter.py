@@ -164,3 +164,38 @@ def test_unpack_packed_cube_round_trips_reference_pack():
     packed = np.asarray(packed_cube_pack(cubes3, P_))
     np.testing.assert_array_equal(scatter_tri.unpack_packed_cube(packed, P_),
                                   cubes3)
+
+
+def test_k5_streams_match_the_reference_fallback():
+    """K5's wrapper on the CPU (per-stream index_add_) against the
+    reference's scatter_add_3ch_streams off the TPU, on sorted streams with
+    out-of-range indices that carry zeros; <= 1e-5 * max (float32 sums of
+    duplicates in another order)."""
+    from xmipp3_tpu.ops.pallas_scatter import scatter_add_3ch_streams as jref
+    rng = np.random.default_rng(7)
+    S, ns, M = 40_000, 8, 30_000
+    idx = np.sort(rng.integers(-50, S + 50, (ns, M)), axis=1).astype(np.int32)
+    idx[:, 1000:3000] = idx[:, 1000:1001]            # heavy duplicates
+    vals = rng.standard_normal((ns, 3, M)).astype(np.float32)
+    vals *= ((idx >= 0) & (idx < S))[:, None, :]
+    base = rng.standard_normal((3, S)).astype(np.float32)
+    want = [np.asarray(a) for a in jref(
+        *map(jnp.asarray, base), [jnp.asarray(i) for i in idx],
+        [tuple(jnp.asarray(c) for c in v) for v in vals], use_pallas=False)]
+    cubes = [torch.tensor(b) for b in base]
+    args = (torch.tensor(idx), torch.tensor(vals))
+    before = scatter.streams_launches
+    got = scatter.scatter_add_3ch_streams(*cubes, *args)
+    assert scatter.streams_launches == before   # CPU tensors: plain version
+    for g, c, w in zip(got, cubes, want):
+        assert g is c                            # in place
+        assert rel_err(g, w) <= 1e-5
+
+
+def test_k5_rejects_what_the_kernel_does_not_take():
+    c = [torch.zeros(10) for _ in range(3)]
+    idx = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\(ns, 3, M\)"):
+        scatter.scatter_add_3ch_streams(*c, idx, torch.zeros(2, 4))
+    with pytest.raises(TypeError, match="int32"):
+        scatter.scatter_add_3ch_streams(*c, idx.long(), torch.zeros(2, 3, 4))

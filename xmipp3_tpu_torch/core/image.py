@@ -683,6 +683,45 @@ def _codec_for(fn: FileName) -> str:
     return "spider_or_mrc"
 
 
+def _read_stack_runs(path: str, idx: list[int], codec: str):
+    """Slices `idx` (0-based) of an MRC or Spider stack of 2-D images with
+    one open and one read per run of consecutive indices; None where the
+    file is not such a stack (the caller then reads slice by slice)."""
+    with open(path, "rb") as f:
+        if codec == "mrc":
+            hdr, offset, swapped, _ = _read_mrc_header(f)
+            n, z, y, x = hdr.shape
+            dt = hdr.dtype.newbyteorder(">") if swapped else hdr.dtype
+            count, head, skip = max(n, z), offset, 0
+            if min(n, z) != 1:
+                return None
+        else:
+            h, order = _parse_spider_header(f.read(1024))
+            nslice, y, x = int(h[0]), int(h[1]), int(h[11])
+            labbyt, istack, count = int(h[21]), int(h[23]), int(h[25])
+            dt = np.dtype(np.float32).newbyteorder(order)
+            if istack <= 0 or nslice != 1:
+                return None
+            head, skip = labbyt, labbyt // 4   # each image follows a header
+        if min(idx) < 0 or max(idx) >= count:
+            raise XmippError(ErrCode.INDEX_OUTOFBOUNDS,
+                             f"slice {max(idx) + 1} of {path}")
+        rec = skip + y * x                      # items per stored image
+        out = np.empty((len(idx), y, x), np.float32)
+        i = 0
+        while i < len(idx):
+            j = i + 1
+            while j < len(idx) and idx[j] == idx[j - 1] + 1:
+                j += 1
+            f.seek(head + idx[i] * rec * dt.itemsize)
+            block = np.fromfile(f, dtype=dt, count=(j - i) * rec)
+            if block.size != (j - i) * rec:
+                raise XmippError(ErrCode.IO_SIZE, f"truncated stack {path}")
+            out[i:j] = block.reshape(j - i, rec)[:, skip:].reshape(-1, y, x)
+            i = j
+    return out
+
+
 class Image:
     """In-memory image/volume/stack with format codecs.
 
@@ -738,11 +777,22 @@ class Image:
 
     @staticmethod
     def read_slices(path: str, indices) -> np.ndarray:
-        """Read selected 0-based slices of a stack, one at a time."""
+        """Read selected 0-based slices of a stack as (n, Y, X) float32.
+
+        An MRC or Spider stack of 2-D images is opened once, and every run
+        of consecutive indices is fetched with one read; other files are
+        read slice by slice."""
         fn_obj = as_filename(path)
+        idx = [int(i) for i in np.asarray(indices).ravel()]
+        codec = _codec_for(fn_obj)
+        out = None
+        if idx and codec in ("mrc", "spider") and os.path.exists(fn_obj.path):
+            out = _read_stack_runs(fn_obj.path, idx, codec)
+        if out is not None:
+            return out
         return np.stack([
-            np.squeeze(Image(f"{int(i) + 1}@{fn_obj.path}").data)
-            for i in np.asarray(indices)]).astype(np.float32)
+            np.squeeze(Image(f"{i + 1}@{fn_obj.path}").data)
+            for i in idx]).astype(np.float32)
 
     # -- writing --------------------------------------------------------
     def write(self, fn, sampling: float | None = None) -> None:

@@ -8,6 +8,7 @@ do with `device="cpu"` (or `--device cpu` on the command line).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,16 @@ def resolve_device(device=None) -> torch.device:
             "torch.cuda.is_available() is False here; pass device=\"cpu\" "
             "(or --device cpu) to run on the CPU")
     return device
+
+
+def as_tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:
+    """x as a tensor of `dtype` (None keeps its type). A tensor stays on its
+    own device unless `device` is given; anything else (numpy, lists,
+    scalars) goes to resolve_device(device): the card by default."""
+    if isinstance(x, torch.Tensor):
+        if device is not None:
+            x = x.to(resolve_device(device))
+        return x if dtype is None else x.to(dtype)
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()          # torch shares memory only with writable arrays
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))

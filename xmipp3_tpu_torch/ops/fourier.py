@@ -1,10 +1,36 @@
-"""Fourier shift phases (the subset of the reference package's
-ops/fourier.py that Fourier reconstruction needs), in torch complex64."""
+"""Frequency grids, batched 2-D transforms and Fourier shifts (the subset
+of the reference package's ops/fourier.py that reconstruction, gallery
+projection and projection matching need), in torch float32/complex64."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from xmipp3_tpu_torch.device import as_tensor
+
+
+def freq_grid_2d(h: int, w: int):
+    """(fy, fx) normalized frequencies for the rfft2 layout: fy (h,1),
+    fx (1,w//2+1), numpy float32."""
+    fy = np.fft.fftfreq(h).astype(np.float32)[:, None]
+    fx = np.fft.rfftfreq(w).astype(np.float32)[None, :]
+    return fy, fx
+
+
+def radial_freq_2d(h: int, w: int):
+    fy, fx = freq_grid_2d(h, w)
+    return np.sqrt(fy * fy + fx * fx).astype(np.float32)
+
+
+def rfft2(imgs, device=None):
+    return torch.fft.rfft2(as_tensor(imgs, device))
+
+
+def irfft2(spec, shape=None, device=None):
+    return torch.fft.irfft2(as_tensor(spec, device, torch.complex64),
+                            s=shape)
 
 
 def phase_ramp_1d(freqs, shifts):
@@ -25,3 +51,19 @@ def shift_spec_2d(spec, sx, sy, H: int, W: int):
     px = phase_ramp_1d(torch.fft.rfftfreq(W, device=dev), sx)
     py = phase_ramp_1d(torch.fft.fftfreq(H, device=dev), sy)
     return spec * py[..., :, None] * px[..., None, :]
+
+
+def fourier_shift_2d(imgs, sx, sy, device=None):
+    """Subpixel periodic shift by (sx, sy) pixels via Fourier phase ramp.
+    Positive sx moves content toward +x (the convention of
+    apply_alignment_2d shifts). imgs (B,H,W) or (H,W)."""
+    imgs = as_tensor(imgs, device)
+    single = imgs.ndim == 2
+    if single:
+        imgs = imgs[None]
+    B, H, W = imgs.shape
+    sx = as_tensor(sx, imgs.device).reshape(-1)
+    sy = as_tensor(sy, imgs.device).reshape(-1)
+    spec = shift_spec_2d(torch.fft.rfft2(imgs), sx, sy, H, W)
+    out = torch.fft.irfft2(spec, s=(H, W))
+    return out[0] if single else out

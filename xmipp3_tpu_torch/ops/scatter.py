@@ -1,4 +1,5 @@
-"""K1: three-channel shared-index scatter-add, and the tap streams that feed it.
+"""K1: three-channel shared-index scatter-add, and the tap streams that feed
+it; K5: the same over several update streams in one launch.
 
 Replaces `scatter_add_3ch` / `_pallas_scatter3` of
 xmipp3_tpu/ops/pallas_scatter.py:110-180, whose Pallas kernel `_seg_kernel`
@@ -11,9 +12,16 @@ plus the three accumulators read and written once; in practice the float
 atomics' update rate in L2 sets the time, so a measured time is reported
 beside that byte bound, not as a share of it.
 
-`scatter_add_3ch` launches the kernel for CUDA tensors and uses the plain
-version (three `index_add_`) only for CPU tensors. It updates the
-accumulators in place and returns them.
+K5 replaces `scatter_add_3ch_streams` of xmipp3_tpu/ops/pallas_scatter.py:
+264-331, whose Pallas kernel `_seg_kernel_multi` (:194-261) walks ns sorted
+streams per tile from searchsorted tile starts. The second entry point of
+csrc/scatter.cu runs one grid-stride loop over all ns * M updates with K1's
+device code: no sort, no tile starts, no one-hot products. Its bound is
+K1's, with 16 bytes per update of every stream.
+
+`scatter_add_3ch` and `scatter_add_3ch_streams` launch their kernel for
+CUDA tensors and use the plain version (`index_add_`) only for CPU tensors.
+They update the accumulators in place and return them.
 """
 from __future__ import annotations
 
@@ -26,9 +34,15 @@ from xmipp3_tpu_torch.ops import _cuda_build as cb
 # Launches of the CUDA kernel (never of the plain version) since the last
 # reset; a run sets it to 0 and reads it to show its path used the kernel.
 launches = 0
+# The same for K5's kernel (scatter_add_3ch_streams).
+streams_launches = 0
 
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64, ctypes.c_int64,
                                       ctypes.c_void_p)
+
+
+_STREAMS_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) * 3 + (
+    ctypes.c_void_p,)
 
 
 def scatter_add_3ch_plain(c0, c1, c2, idx, v0, v1, v2):
@@ -62,6 +76,55 @@ def scatter_add_3ch(c0, c1, c2, idx, v0, v1, v2):
         rc = fn(cb.ptr(idx), cb.ptr(v0), cb.ptr(v1), cb.ptr(v2), cb.ptr(c0),
                 cb.ptr(c1), cb.ptr(c2), M, S, cb.stream_ptr(dev))
     launches += 1
+    cb.check_launch(rc, what)
+    return c0, c1, c2
+
+
+def scatter_add_3ch_streams_plain(c0, c1, c2, idx_streams, v_streams):
+    """Per stream and channel, index_add_ on the indices clamped into
+    [0, S) (in place): an out-of-range index carries zero by contract."""
+    S = c0.numel()
+    for idx, v in zip(idx_streams, v_streams):
+        i = idx.clamp(0, S - 1)
+        for c, u in zip((c0, c1, c2), v):
+            c.view(-1).index_add_(0, i, u)
+    return c0, c1, c2
+
+
+def scatter_add_3ch_streams(c0, c1, c2, idx_streams, v_streams):
+    """Multi-stream scatter-add: c_k.view(-1)[idx_streams[s]] += v_streams[s][k]
+    for every stream s, in one launch.
+
+    c0/c1/c2: float32 accumulators of S elements; idx_streams: (ns, M) int32;
+    v_streams: (ns, 3, M) float32 (the reference's lists of streams,
+    stacked). An index outside [0, S) must carry zero values and is skipped.
+    In place."""
+    what = "scatter_add_3ch_streams"
+    if idx_streams.ndim != 2 or v_streams.shape != (
+            idx_streams.shape[0], 3, idx_streams.shape[1]):
+        raise ValueError(f"{what}: idx_streams {tuple(idx_streams.shape)} and "
+                         f"v_streams {tuple(v_streams.shape)} must be (ns, M) "
+                         "and (ns, 3, M)")
+    ns, M = idx_streams.shape
+    S = c0.numel()
+    dev = cb.check_operands(what, torch.float32, S, c0=c0, c1=c1, c2=c2)
+    vdev = cb.check_operands(what, torch.float32, ns * 3 * M,
+                             v_streams=v_streams)
+    idev = cb.check_operands(what, torch.int32, ns * M,
+                             idx_streams=idx_streams)
+    if not dev == vdev == idev:
+        raise ValueError(f"{what}: operands on {dev}, {vdev} and {idev}")
+    if dev.type == "cpu":
+        return scatter_add_3ch_streams_plain(c0, c1, c2, idx_streams,
+                                             v_streams)
+    if ns * M == 0:
+        return c0, c1, c2
+    global streams_launches
+    fn = cb.bind("scatter", "xm_scatter_add_3ch_streams", _STREAMS_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = fn(cb.ptr(idx_streams), cb.ptr(v_streams), cb.ptr(c0),
+                cb.ptr(c1), cb.ptr(c2), ns, M, S, cb.stream_ptr(dev))
+    streams_launches += 1
     cb.check_launch(rc, what)
     return c0, c1, c2
 

@@ -11,6 +11,10 @@ import sys
 
 # program name -> module path (module's PROGRAM attribute)
 _REGISTRY: dict[str, str] = {
+    "angular_project_library":
+        "xmipp3_tpu_torch.programs.angular_project_library",
+    "angular_projection_matching":
+        "xmipp3_tpu_torch.programs.angular_projection_matching",
     "reconstruct_fourier": "xmipp3_tpu_torch.programs.reconstruct_fourier",
 }
 

@@ -17,6 +17,7 @@ import torch
 from xmipp3_tpu_torch.core.errors import ErrCode, XmippError
 from xmipp3_tpu_torch.core.image import Image, save_image
 from xmipp3_tpu_torch.core.metadata import MetaData
+from xmipp3_tpu_torch.core.metadata_program import load_image_rows
 from xmipp3_tpu_torch.core.program import XmippProgram
 from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import resolve_device
@@ -106,8 +107,7 @@ class ProgRecFourier(XmippProgram):
         for s in range(0, len(rows), self.batch):
             chunk = rows[s:s + self.batch]
             with timed_phase("read images"):
-                imgs = np.stack([np.squeeze(Image(r["image"]).data)
-                                 for r in chunk]).astype(np.float32)
+                imgs = load_image_rows(chunk)
             get = lambda k, d=0.0: np.array(
                 [float(r.get(k, d)) for r in chunk], np.float32)
             with timed_phase("add_batch", sync=rec.data_r):
