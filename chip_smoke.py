@@ -11,25 +11,32 @@ Phases; any failure exits non-zero before the result line is printed:
    nvcc build of every kernel in xmipp3_tpu_torch/csrc/ and its seconds.
 2. Kernel vs plain at the main path's shapes: N=128, P=256, one 256-image
    batch of slice samples from random poses (M = 1,661,440 samples) for the
-   gridding kernels and the 8 trilinear tap streams of that batch for the
-   multi-stream scatter; ring FFTs of noise at B=512 images, 31 rings,
+   gridding kernels; for the multi-stream scatter that batch's 160 tap
+   streams under the wide blob of phase 3, made as the main path makes them
+   (and, as a side reading, its 8 trilinear tap streams); ring FFTs of
+   noise at B=512 images, 31 rings,
    R=1652 references and 64 harmonics for the cross-spectrum. Each kernel
    is held against its plain PyTorch version on the same inputs
    (max |kernel - plain| / max |plain| <= 1e-4 for the scatters, whose
    atomics add in another order; <= 1e-5 for the cross-spectrum, whose sums
    run in a fixed order) and timed with CUDA events beside its plain
    version, its bound and, where one PyTorch call computes the same, that
-   call.
+   call. The scatters also get their bound counted in 32-byte sectors (what
+   the atomics move between L2 and device memory), their channel adds per
+   second and the wrapper's host microseconds per call; K1 is also timed on
+   K5's tap streams flattened, beside K5 on them stacked.
 3. End to end through the CLI: an analytic Gaussian phantom's projections
    at N=128 (10,000 views, the repo's headline reconstruction workload;
    uniform on the sphere, random psi, small shifts) are
    written as an .mrcs stack with an .xmd, and
    `python -m xmipp3_tpu_torch.programs reconstruct_fourier` runs
-   in-process on the card with --interp kb, tri+kb and nn. Every kernel's
-   launch count is set to 0 before each run and read after it; the run's
-   kernel must have launched. The map must agree with the phantom: FSC >= 0.9
-   up to half Nyquist for kb and tri+kb, real-space correlation >= 0.9 for
-   nn.
+   in-process on the card with --interp kb, tri+kb and nn, and with a blob
+   wider than the kb kernel's footprint (--blob 2.5 0 10), whose taps go
+   through the multi-stream scatter. Every kernel's launch count is set to
+   0 before each run and read after it; the run's kernel must have
+   launched. The map must agree with the phantom: FSC >= 0.9 up to half
+   Nyquist for kb and tri+kb, real-space correlation >= 0.9 for nn and the
+   wide blob.
 4. The cycle through the CLI: an 8-blob phantom at N=128 ->
    angular_project_library --sampling_rate 5 (1652 directions) -> 10,000
    analytic views (uniform on the sphere, random psi, shifts of +-3 px,
@@ -102,8 +109,10 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call line)
     "scatter_add_3ch_streams": ("xmipp3_tpu_torch/csrc/scatter.cu",
                                 "xmipp3_tpu/ops/pallas_scatter.py:309"),
 }
-RUNS = (("kb", "kb_scatter_3ch"), ("tri+kb", "tri_scatter"),
-        ("nn", "scatter_add_3ch"))
+WIDE_BLOB = ("2.5", "0", "10")   # radius, order, alpha: 160 taps a sample
+RUNS = (("kb", (), "kb_scatter_3ch"), ("tri+kb", (), "tri_scatter"),
+        ("nn", (), "scatter_add_3ch"),
+        ("kb", ("--blob", *WIDE_BLOB), "scatter_add_3ch_streams"))
 
 
 class SmokeFailure(Exception):
@@ -142,6 +151,20 @@ def slice_samples(seed, device):
                      rng.uniform(0.5, 1.5, M)]).astype(np.float32)
     vals = [torch.as_tensor(v, device=device) for v in vals]
     return coords, vals
+
+
+def host_us(fn, reps=200):
+    """Host microseconds a call of `fn` takes to return (the wrapper's
+    checks and the launch; the card runs behind), then a synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / reps * 1e6
 
 
 def time_ms(fn, reps, warmup=2):
@@ -183,6 +206,7 @@ def compare(name, kernel, plain, stream, bytes_per_sample, ops_per_tap,
           f"{name}: kernel disagrees with its plain version ({rel:.3e} > "
           f"{TOL})")
     ms = time_ms(lambda: kernel(*ck), reps=20)
+    call_us = host_us(lambda: kernel(*ck))
     plain_ms = time_ms(lambda: plain(*cp), reps=5, warmup=1)
     library_ms = None if library is None else \
         time_ms(lambda: library(*cp), reps=20)
@@ -193,6 +217,12 @@ def compare(name, kernel, plain, stream, bytes_per_sample, ops_per_tap,
     taps = int(live.sum())
     touched = int(torch.unique(idx[live]).numel())
     nbytes = M * bytes_per_sample + touched * 3 * 4 * 2
+    # the same counted in the 32-byte sectors an atomic moves in and out of
+    # L2 (the cubes start on a sector boundary)
+    sectors = int(torch.unique(idx[live] >> 3).numel())
+    sector_bytes = M * bytes_per_sample + sectors * 3 * 32 * 2
+    sector_bound_ms = sector_bytes / HBM_BYTES_PER_S * 1e3
+    atomics_per_s = 3 * taps / (ms * 1e-3)   # a float2 atomic counts as two
     nops = taps * ops_per_tap + M * ops_per_sample
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_FLOPS * 1e3
@@ -200,7 +230,10 @@ def compare(name, kernel, plain, stream, bytes_per_sample, ops_per_tap,
     log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms"
         + ("" if library_ms is None else f", index_add_ {library_ms:.4f} ms")
         + f"); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
-        f"{nops / 1e9:.3f} GFLOP; {taps} live taps, {touched} voxels)")
+        f"{nops / 1e9:.3f} GFLOP; {taps} live taps, {touched} voxels); "
+        f"sector bound {sector_bound_ms:.4f} ms ({sectors} sectors, "
+        f"{sector_bytes / 1e6:.1f} MB); {atomics_per_s / 1e9:.1f} G channel "
+        f"adds/s; wrapper {call_us:.1f} us a call on the host")
     src, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": None, "max_abs_err": err,
@@ -208,14 +241,43 @@ def compare(name, kernel, plain, stream, bytes_per_sample, ops_per_tap,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "samples": M, "live_taps": taps,
-            "touched_voxels": touched}
+            "touched_voxels": touched, "sector_bound_ms": sector_bound_ms,
+            "touched_sectors": sectors, "atomics_per_s": atomics_per_s,
+            "host_us_per_call": call_us}
+
+
+def streams_vs_plain(label, idx_streams, v_streams, flat):
+    """K5 on stacked streams (ns, M) / (ns, 3, M) against its plain version
+    and against index_add_ per stream and channel; `flat` is the same
+    updates tap-major (idx, u0, u1, u2), on which K1 is timed in the same
+    call: which of the two a footprint of several taps should go through."""
+    from xmipp3_tpu_torch.ops import scatter
+    name = "scatter_add_3ch_streams"
+    log(f"  {name} on {label}: {tuple(idx_streams.shape)}")
+    got = compare(
+        name,
+        lambda *c: scatter.scatter_add_3ch_streams(*c, idx_streams, v_streams),
+        lambda *c: scatter.scatter_add_3ch_streams_plain(*c, idx_streams,
+                                                         v_streams),
+        flat, 16, 3, 0, idx_streams.numel(),
+        library=lambda *c: [a.index_add_(0, i, u)
+                            for i, v in zip(idx_streams, v_streams)
+                            for a, u in zip(c, v)])
+    ck = cubes(DEVICE)
+    k1_ms = time_ms(lambda: scatter.scatter_add_3ch(*ck, *flat), reps=10)
+    got["streams"] = idx_streams.shape[0]
+    got["k1_on_flattened_streams_ms"] = k1_ms
+    log(f"  scatter_add_3ch on these streams flattened ({flat[0].numel()} "
+        f"updates): {k1_ms:.4f} ms, against {got['ms']:.4f} ms for {name} "
+        "on them stacked")
+    return got
 
 
 def kernels_vs_plain(seed):
     import torch
     from xmipp3_tpu_torch.ops import scatter, scatter_kb, scatter_tri
     from xmipp3_tpu_torch.ops.reconstruct import (BLOB_ALPHA, BLOB_ORDER,
-                                                  BLOB_RADIUS)
+                                                  BLOB_RADIUS, _footprint)
     (zi, yi, xi), (v0, v1, v2) = slice_samples(seed, DEVICE)
     M = zi.numel()
     log(f"phase 2: kernels vs plain at N={N}, P={P}, one {BATCH}-image "
@@ -257,19 +319,33 @@ def kernels_vs_plain(seed):
         kbs, 24, 28, 6, M))
     del kbs
 
-    # K5 on the 8 trilinear tap streams of the batch: per update the index
-    # and three values (16 bytes), three adds
+    # K5 on the 8 trilinear tap streams of the batch (a side reading: K2's
+    # taps, as in earlier runs): per update the index and three values (16
+    # bytes), three adds
     tri = scatter_tri.tri_expand(*samples, P)
     idx8 = tri[0].view(8, -1)
     v8 = torch.stack([u.view(8, -1) for u in tri[1:]], dim=1).contiguous()
-    out.append(compare(
-        "scatter_add_3ch_streams",
-        lambda *c: scatter.scatter_add_3ch_streams(*c, idx8, v8),
-        lambda *c: scatter.scatter_add_3ch_streams_plain(*c, idx8, v8),
-        tri, 16, 3, 0, idx8.numel(),
-        library=lambda *c: [a.index_add_(0, i, u) for i, v in zip(idx8, v8)
-                            for a, u in zip(c, v)]))
+    tri8 = streams_vs_plain("8 trilinear streams", idx8, v8, tri)
     del tri, idx8, v8, samples
+    torch.cuda.empty_cache()
+
+    # K5 at the shape the main path gives it: the batch's tap streams under
+    # the wide blob, made as backproject_chunk makes them
+    radius, order, alpha = WIDE_BLOB
+    foot = _footprint(zi, yi, xi, "kb", (float(radius), int(order),
+                                         float(alpha)))
+    idxw, vw = scatter.expand_tap_streams(*foot, v0, v1, v2, P)
+    del foot
+    flat = (idxw.view(-1), *(vw[:, k].reshape(-1) for k in range(3)))
+    wide = streams_vs_plain(f"{idxw.shape[0]} streams of the blob "
+                            + " ".join(WIDE_BLOB), idxw, vw, flat)
+    wide["on_8_trilinear_streams"] = {
+        k: tri8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "sector_bound_ms", "rel_err", "max_abs_err",
+                             "samples", "live_taps", "atomics_per_s",
+                             "k1_on_flattened_streams_ms")}
+    out.append(wide)
+    del idxw, vw, flat
     torch.cuda.empty_cache()
     out.append(cross_vs_plain(seed))
     torch.cuda.empty_cache()
@@ -447,36 +523,37 @@ def end_to_end(seed):
     launches, runs = {}, []
     timing.enable_timing(True)
     try:
-        for interp, kname in RUNS:
-            out = root / f"rec_{interp.replace('+', '_')}.vol"
+        for interp, extra, kname in RUNS:
+            label = " ".join((interp, *extra))
+            out = root / f"rec_{len(runs)}.vol"
             launch_counts(reset=True)
             timing.take_timing()
             t0 = time.perf_counter()
             rc = xmipp(["xmipp", "reconstruct_fourier", "-i", str(md), "-o",
-                        str(out), "--interp", interp, "--device", DEVICE,
-                        "-v", "0"])
+                        str(out), "--interp", interp, *extra, "--device",
+                        DEVICE, "-v", "0"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counts()
             phases = timing.take_timing()
-            check(rc == 0, f"reconstruct_fourier --interp {interp}: rc {rc}")
+            check(rc == 0, f"reconstruct_fourier --interp {label}: rc {rc}")
             launches[kname] = counts[kname]
-            check(counts[kname] > 0, f"--interp {interp} never launched "
+            check(counts[kname] > 0, f"--interp {label} never launched "
                   f"{kname}: {counts}")
             _, fsc, corr = map_quality(out, ref)
             half = fsc[: len(fsc) // 2]
-            run = {"interp": interp, "kernel": kname, "launches": counts,
+            run = {"interp": label, "kernel": kname, "launches": counts,
                    "wall_s": wall, "images_per_s": VIEWS / wall,
                    "fsc_min_to_half_nyquist": float(half.min()),
                    "corr": corr,
                    "phases_s": {k: v[0] for k, v in phases.items()}}
-            log(f"  --interp {interp}: {wall:.3f} s, {VIEWS / wall:.1f} "
+            log(f"  --interp {label}: {wall:.3f} s, {VIEWS / wall:.1f} "
                 f"images/s, launches {counts}, min FSC to Nyquist/2 "
                 f"{half.min():.4f}, corr {corr:.4f}, phases "
                 + ", ".join(f"{k} {v[0]:.3f} s" for k, v in phases.items()))
-            if interp == "nn":
-                check(corr >= 0.9, f"--interp nn: correlation {corr:.4f} "
-                      "with the phantom < 0.9")
+            if interp == "nn" or extra:
+                check(corr >= 0.9, f"--interp {label}: correlation "
+                      f"{corr:.4f} with the phantom < 0.9")
             else:
                 check(half.min() >= 0.9, f"--interp {interp}: FSC "
                       f"{half.min():.4f} < 0.9 below half Nyquist")

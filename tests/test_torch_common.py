@@ -72,6 +72,60 @@ def phantom_batch(seed: int, C: int, N: int):
     return b
 
 
+# Ragged update streams for K1 (ns == 1, flattened by the caller) and K5:
+# (kind, M, ns). SCATTER_S is no multiple of 8, so the accumulators' last
+# 32-byte sector is partial.
+SCATTER_S = 1003
+SCATTER_CASES = (
+    [("random", M, ns) for M in (1, 3, 255, 257, 1025) for ns in (1, 3, 8)]
+    + [("one_voxel", 4097, 1), ("one_voxel", 1025, 8),
+       ("pairs_even", 1024, 1), ("pairs_odd", 1024, 1),
+       ("pairs_even", 1025, 2), ("pairs_odd", 1025, 2),
+       ("pairs_even", 257, 8), ("pairs_odd", 257, 8),
+       ("out_of_range", 1025, 3), ("out_of_range", 257, 8)])
+K1_CASES = [c for c in SCATTER_CASES if c[2] == 1]
+
+
+def scatter_case(kind: str, M: int, ns: int, seed: int = 11):
+    """numpy inputs of a scatter: base (3, S) float32, idx (ns, M) int32,
+    vals (ns, 3, M) float32. Kinds: "random" indices in [0, S);
+    "one_voxel", every update on one voxel; "pairs_even" / "pairs_odd",
+    (x, x+1) neighbours with x even / odd, in streams (2t, 2t+1) or, for
+    one stream, in updates (2i, 2i+1); "out_of_range", indices in
+    [-50, S+50) whose values are zero outside [0, S)."""
+    rng = np.random.default_rng(seed)
+    S = SCATTER_S
+    base = rng.standard_normal((3, S)).astype(np.float32)
+    vals = rng.standard_normal((ns, 3, M)).astype(np.float32)
+    if kind == "random":
+        idx = rng.integers(0, S, (ns, M))
+    elif kind == "one_voxel":
+        idx = np.full((ns, M), 77)
+    elif kind == "out_of_range":
+        idx = rng.integers(-50, S + 50, (ns, M))
+        vals *= ((idx >= 0) & (idx < S))[:, None, :]
+    else:
+        x = 2 * rng.integers(0, (S - 2) // 2, (ns, M)) + (kind == "pairs_odd")
+        if ns == 1:
+            x[0, 1::2] = x[0, :M - 1:2] + 1
+        else:
+            x[1::2] = x[0:2 * (ns // 2):2] + 1
+        idx = x
+    return base, idx.astype(np.int32), vals
+
+
+def tensor_at_offset(a, offset: int, device="cpu"):
+    """A contiguous tensor equal to `a` that starts `offset` elements into
+    a larger buffer: with offset 1 its data pointer is 4 bytes past the
+    alignment of an allocation."""
+    a = np.ascontiguousarray(a)
+    src = torch.from_numpy(a)
+    big = torch.empty(a.size + offset, dtype=src.dtype, device=device)
+    out = big[offset:].view(a.shape)
+    out.copy_(src)
+    return out
+
+
 def require_cuda():
     """Skip the calling test when no card is visible (decided at run time,
     never at import)."""
@@ -108,7 +162,8 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), REPO / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cuh"),
+     REPO / "chip_smoke.py"]))
 def test_port_sources_name_neither_jax_nor_the_reference(path):
     text = (REPO / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M), path

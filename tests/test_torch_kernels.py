@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import phantom_batch, rel_err, require_cuda
+from test_torch_common import (K1_CASES, SCATTER_CASES, phantom_batch,
+                               rel_err, require_cuda, scatter_case,
+                               tensor_at_offset)
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.ops import reconstruct as trec
 from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
@@ -170,6 +172,86 @@ def test_streams_kernel_matches_plain():
     assert scatter.streams_launches == before + 1
     for a, b in zip(ck, cp):
         assert rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("kind,M,ns", K1_CASES)
+def test_k1_kernel_matches_plain_on_ragged_streams(kind, M, ns, misaligned):
+    """K1 on stream lengths around the warp and block sizes, every update
+    on one voxel (the warp-aggregated add), (x, x+1) neighbours, S no
+    multiple of 8, and operands that start 4 bytes into a buffer;
+    <= 1e-4 * max (the atomics add in another order)."""
+    require_cuda()
+    base, idx, vals = scatter_case(kind, M, ns)
+    at = lambda a: tensor_at_offset(a, int(misaligned), "cuda")
+    stream = (at(idx[0]), *map(at, vals[0]))
+    before = scatter.launches
+    got = scatter.scatter_add_3ch(*map(at, base), *stream)
+    want = scatter.scatter_add_3ch_plain(*map(at, base), *stream)
+    torch.cuda.synchronize()
+    assert scatter.launches == before + 1
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("kind,M,ns", SCATTER_CASES)
+def test_k5_kernel_matches_plain_on_ragged_streams(kind, M, ns, misaligned):
+    """K5 on 1, 3 and 8 streams (the chunk of 8, the pair loop and the odd
+    stream left over), (x, x+1) neighbours in streams (2t, 2t+1) at even
+    and odd x with the accumulators on and off an 8-byte boundary (both
+    sides of the float2 atomic's alignment branch), contention on one
+    voxel and out-of-range indices, which are skipped; <= 1e-4 * max."""
+    require_cuda()
+    base, idx, vals = scatter_case(kind, M, ns)
+    at = lambda a: tensor_at_offset(a, int(misaligned), "cuda")
+    streams = (at(idx), at(vals))
+    before = scatter.streams_launches
+    got = scatter.scatter_add_3ch_streams(*map(at, base), *streams)
+    want = scatter.scatter_add_3ch_streams_plain(*map(at, base), *streams)
+    torch.cuda.synchronize()
+    assert scatter.streams_launches == before + 1
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k5_skips_out_of_range_indices_whatever_they_carry():
+    """An index outside [0, S) is dropped by the kernel itself, not merely
+    harmless because its value is zero."""
+    require_cuda()
+    base, idx, vals = scatter_case("out_of_range", 1025, 3)
+    vals = np.random.default_rng(3).standard_normal(vals.shape).astype(
+        np.float32)
+    inside = ((idx >= 0) & (idx < base.shape[1]))[:, None, :]
+    cubes = [torch.tensor(b, device="cuda") for b in base]
+    got = scatter.scatter_add_3ch_streams(
+        *cubes, torch.tensor(idx, device="cuda"),
+        torch.tensor(vals, device="cuda"))
+    want = scatter.scatter_add_3ch_streams_plain(
+        *(torch.tensor(b, device="cuda") for b in base),
+        torch.tensor(idx, device="cuda"),
+        torch.tensor(vals * inside, device="cuda"))
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wide_blob_on_the_card_goes_through_the_streams_kernel():
+    """A blob wider than K3's footprint takes the tap expansion and K5, one
+    launch a batch; the volume agrees with the CPU's."""
+    require_cuda()
+    b = phantom_batch(32, 32, 32)
+    args = (b["imgs"], b["rot"], b["tilt"], b["psi"])
+    kw = dict(sx=b["sx"], sy=b["sy"], weights=b["w"], flip=b["flip"],
+              interp="kb", blob=(2.5, 0, 10.0), batch=16)
+    before = scatter.streams_launches
+    got = trec.reconstruct_fourier(*args, **kw, device="cuda")
+    assert scatter.streams_launches == before + 2
+    want = trec.reconstruct_fourier(*args, **kw, device="cpu")
+    assert rel_err(got, want) <= 1e-4
 
 
 @pytest.mark.cuda

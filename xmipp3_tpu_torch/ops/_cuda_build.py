@@ -2,9 +2,10 @@
 
 Each source is compiled by nvcc for sm_90a into its own shared library
 with a plain C interface, under `xmipp3_tpu_torch/_build/` (git-ignored),
-and loaded with ctypes. A library's file name carries a hash of its source
-and the compiler flags, so an edited source is rebuilt and a fresh checkout
-builds everything at first use. `build()` starts one nvcc per missing
+and loaded with ctypes. A library's file name carries a hash of its source,
+of every header in csrc/ (*.cuh, found by `-I csrc`) and of the compiler
+flags, so an edited source or header is rebuilt and a fresh checkout builds
+everything at first use. `build()` starts one nvcc per missing
 source, all together, and waits for them; a failed build raises with the
 compiler's output. Nothing here runs at import time: the CPU tests import
 every module on machines without nvcc or a card.
@@ -49,7 +50,16 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
     return src, BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
+
+
+def nvcc_command(src: Path, out: Path) -> list[str]:
+    """The nvcc call that compiles `src` into the shared library `out`,
+    with csrc/ on the include path and ptxas's report switched on."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas=-v", "-o",
+            str(out), str(src)]
 
 
 def build() -> dict[str, str]:
@@ -63,8 +73,8 @@ def build() -> dict[str, str]:
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", str(tmp), str(src)]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        jobs[name] = (subprocess.Popen(nvcc_command(src, tmp),
+                                       stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, lib)
     reports, errors = {}, []

@@ -1,23 +1,28 @@
 """K1: three-channel shared-index scatter-add, and the tap streams that feed
 it; K5: the same over several update streams in one launch.
 
-Replaces `scatter_add_3ch` / `_pallas_scatter3` of
+K1 replaces `scatter_add_3ch` / `_pallas_scatter3` of
 xmipp3_tpu/ops/pallas_scatter.py:110-180, whose Pallas kernel `_seg_kernel`
 (:45-107) sorts the update stream and accumulates one-hot MXU products per
-8192-voxel tile. The CUDA kernel (csrc/scatter.cu) needs none of that: one
-thread per update, three float atomics into the shared index.
+8192-voxel tile. K5 replaces `scatter_add_3ch_streams` of
+xmipp3_tpu/ops/pallas_scatter.py:264-331, whose Pallas kernel
+`_seg_kernel_multi` (:194-261) walks ns sorted streams per tile from
+searchsorted tile starts. The CUDA kernels (csrc/scatter.cu) need no sort,
+no tile starts and no one-hot products: float atomics, sent one
+accumulator at a time (the channel is the slow grid index, so one launch
+serves the three channels and counts as one). K1 takes one update per
+thread and sums a warp's updates to one voxel before one lane adds them;
+K5 gives a thread column i of every stream, so a sample's taps go out
+together, and sends streams (2t, 2t+1) that hit x-neighbours as one 8-byte
+atomic.
 
-Bound on the card: the bytes are 16 per update (index and three values)
-plus the three accumulators read and written once; in practice the float
-atomics' update rate in L2 sets the time, so a measured time is reported
-beside that byte bound, not as a share of it.
-
-K5 replaces `scatter_add_3ch_streams` of xmipp3_tpu/ops/pallas_scatter.py:
-264-331, whose Pallas kernel `_seg_kernel_multi` (:194-261) walks ns sorted
-streams per tile from searchsorted tile starts. The second entry point of
-csrc/scatter.cu runs one grid-stride loop over all ns * M updates with K1's
-device code: no sort, no tile starts, no one-hot products. Its bound is
-K1's, with 16 bytes per update of every stream.
+Bound on the card: the bytes the function must move are 16 per update
+(index and three values) plus the touched voxels of the three accumulators
+read and written once, which makes device memory the bound; what sets the
+time is the rate at which L2 takes atomics, one request per 32-byte sector
+a warp's atomic touches (csrc/scatter.cu has the measured rates). So a
+measured time is reported beside the byte bound and beside the same bound
+counted in sectors, not as a share of either.
 
 `scatter_add_3ch` and `scatter_add_3ch_streams` launch their kernel for
 CUDA tensors and use the plain version (`index_add_`) only for CPU tensors.
@@ -39,10 +44,14 @@ streams_launches = 0
 
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int64, ctypes.c_int64,
                                       ctypes.c_void_p)
-
-
 _STREAMS_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int64,) * 3 + (
     ctypes.c_void_p,)
+
+
+def _check_cube_size(what: str, S: int) -> None:
+    if S >= 2 ** 31:
+        raise ValueError(f"{what}: accumulators of {S} elements cannot be "
+                         "addressed by int32 indices (S must be < 2**31)")
 
 
 def scatter_add_3ch_plain(c0, c1, c2, idx, v0, v1, v2):
@@ -60,6 +69,7 @@ def scatter_add_3ch(c0, c1, c2, idx, v0, v1, v2):
     the reference's contract); v0/v1/v2: float32 of M values. In place."""
     what = "scatter_add_3ch"
     S = c0.numel()
+    _check_cube_size(what, S)
     dev = cb.check_operands(what, torch.float32, S, c0=c0, c1=c1, c2=c2)
     M = idx.numel()
     vdev = cb.check_operands(what, torch.float32, M, v0=v0, v1=v1, v2=v2)
@@ -107,6 +117,7 @@ def scatter_add_3ch_streams(c0, c1, c2, idx_streams, v_streams):
                          "and (ns, 3, M)")
     ns, M = idx_streams.shape
     S = c0.numel()
+    _check_cube_size(what, S)
     dev = cb.check_operands(what, torch.float32, S, c0=c0, c1=c1, c2=c2)
     vdev = cb.check_operands(what, torch.float32, ns * 3 * M,
                              v_streams=v_streams)
@@ -129,15 +140,37 @@ def scatter_add_3ch_streams(c0, c1, c2, idx_streams, v_streams):
     return c0, c1, c2
 
 
-def expand_taps(z0, y0, x0, taps, tap_weight, v0, v1, v2, P: int):
-    """The update stream of a gridding footprint, tap-major.
+def expand_tap_streams(z0, y0, x0, taps, tap_weight, v0, v1, v2, P: int):
+    """The update streams of a gridding footprint, one per tap, for K5.
 
     For each (dz, dy, dx) in `taps`: the flat index of voxel
     (z0+dz, y0+dy, x0+dx) clipped into the (P, P, P) cube, and the three
     channel values times tap_weight(dz, dy, dx), zeroed where the voxel
     lies outside the cube on any axis (the per-axis mask of
     xmipp3_tpu/ops/reconstruct.py:251-263). z0/y0/x0 int32, values float32,
-    all of one shape. Returns (idx int32, u0, u1, u2), each 1-D."""
+    all of one shape with M elements. Returns (idx (ns, M) int32,
+    v (ns, 3, M) float32), filled tap by tap."""
+    ns, M = len(taps), z0.numel()
+    idx = torch.empty((ns, M), dtype=torch.int32, device=z0.device)
+    v = torch.empty((ns, 3, M), dtype=torch.float32, device=z0.device)
+    chans = [u.reshape(-1) for u in (v0, v1, v2)]
+    for t, (dz, dy, dx) in enumerate(taps):
+        zj, yj, xj = z0 + dz, y0 + dy, x0 + dx
+        inside = ((zj >= 0) & (zj < P) & (yj >= 0) & (yj < P)
+                  & (xj >= 0) & (xj < P))
+        w = torch.where(inside, tap_weight(dz, dy, dx), 0.0).reshape(-1)
+        idx[t] = ((zj.clamp(0, P - 1) * P + yj.clamp(0, P - 1)) * P
+                  + xj.clamp(0, P - 1)).reshape(-1)
+        for k, u in enumerate(chans):
+            torch.mul(w, u, out=v[t, k])
+    return idx, v
+
+
+def expand_taps(z0, y0, x0, taps, tap_weight, v0, v1, v2, P: int):
+    """The update stream of a gridding footprint, tap-major, for K1 and for
+    the plain versions of the gridding kernels: the same updates as
+    `expand_tap_streams`, as (idx int32, u0, u1, u2), each 1-D of
+    len(taps) * M."""
     idx, u0, u1, u2 = [], [], [], []
     for dz, dy, dx in taps:
         w = tap_weight(dz, dy, dx)
