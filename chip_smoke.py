@@ -352,13 +352,12 @@ def kernels_vs_plain(seed):
     return out
 
 
-def cross_vs_plain(seed):
-    """K4 at the matching run's shapes, on ring FFTs of seeded noise made
-    as the scan makes them (polar resampling, rfft, 64 harmonics kept)."""
+def cross_operands(seed):
+    """K4's operands at the matching run's shapes: ring FFTs of seeded noise
+    made as the scan makes them (polar resampling, rfft, 64 harmonics kept)
+    for a batch of images and a 5-degree gallery, and the ring weights."""
     import torch
-    from xmipp3_tpu_torch.ops import cross
     from xmipp3_tpu_torch.ops.polar import cartesian_to_polar, ring_ffts
-    name = "cross_spectrum"
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
 
     def spectra(count):
@@ -369,10 +368,25 @@ def cross_vs_plain(seed):
 
     R = 1652            # directions of a c1 gallery sampled every 5 degrees
     fi, fr = spectra(MATCH_BATCH), spectra(R)
+    check(fi.shape[1:] == (RINGS, HARMONICS), f"ring FFTs {fi.shape}")
+    radii = torch.arange(2, 2 + RINGS, dtype=torch.float32, device=DEVICE)
+    return fi, fr, radii / radii.sum()
+
+
+def l2_to_shared_bytes(B, nr, R, K, tile_b, tile_r):
+    """What a tiled K4 reads from L2 into shared memory: every image's rings
+    once per reference tile, every reference's once per image tile."""
+    return 8 * nr * K * (B * -(-R // tile_r) + R * -(-B // tile_b))
+
+
+def cross_vs_plain(seed):
+    """K4 at the matching run's shapes, on cross_operands(seed)."""
+    import torch
+    from xmipp3_tpu_torch.ops import cross
+    name = "cross_spectrum"
+    fi, fr, w = cross_operands(seed)
     B, nr, K = fi.shape
-    check((nr, K) == (RINGS, HARMONICS), f"{name}: ring FFTs {fi.shape}")
-    radii = torch.arange(2, 2 + nr, dtype=torch.float32, device=DEVICE)
-    w = radii / radii.sum()
+    R = fr.shape[0]
     log(f"phase 2: {name} at B={B}, nr={nr}, R={R}, k={K}, with the mirror")
     got = cross.cross_spectrum(fi, fr, w, mirror=True)
     want = cross.cross_spectrum_plain(fi, fr, w, mirror=True)
@@ -414,6 +428,10 @@ def cross_vs_plain(seed):
         f"{library_ms:.4f} ms); bound {max(t_bytes, t_ops):.4f} ms "
         f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.3f} GFLOP "
         f"-> {t_ops:.4f} ms)")
+    # a model, not a measurement: what the 32 x 32 image x reference block
+    # tile of csrc/cross.cu reads from L2 into shared memory
+    log(f"  {name}: model of its L2 -> shared reads, 32 x 32 tile: "
+        f"{l2_to_shared_bytes(B, nr, R, K, 32, 32) / 1e9:.3f} GB")
     src, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": None, "max_abs_err": err, "rel_err": rel, "ms": ms,

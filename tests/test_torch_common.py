@@ -114,6 +114,29 @@ def scatter_case(kind: str, M: int, ns: int, seed: int = 11):
     return base, idx.astype(np.int32), vals
 
 
+KB_EDGE_P = 16
+
+
+def kb_edge_samples(seed: int = 13, P: int = KB_EDGE_P):
+    """numpy samples (zi, yi, xi, v0, v1, v2) for K3's row edges: four
+    samples at every floor x0 in [0, P) (so x0 - 1 takes every residue mod
+    4, and rows straddle x = 0 and x = P - 1), y and z anywhere in [0, P)
+    with floors at 0 and P - 1 among them, and six samples whose floor lies
+    outside the cube on one axis (dropped whole)."""
+    rng = np.random.default_rng(seed)
+    x = np.repeat(np.arange(P), 4) + rng.uniform(0, 1, 4 * P)
+    y = rng.uniform(0, P, 4 * P)
+    z = rng.uniform(0, P, 4 * P)
+    y[:P] = rng.uniform(0, 1, P)                  # floor 0
+    z[P:2 * P] = P - 1 + rng.uniform(0, 1, P)     # floor P - 1
+    out = np.array([[-0.3, 5.5, 5.5], [P + 0.1, 5.5, 5.5], [5.5, -1e-3, 5.5],
+                    [5.5, P + 0.5, 5.5], [5.5, 5.5, -2.0], [5.5, 5.5, P]])
+    xi, yi, zi = (np.concatenate([a, out[:, k]]) for k, a in
+                  enumerate((x, y, z)))
+    vals = rng.standard_normal((3, xi.size))
+    return [a.astype(np.float32) for a in (zi, yi, xi, *vals)]
+
+
 def tensor_at_offset(a, offset: int, device="cpu"):
     """A contiguous tensor equal to `a` that starts `offset` elements into
     a larger buffer: with offset 1 its data pointer is 4 bytes past the

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import jax.numpy as jnp
 from test_torch_common import rel_err
 from xmipp3_tpu.ops import match as jmatch
@@ -54,6 +55,32 @@ def test_cross_spectrum_matches_the_reference(reference, mirror):
         assert rel_err(got_m, np.asarray(ref(fi.conj()))) <= 1e-5
     assert got.dtype == torch.complex64 and got.shape == (32, 8, 16)
     assert rel_err(got, np.asarray(ref(fi))) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 31, 1, 64), (1, 31, 40, 33),
+                                   (35, 9, 33, 64)])
+def test_cross_spectrum_matches_the_reference_at_ragged_tiles(shape):
+    """Sizes off the kernel's 32 x 32 x 4 tile and 8-ring stages (one
+    image, one reference, an odd k, nr = 9), through the wrapper's plain
+    version, against the reference's XLA einsum."""
+    B, nr, R, K = shape
+    fi, fr, w = _spectra(7, B=B, R=R, nr=nr, K=K)
+    got, got_m = cross.cross_spectrum(*_t(fi, fr, w), mirror=True)
+    ref = lambda f: np.asarray(cross_spectrum_xla(
+        jnp.asarray(f), jnp.asarray(fr), jnp.asarray(w)))
+    assert got.shape == got_m.shape == (B, R, K)
+    assert rel_err(got, ref(fi)) <= 1e-5
+    assert rel_err(got_m, ref(fi.conj())) <= 1e-5
+
+
+def test_l2_to_shared_bytes_of_a_tile():
+    """8 nr k (B ceil(R / TR) + R ceil(B / TB)): at the matching run's
+    shapes 2.523 GB for the first design's 8 x 16 tile, 0.842 GB for the
+    32 x 32 one."""
+    shape = (512, 31, 1652, 64)
+    assert chip_smoke.l2_to_shared_bytes(*shape, 8, 16) == 15872 * 158976
+    assert chip_smoke.l2_to_shared_bytes(*shape, 32, 32) == 15872 * 53056
+    assert chip_smoke.l2_to_shared_bytes(1, 1, 1, 1, 32, 32) == 16
 
 
 def test_cross_spectrum_rejects_what_the_kernel_does_not_take():

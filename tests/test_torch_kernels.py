@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import (K1_CASES, SCATTER_CASES, phantom_batch,
-                               rel_err, require_cuda, scatter_case,
-                               tensor_at_offset)
+from test_torch_common import (K1_CASES, KB_EDGE_P, SCATTER_CASES,
+                               kb_edge_samples, phantom_batch, rel_err,
+                               require_cuda, scatter_case, tensor_at_offset)
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.ops import reconstruct as trec
 from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
@@ -152,6 +152,73 @@ def test_cross_spectrum_kernel_matches_plain(shape, mirror):
     for g, p in zip(got if mirror else [got], want if mirror else [want]):
         assert g.shape == (shape[0], shape[2], shape[3])
         assert rel_err(g, p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 31, 1, 64), (1, 31, 1652, 64),
+                                   (70, 31, 1652, 33), (33, 9, 100, 64)])
+@pytest.mark.parametrize("mirror", [False, True])
+def test_cross_spectrum_kernel_at_ragged_tiles(shape, mirror):
+    """K4 where B, R and nr are no multiples of its 32 x 32 tile and 8-ring
+    stages (one image, one reference, the gallery's 1652 references, 9
+    rings), at k = 64 and at an odd k = 33 (8-byte copies, a ragged last
+    4-harmonic tile); <= 1e-5 * max."""
+    require_cuda()
+    fi, fr, w = _ring_spectra(*shape, seed=6)
+    before = cross.launches
+    got = cross.cross_spectrum(fi, fr, w, mirror=mirror)
+    torch.cuda.synchronize()
+    assert cross.launches == before + 1
+    want = cross.cross_spectrum_plain(fi, fr, w, mirror=mirror)
+    for g, p in zip(got if mirror else [got], want if mirror else [want]):
+        assert g.shape == (shape[0], shape[2], shape[3])
+        assert rel_err(g, p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["f_imgs", "f_refs", "both"])
+def test_cross_spectrum_kernel_takes_operands_off_16_bytes(which):
+    """A complex64 operand that starts 8 bytes past a 16-byte boundary
+    goes through the kernel's 8-byte copies: launched, and equal to the
+    plain version; <= 1e-5 * max."""
+    require_cuda()
+    fi, fr, w = _ring_spectra(40, 31, 70, 64, seed=8)
+    moved = lambda a: tensor_at_offset(a.cpu().numpy(), 1, "cuda")
+    if which in ("f_imgs", "both"):
+        fi = moved(fi)
+    if which in ("f_refs", "both"):
+        fr = moved(fr)
+    assert (fi.data_ptr() % 16 != 0) or (fr.data_ptr() % 16 != 0)
+    before = cross.launches
+    got = cross.cross_spectrum(fi, fr, w, mirror=True)
+    torch.cuda.synchronize()
+    assert cross.launches == before + 1
+    for g, p in zip(got, cross.cross_spectrum_plain(fi, fr, w, mirror=True)):
+        assert rel_err(g, p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_kb_kernel_rows_at_every_alignment_and_edge(offset):
+    """K3 on samples at every floor x (rows starting at every residue mod 4,
+    rows straddling x = 0 and x = P - 1, floors at P - 1) and with floors
+    outside the cube (dropped), into cubes that start 0-3 floats past an
+    allocation: both float4 quads, the single quad and the tap-by-tap
+    fallback at the row ends; <= 1e-4 * max."""
+    require_cuda()
+    samples = [torch.as_tensor(a, device="cuda") for a in kb_edge_samples()]
+    base = np.random.default_rng(offset).standard_normal(
+        (3, KB_EDGE_P ** 3)).astype(np.float32)
+    at = lambda a: tensor_at_offset(a, offset, "cuda")
+    before = scatter_kb.launches
+    got = scatter_kb.kb_scatter_3ch(*map(at, base), *samples, P=KB_EDGE_P,
+                                    **KB)
+    want = scatter_kb.kb_scatter_plain(*map(at, base), *samples,
+                                       P=KB_EDGE_P, **KB)
+    torch.cuda.synchronize()
+    assert scatter_kb.launches == before + 1
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 1e-4
 
 
 @pytest.mark.cuda

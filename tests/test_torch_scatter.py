@@ -12,6 +12,7 @@ expansion (the packed mode is TPU-only).
 """
 import ctypes
 import importlib
+import itertools
 import re
 
 import jax.numpy as jnp
@@ -19,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import (K1_CASES, SCATTER_CASES, particle_batch,
-                               rel_err, scatter_case, tensor_at_offset)
+from test_torch_common import (K1_CASES, KB_EDGE_P, SCATTER_CASES,
+                               kb_edge_samples, particle_batch, rel_err,
+                               scatter_case, tensor_at_offset)
 from xmipp3_tpu.core.geometry import euler_matrix
 from xmipp3_tpu.ops import reconstruct as jrec
 from xmipp3_tpu.ops.pallas_scatter import scatter_add_3ch as jax_scatter3
@@ -119,6 +121,40 @@ def test_kb_plain_drops_samples_outside_the_cube():
                                   P=P_, radius=1.9, alpha=15.0, order=0)
     torch.testing.assert_close(cubes[2], only[2])
     assert float(cubes[2].sum()) > 0
+
+
+def test_kb_plain_at_the_cube_edges_matches_a_numpy_gridding():
+    """K3's contract on samples at every floor x (so at every residue of a
+    row's start mod 4) and at the cube's faces (kb_edge_samples): 4^3 taps
+    at -1..2 from the floor, the reference's polynomial window clamped at 0
+    and zero beyond r^2, a sample with its floor outside the cube dropped
+    whole, a tap outside it skipped. The wrapper's plain version (what the
+    CPU runs) against numpy in float64: <= 1e-5 * max."""
+    zi, yi, xi, v0, v1, v2 = kb_edge_samples()
+    radius, alpha, order = 1.9, 15.0, 0
+    poly = np.asarray(jax_window_poly(radius, alpha, order))
+    want = np.zeros((3, KB_EDGE_P, KB_EDGE_P, KB_EDGE_P))
+    used = 0
+    for s in range(zi.size):
+        at = np.array([zi[s], yi[s], xi[s]], np.float64)
+        f = np.floor(at).astype(int)
+        if ((f < 0) | (f >= KB_EDGE_P)).any():
+            continue
+        used += 1
+        for d in itertools.product(range(-1, 3), repeat=3):
+            j = f + d
+            d2 = float(((np.array(d) - (at - f)) ** 2).sum())
+            if ((j < 0) | (j >= KB_EDGE_P)).any() or d2 > radius ** 2:
+                continue
+            wt = max(np.polyval(poly, d2), 0.0)
+            want[:, j[0], j[1], j[2]] += wt * np.array([v0[s], v1[s], v2[s]])
+    assert used == zi.size - 6
+    cubes = [torch.zeros(KB_EDGE_P ** 3) for _ in range(3)]
+    got = scatter_kb.kb_scatter_3ch(
+        *cubes, *map(torch.as_tensor, (zi, yi, xi, v0, v1, v2)), P=KB_EDGE_P,
+        radius=radius, alpha=alpha, order=order)
+    for g, w in zip(got, want):
+        assert rel_err(g, w.reshape(-1)) <= 1e-5
 
 
 def test_tri_plain_masks_each_corner_per_axis():

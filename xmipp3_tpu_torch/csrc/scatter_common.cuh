@@ -1,6 +1,7 @@
 // Device code shared by the scatter kernels: the range-checked float atomic,
 // the 8-byte vector atomic for two neighbouring voxels, the warp-aggregated
-// add and the channel selection of a channel-per-block-row grid.
+// add, the vector atomics of a row of four voxels and the channel selection
+// of a channel-per-block-row grid.
 //
 // All of it serves one fact of the card: a float atomic resolves in L2 on a
 // 32-byte sector, a warp's atomic costs one L2 request per sector its lanes
@@ -65,6 +66,44 @@ __device__ __forceinline__ void add_warp(float* __restrict__ c, int32_t j,
     }
   }
   if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(c + j, sum);
+}
+
+__device__ __forceinline__ bool any_nonzero(float4 u) {
+  return u.x != 0.f || u.y != 0.f || u.z != 0.f || u.w != 0.f;
+}
+
+// row[j + t] += u[t] for t = 0..3, in a row of p floats: four neighbouring
+// voxels x = j .. j + 3, of which those outside [0, p) are never written.
+// The row goes out as float4 atomics (sm_90) on the one or two 16-byte
+// quads that hold it, zeros in the quads' other lanes (adding 0 changes no
+// value, and the quads lie in the sectors the taps touch anyway); a quad
+// whose values are all 0 is not sent. Where a quad would leave the row, the
+// taps go out one by one. One float4 costs one L2 request, as one float
+// does: a row costs one or two requests, where tap by tap it costs four.
+__device__ __forceinline__ void add_row4(float* __restrict__ row, int32_t j,
+                                         int32_t p, float4 u) {
+  const int mis = (int)((reinterpret_cast<uintptr_t>(row + j) & 15) >> 2);
+  if (j - mis < 0 || j - mis + (mis ? 8 : 4) > p) {
+    const float t[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (j + k >= 0 && j + k < p && t[k] != 0.f) atomicAdd(row + j + k, t[k]);
+    return;
+  }
+  float4 a = u, b = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (mis == 1) {
+    a = make_float4(0.f, u.x, u.y, u.z);
+    b.x = u.w;
+  } else if (mis == 2) {
+    a = make_float4(0.f, 0.f, u.x, u.y);
+    b = make_float4(u.z, u.w, 0.f, 0.f);
+  } else if (mis == 3) {
+    a = make_float4(0.f, 0.f, 0.f, u.x);
+    b = make_float4(u.y, u.z, u.w, 0.f);
+  }
+  float4* q = reinterpret_cast<float4*>(row + j - mis);
+  if (any_nonzero(a)) atomicAdd(q, a);
+  if (any_nonzero(b)) atomicAdd(q + 1, b);
 }
 
 // Channel-per-block-row grids: the pointer of channel ch.

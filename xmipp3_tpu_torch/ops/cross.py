@@ -7,12 +7,13 @@ Replaces `cross_spectrum_pallas` of xmipp3_tpu/ops/pallas_cross.py:44-76 and
 the four real einsums of xmipp3_tpu/ops/match.py:91-99. With fi = a + ib
 (times w) and fr = c + id both spectra share the four real products ac, bd,
 bc, ad: cross = (ac + bd, bc - ad), cross_m = (ac - bd, -(bc + ad)). The CUDA
-kernel (csrc/cross.cu) forms them in float32 registers, one thread per
-harmonic k on the data as it lies (k fastest), and writes each output once.
+kernel (csrc/cross.cu) forms them in float32 registers on the data as it
+lies (k fastest), a block per tile of images, references and harmonics,
+and writes each output once.
 
 Bound on the card: the bytes of the outputs, 8 B * B * R * k per spectrum,
-some forty times the inputs; the float32 work (8 flop per ring and output
-pair with the mirror) needs about three quarters of that time.
+some twenty-five times the inputs; the float32 work (8 flop per ring and
+output pair) needs about three quarters of that time.
 
 `cross_spectrum` launches the kernel for CUDA tensors and uses the plain
 version (four real `torch.einsum`) only for CPU tensors.

@@ -9,12 +9,16 @@ offsets -1..2 from the floor corner: the window is the same degree-7
 polynomial in d^2 (`_window_poly`, a copy of :54-70), clamped at 0 and zero
 where d^2 > r^2; a sample whose floor corner lies outside [0, P) on any axis
 is dropped whole (:213-222); a tap outside the cube is skipped per axis.
+The channel is the grid's second dimension, so one cube is walked at a
+time, and a (dz, dy) row's four taps go out as the float4 atomics of the
+one or two 16-byte quads that hold them.
 
 Bound on the card: 24 bytes read per sample plus the touched voxels of the
 three cubes read and written once; the arithmetic (64 distance and Horner
-evaluations a sample) is far below the card's float32 rate. Up to 64 x 3
-float atomics a sample, resolved in L2, are what sets the time in practice,
-so a measured time is reported beside the byte bound, not as a share of it.
+evaluations a sample and channel) is far below the card's float32 rate. The
+float atomics, resolved in L2 at one request per 32-byte sector an
+instruction touches, are what sets the time in practice, so a measured time
+is reported beside the byte and sector bounds, not as a share of them.
 
 The kz-slab mode of the TPU kernel (`zdim`, `z_lo`) serves only the mesh
 reconstructors and waits for their slice (ROADMAP.md).

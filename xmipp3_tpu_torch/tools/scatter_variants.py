@@ -33,52 +33,26 @@ one run on one card compare.
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
-sys.path.insert(0, str(ROOT))
-
-import chip_smoke as cs  # noqa: E402  (the phase-2 data and the timer)
+import harness
+from harness import cs
 
 PTR, I64 = ctypes.c_void_p, ctypes.c_int64
 
 
-def build():
-    from xmipp3_tpu_torch.ops import _cuda_build as cb
-    cb.BUILD_DIR.mkdir(exist_ok=True)
-    lib = cb.BUILD_DIR / "libscatter_variants.so"
-    out = subprocess.run(
-        cb.nvcc_command(Path(__file__).with_suffix(".cu"), lib),
-        capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
-    dll = ctypes.CDLL(str(lib))
-    dll.xv_k1_channel.argtypes = [PTR] * 7 + [I64, I64, PTR]
-    dll.xv_k5_channel.argtypes = [PTR] * 5 + [I64, I64, I64, PTR]
-    dll.xv_k1_cube4.argtypes = [PTR] * 5 + [I64, I64, PTR]
-    return dll
-
-
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rounds", type=int, default=2)
-    args = ap.parse_args(argv)
+    args = harness.start(__doc__, "scatter_variants", argv)
+    if args is None:
+        return 2
     import torch
     from xmipp3_tpu_torch.ops import _cuda_build as cb
     from xmipp3_tpu_torch.ops import scatter, scatter_tri
-    if not torch.cuda.is_available():
-        print("scatter_variants: needs a CUDA card", file=sys.stderr)
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0])
-    dll = build()
-    cb.build()
+    dll = harness.build("scatter_variants", {
+        "xv_k1_channel": [PTR] * 7 + [I64, I64, PTR],
+        "xv_k5_channel": [PTR] * 5 + [I64, I64, I64, PTR],
+        "xv_k1_cube4": [PTR] * 5 + [I64, I64, PTR]})
     dev, P = cs.DEVICE, cs.P
     S = P ** 3
     stream = lambda: cb.stream_ptr(torch.device(dev))
@@ -105,33 +79,23 @@ def main(argv=None) -> int:
     bad = []
 
     def measure(stream_name, st, plain, cands, rounds):
-        """cands: {label: fn(cubes, st)}; every one is held against `plain`
-        first, then all are timed in turns."""
+        """cands: {label: fn(cubes, st)}, held against `plain` on the same
+        stream, then timed in turns."""
         want = cs.cubes(dev)
         plain(want, st)
         ref = max(float(w.abs().max()) for w in want)
         work = cs.cubes(dev)
-        rel = {}
-        for label, fn in cands.items():
+
+        def rel_err(fn):
             for w in work:
                 w.zero_()
-            fn(work, st)
-            torch.cuda.synchronize()
-            rel[label] = max(float((a - b).abs().max())
-                             for a, b in zip(work, want)) / ref
-        times = {label: [] for label in cands}
-        for _ in range(rounds):
-            for label, fn in cands.items():
-                times[label].append(cs.time_ms(lambda: fn(work, st), reps=20))
-        print(f"{stream_name}:")
-        for label in cands:
-            ok = rel[label] <= cs.TOL
-            print(f"  {label:50s} " + " ".join(f"{x:8.4f}" for x in
-                                               times[label])
-                  + f" ms   rel err {rel[label]:.1e}"
-                  + ("" if ok else "   DISAGREES"))
-            if not ok:
-                bad.append((stream_name, label, rel[label]))
+            fn()
+            return max(float((a - b).abs().max())
+                       for a, b in zip(work, want)) / ref
+
+        harness.measure(stream_name, {label: (lambda fn=fn: fn(work, st))
+                                      for label, fn in cands.items()},
+                        rel_err, cs.TOL, rounds, bad)
 
     (zi, yi, xi), (v0, v1, v2) = cs.slice_samples(args.seed, dev)
     z0, y0, x0 = (torch.round(a).to(torch.int32) for a in (zi, yi, xi))
@@ -147,18 +111,20 @@ def main(argv=None) -> int:
 
     # the (S, 4) accumulator: one float4 atomic per update
     acc4 = torch.zeros((S, 4), dtype=torch.float32, device=dev)
-    run4 = lambda: cb.check_launch(dll.xv_k1_cube4(
-        *ptrs(*nn, acc4), M, S, stream()), "xv_k1_cube4")
-    run4()
     want = cs.cubes(dev)
     lib1(want, nn)
-    rel = max(float((acc4[:, k] - want[k]).abs().max()) for k in range(3)) \
-        / max(float(w.abs().max()) for w in want)
-    t4 = [cs.time_ms(run4, reps=20) for _ in range(args.rounds)]
-    print("  nn into one (S, 4) accumulator, float4 atomics:      "
-          + " ".join(f"{x:8.4f}" for x in t4) + f" ms   rel err {rel:.1e}")
-    if not rel <= cs.TOL:
-        bad.append(("nn", "(S, 4) accumulator", rel))
+    ref = max(float(w.abs().max()) for w in want)
+
+    def rel_err4(fn):
+        acc4.zero_()
+        fn()
+        return max(float((acc4[:, k] - want[k]).abs().max())
+                   for k in range(3)) / ref
+
+    harness.measure("nn into one (S, 4) accumulator", {
+        "float4 atomics": lambda: cb.check_launch(dll.xv_k1_cube4(
+            *ptrs(*nn, acc4), M, S, stream()), "xv_k1_cube4")},
+        rel_err4, cs.TOL, args.rounds, bad)
     del acc4, want
 
     dup = tuple(t.repeat_interleave(4)[:M].contiguous() for t in nn)
@@ -187,10 +153,7 @@ def main(argv=None) -> int:
           lambda c, st: scatter_tri.tri_scatter(*c, zi, yi, xi, v0, v1, v2,
                                                 P=P)}
     measure("tri 8 x M", (idx8, v8), lib5, k5, args.rounds)
-
-    for name, label, rel in bad:
-        print(f"DISAGREES: {label} on {name}: {rel:.3e}", file=sys.stderr)
-    return 1 if bad else 0
+    return harness.finish(bad)
 
 
 if __name__ == "__main__":
