@@ -20,11 +20,13 @@ Phases; any failure exits non-zero before the result line is printed:
    (max |kernel - plain| / max |plain| <= 1e-4 for the scatters, whose
    atomics add in another order; <= 1e-5 for the cross-spectrum, whose sums
    run in a fixed order) and timed with CUDA events beside its plain
-   version, its bound and, where one PyTorch call computes the same, that
-   call. The scatters also get their bound counted in 32-byte sectors (what
-   the atomics move between L2 and device memory), their channel adds per
-   second and the wrapper's host microseconds per call; K1 is also timed on
-   K5's tap streams flattened, beside K5 on them stacked.
+   version, its bound and the PyTorch calls that compute the same
+   (`index_add_` per channel on the expanded tap stream for the scatters,
+   two complex einsums for the cross-spectrum). The scatters also get their
+   bound counted in 32-byte sectors (what the atomics move between L2 and
+   device memory), their channel adds per second and the wrapper's host
+   microseconds per call; K1 is also timed on K5's tap streams flattened,
+   beside K5 on them stacked.
 3. End to end through the CLI: an analytic Gaussian phantom's projections
    at N=128 (10,000 views, the repo's headline reconstruction workload;
    uniform on the sphere, random psi, small shifts) are
@@ -305,7 +307,9 @@ def kernels_vs_plain(seed):
         "tri_scatter",
         lambda *c: scatter_tri.tri_scatter(*c, *samples, P=P),
         lambda *c: scatter_tri.tri_scatter_plain(*c, *samples, P=P),
-        tri, 24, 8, 9, M))
+        tri, 24, 8, 9, M,
+        library=lambda *c: [a.index_add_(0, tri[0], u)
+                            for a, u in zip(c, tri[1:])]))
     del tri
 
     # K3: per sample floor and fractions (6); per live tap the distance (8),
@@ -316,7 +320,9 @@ def kernels_vs_plain(seed):
         "kb_scatter_3ch",
         lambda *c: scatter_kb.kb_scatter_3ch(*c, *samples, **kb),
         lambda *c: scatter_kb.kb_scatter_plain(*c, *samples, **kb),
-        kbs, 24, 28, 6, M))
+        kbs, 24, 28, 6, M,
+        library=lambda *c: [a.index_add_(0, kbs[0], u)
+                            for a, u in zip(c, kbs[1:])]))
     del kbs
 
     # K5 on the 8 trilinear tap streams of the batch (a side reading: K2's

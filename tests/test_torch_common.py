@@ -137,6 +137,36 @@ def kb_edge_samples(seed: int = 13, P: int = KB_EDGE_P):
     return [a.astype(np.float32) for a in (zi, yi, xi, *vals)]
 
 
+TRI_EDGE_P = 16
+
+
+def tri_edge_samples(seed: int = 17, P: int = TRI_EDGE_P):
+    """numpy samples (zi, yi, xi, v0, v1, v2) for K2's rows of two: four
+    samples at every floor x0 in [-1, P) (so x0 takes every residue mod 4,
+    and pairs straddle x = 0 and x = P - 1), y and z anywhere in [-1, P)
+    with floors at -1 and at P - 1 on each, a quarter of each axis's
+    fractions exactly 0, and six samples whose floor lies at -2 or below,
+    or at P or above, on one axis (no corner inside)."""
+    rng = np.random.default_rng(seed)
+    n = 4 * (P + 1)
+    frac = lambda k: rng.uniform(0, 0.999, k)   # stays below 1 in float32
+    x = np.repeat(np.arange(-1, P), 4) + frac(n)
+    y = rng.uniform(-1, P - 0.001, n)
+    z = rng.uniform(-1, P - 0.001, n)
+    q = n // 4
+    y[:q], y[q:2 * q] = -1 + frac(q), P - 1 + frac(q)
+    z[2 * q:3 * q], z[3 * q:] = -1 + frac(n - 3 * q), P - 1 + frac(n - 3 * q)
+    for a in (x, y, z):
+        whole = rng.uniform(size=n) < 0.25
+        a[whole] = np.floor(a[whole])
+    out = np.array([[-2.5, 5.5, 5.5], [P + 0.1, 5.5, 5.5], [5.5, -2.0, 5.5],
+                    [5.5, P + 0.5, 5.5], [5.5, 5.5, -3.0], [5.5, 5.5, P]])
+    xi, yi, zi = (np.concatenate([a, out[:, k]]) for k, a in
+                  enumerate((x, y, z)))
+    vals = rng.standard_normal((3, xi.size))
+    return [a.astype(np.float32) for a in (zi, yi, xi, *vals)]
+
+
 def tensor_at_offset(a, offset: int, device="cpu"):
     """A contiguous tensor equal to `a` that starts `offset` elements into
     a larger buffer: with offset 1 its data pointer is 4 bytes past the

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from test_torch_common import (K1_CASES, KB_EDGE_P, SCATTER_CASES,
-                               kb_edge_samples, phantom_batch, rel_err,
-                               require_cuda, scatter_case, tensor_at_offset)
+                               TRI_EDGE_P, kb_edge_samples, phantom_batch,
+                               rel_err, require_cuda, scatter_case,
+                               tensor_at_offset, tri_edge_samples)
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.ops import reconstruct as trec
 from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
@@ -217,6 +218,29 @@ def test_kb_kernel_rows_at_every_alignment_and_edge(offset):
                                        P=KB_EDGE_P, **KB)
     torch.cuda.synchronize()
     assert scatter_kb.launches == before + 1
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_tri_kernel_rows_at_every_alignment_and_edge(offset):
+    """K2 on samples whose floors take every residue of x mod 4 and lie at
+    -1 and P - 1 on each axis, with fractions of exactly 0 and samples with
+    no corner inside, into cubes that start 0-3 floats past an allocation:
+    a row's pair in one float4 quad at every lane, straddling two quads,
+    and tap by tap at the row ends; <= 1e-4 * max."""
+    require_cuda()
+    samples = [torch.as_tensor(a, device="cuda") for a in tri_edge_samples()]
+    base = np.random.default_rng(offset).standard_normal(
+        (3, TRI_EDGE_P ** 3)).astype(np.float32)
+    at = lambda a: tensor_at_offset(a, offset, "cuda")
+    before = scatter_tri.launches
+    got = scatter_tri.tri_scatter(*map(at, base), *samples, P=TRI_EDGE_P)
+    want = scatter_tri.tri_scatter_plain(*map(at, base), *samples,
+                                         P=TRI_EDGE_P)
+    torch.cuda.synchronize()
+    assert scatter_tri.launches == before + 1
     for g, w in zip(got, want):
         assert rel_err(g, w) <= 1e-4
 

@@ -21,8 +21,9 @@ import pytest
 import torch
 
 from test_torch_common import (K1_CASES, KB_EDGE_P, SCATTER_CASES,
-                               kb_edge_samples, particle_batch, rel_err,
-                               scatter_case, tensor_at_offset)
+                               TRI_EDGE_P, kb_edge_samples, particle_batch,
+                               rel_err, scatter_case, tensor_at_offset,
+                               tri_edge_samples)
 from xmipp3_tpu.core.geometry import euler_matrix
 from xmipp3_tpu.ops import reconstruct as jrec
 from xmipp3_tpu.ops.pallas_scatter import scatter_add_3ch as jax_scatter3
@@ -170,6 +171,45 @@ def test_tri_plain_masks_each_corner_per_axis():
     assert float(w[1, 3, 2]) == pytest.approx(0.75 * 0.5)
     assert float(w[2, 3, 2]) == pytest.approx(0.25 * 0.5)
     torch.testing.assert_close(cubes[1], 2 * cubes[0])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_tri_plain_at_the_cube_edges_matches_the_reference_taps(offset):
+    """K2's contract on tri_edge_samples (floors at every residue of x
+    mod 4 and at -1 and P - 1 on each axis, fractions of exactly 0, samples
+    with no corner inside): the wrapper's plain version (what the CPU runs),
+    into cubes that start 0-3 floats past an allocation, against the
+    reference's XLA path on the same samples, its 8-tap expansion with the
+    per-axis mask (xmipp3_tpu/ops/reconstruct.py:236-268) into its
+    scatter_add_3ch. The same float32 products summed in another
+    order: <= 1e-6 * max."""
+    zi, yi, xi, v0, v1, v2 = tri_edge_samples()
+    P_ = TRI_EDGE_P
+    at = [jnp.asarray(a) for a in (zi, yi, xi)]
+    lo = [jnp.floor(a).astype(jnp.int32) for a in at]
+    fz, fy, fx = (a - f for a, f in zip(at, lo))
+    idx, vals = [], []
+    for dz, dy, dx in jrec._taps("tri"):
+        w = (jnp.where(dz, fz, 1 - fz) * jnp.where(dy, fy, 1 - fy)
+             * jnp.where(dx, fx, 1 - fx))
+        zj, yj, xj = (f + d for f, d in zip(lo, (dz, dy, dx)))
+        inside = ((zj >= 0) & (zj < P_) & (yj >= 0) & (yj < P_) & (xj >= 0)
+                  & (xj < P_))
+        w = jnp.where(inside, w, 0.0)
+        idx.append((jnp.clip(zj, 0, P_ - 1) * P_ + jnp.clip(yj, 0, P_ - 1))
+                   * P_ + jnp.clip(xj, 0, P_ - 1))
+        vals.append([w * v for v in (v0, v1, v2)])
+    zero = jnp.zeros(P_ ** 3, jnp.float32)
+    want = jax_scatter3(zero, zero, zero, jnp.concatenate(idx),
+                        *(jnp.concatenate([v[k] for v in vals])
+                          for k in range(3)))
+    cubes = [tensor_at_offset(np.zeros(P_ ** 3, np.float32), offset)
+             for _ in range(3)]
+    got = scatter_tri.tri_scatter(
+        *cubes, *map(torch.as_tensor, (zi, yi, xi, v0, v1, v2)), P=P_)
+    for g, c, w in zip(got, cubes, want):
+        assert g is c
+        assert rel_err(g, np.asarray(w)) <= 1e-6
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "size"])

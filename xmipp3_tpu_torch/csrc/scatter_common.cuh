@@ -1,17 +1,17 @@
 // Device code shared by the scatter kernels: the range-checked float atomic,
 // the 8-byte vector atomic for two neighbouring voxels, the warp-aggregated
-// add, the vector atomics of a row of four voxels and the channel selection
-// of a channel-per-block-row grid.
+// add, the vector atomics of a row of two or four voxels and the channel
+// selection of a channel-per-block-row grid.
 //
 // All of it serves one fact of the card: a float atomic resolves in L2 on a
 // 32-byte sector, a warp's atomic costs one L2 request per sector its lanes
 // touch, and a sector that is not resident is read from device memory and
 // later written back. What a scatter can save is sector requests, not
 // arithmetic: walk one accumulator at a time (`pick` with the channel in
-// blockIdx.y, which the card schedules after all of blockIdx.x), put two
-// taps that are x-neighbours into one 8-byte atomic (`add_pair`), and sum
-// the updates a warp holds for one voxel before they leave the SM
-// (`add_warp`).
+// blockIdx.y, which the card schedules after all of blockIdx.x), put taps
+// that are x-neighbours into one vector atomic (`add_pair`, `add_row2`,
+// `add_row4`), and sum the updates a warp holds for one voxel before they
+// leave the SM (`add_warp`).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,6 +104,35 @@ __device__ __forceinline__ void add_row4(float* __restrict__ row, int32_t j,
   float4* q = reinterpret_cast<float4*>(row + j - mis);
   if (any_nonzero(a)) atomicAdd(q, a);
   if (any_nonzero(b)) atomicAdd(q + 1, b);
+}
+
+// row[j] += a and row[j + 1] += b, in a row of p floats: two neighbouring
+// voxels x = j, j + 1, of which one outside [0, p) is never written. Where
+// both lie in one 16-byte quad inside the row they go out as that quad's
+// float4 atomic (sm_90), zeros in its other two lanes; where the pair
+// straddles two quads, or a quad would leave the row, as two scalar adds.
+// The quad is found from the address, not from j: rows need not start on a
+// 16-byte boundary.
+__device__ __forceinline__ void add_row2(float* __restrict__ row, int32_t j,
+                                         int32_t p, float a, float b) {
+  const int mis = (int)((reinterpret_cast<uintptr_t>(row + j) & 15) >> 2);
+  if (mis < 3 && j - mis >= 0 && j - mis + 4 <= p) {
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (mis == 0) {
+      u.x = a;
+      u.y = b;
+    } else if (mis == 1) {
+      u.y = a;
+      u.z = b;
+    } else {
+      u.z = a;
+      u.w = b;
+    }
+    atomicAdd(reinterpret_cast<float4*>(row + j - mis), u);
+    return;
+  }
+  if (j >= 0 && j < p) atomicAdd(row + j, a);
+  if (j + 1 >= 0 && j + 1 < p) atomicAdd(row + j + 1, b);
 }
 
 // Channel-per-block-row grids: the pointer of channel ch.
