@@ -50,19 +50,42 @@ Phases; any failure exits non-zero before the result line is printed:
    (the antipode with a flip is the same view), the median shift error must
    be <= 0.5 px and the closing map must correlate >= 0.8 with the phantom.
    Its FSC curve and the matching run's per-phase seconds are printed.
-5. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   Phase 2 also holds the Kaiser-Bessel kernel's kz-slab mode: the batch
+   gridded into two slabs of 128 planes (z_lo 0 and 128), each against its
+   plain version (1e-4 * max), then both into views of one allocation
+   against the full-cube kernel (1e-4 * max), with each slab's bounds and
+   `index_add_` on the slab's taps as the library time.
+5. The mesh paths through the CLI on the one card: the ranks of a gloo
+   process group, each a process of its own on cuda:0, started with
+   --dist_coordinator 127.0.0.1:<free port> --dist_nprocs n --dist_procid
+   r, on the data of phases 3 and 4. reconstruct_fourier --interp kb with
+   --mesh slab (2 ranks), slab2d (4 ranks, 2 x 2) and dp (2 ranks): each
+   volume must equal phase 3's serial kb volume to 1e-4 * max and keep
+   FSC >= 0.9 to half Nyquist, and every rank of a slab run must have
+   launched the kb kernel in slab mode. angular_projection_matching at
+   phase 4's flags with --mesh dp and tp (2 ranks): each must assign >= 99 %
+   of the views to the same direction as phase 4's serial run (within
+   0.1 degrees, a flipped match naming the antipode), and every
+   rank must have launched the cross-spectrum kernel. A rank that fails, or
+   a run longer than RANK_TIMEOUT_S, fails the script. One line a run
+   gives its wall and every rank's wall and phase seconds.
+6. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
 from beside itself (from any working directory), builds every kernel from
 the checkout's sources and writes its data under chip_smoke_data/ in the
 checkout, which it removes at the end. Without a card, or without the
-package beside it, it exits 2 and prints no result.
+package beside it, it exits 2 and prints no result. (`chip_smoke.py
+--mesh-rank <program> <args>` is phase 5's rank: it runs one program and
+prints its launch counts and phase seconds.)
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -106,6 +129,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call line)
                     "xmipp3_tpu/ops/pallas_scatter_tri.py:234"),
     "kb_scatter_3ch": ("xmipp3_tpu_torch/csrc/scatter_kb.cu",
                        "xmipp3_tpu/ops/pallas_scatter_kb.py:258"),
+    "kb_scatter_3ch_slab": ("xmipp3_tpu_torch/csrc/scatter_kb.cu",
+                            "xmipp3_tpu/ops/pallas_scatter_kb.py:258"),
     "cross_spectrum": ("xmipp3_tpu_torch/csrc/cross.cu",
                        "xmipp3_tpu/ops/pallas_cross.py:67"),
     "scatter_add_3ch_streams": ("xmipp3_tpu_torch/csrc/scatter.cu",
@@ -184,19 +209,19 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
-def cubes(device):
+def cubes(device, size=P ** 3):
     import torch
-    return [torch.zeros(P ** 3, dtype=torch.float32, device=device)
+    return [torch.zeros(size, dtype=torch.float32, device=device)
             for _ in range(3)]
 
 
 def compare(name, kernel, plain, stream, bytes_per_sample, ops_per_tap,
-            ops_per_sample, M, library=None):
-    """Hold `kernel` against `plain` (both fn(c0, c1, c2)) on zeroed cubes,
-    time both, and compute the bound from the plain tap stream `stream`
-    (idx, u0, u1, u2) of this run's data."""
+            ops_per_sample, M, library=None, size=P ** 3):
+    """Hold `kernel` against `plain` (both fn(c0, c1, c2)) on zeroed cubes
+    of `size` voxels, time both, and compute the bound from the plain tap
+    stream `stream` (idx, u0, u1, u2) of this run's data."""
     import torch
-    ck, cp = cubes(DEVICE), cubes(DEVICE)
+    ck, cp = cubes(DEVICE, size), cubes(DEVICE, size)
     kernel(*ck)
     plain(*cp)
     torch.cuda.synchronize()
@@ -324,6 +349,8 @@ def kernels_vs_plain(seed):
         library=lambda *c: [a.index_add_(0, kbs[0], u)
                             for a, u in zip(c, kbs[1:])]))
     del kbs
+    out.append(kb_slab_vs_plain(samples, kb, M))
+    torch.cuda.empty_cache()
 
     # K5 on the 8 trilinear tap streams of the batch (a side reading: K2's
     # taps, as in earlier runs): per update the index and three values (16
@@ -356,6 +383,65 @@ def kernels_vs_plain(seed):
     out.append(cross_vs_plain(seed))
     torch.cuda.empty_cache()
     return out
+
+
+SLABS = ((0, P // 2), (P // 2, P // 2))   # (z_lo, zdim): two kz-slabs
+
+
+def kb_slab_vs_plain(samples, kb, M):
+    """K3 in kz-slab mode on the batch: each slab against its plain version
+    (as `compare` holds a kernel), then both slabs gridded into views of
+    one allocation per channel and held against the full-cube kernel. The
+    entry's times and bounds are those of the two launches together, the
+    work of the full-cube launch; `slabs` has each launch's."""
+    import torch
+    from xmipp3_tpu_torch.ops import scatter_kb
+    name = "kb_scatter_3ch_slab"
+    parts = []
+    for z_lo, zdim in SLABS:
+        slab = dict(kb, zdim=zdim, z_lo=z_lo)
+        log(f"  {name}: planes [{z_lo}, {z_lo + zdim})")
+        taps = scatter_kb.kb_expand(*samples, **slab)
+        parts.append(compare(
+            "kb_scatter_3ch_slab",
+            lambda *c: scatter_kb.kb_scatter_3ch(*c, *samples, **slab),
+            lambda *c: scatter_kb.kb_scatter_plain(*c, *samples, **slab),
+            taps, 24, 28, 6, M, size=zdim * P * P,
+            library=lambda *c: [a.index_add_(0, taps[0], u)
+                                for a, u in zip(c, taps[1:])]))
+        parts[-1].update(z_lo=z_lo, zdim=zdim)
+        del taps
+    full, stacked = cubes(DEVICE), cubes(DEVICE)
+    scatter_kb.kb_scatter_3ch(*full, *samples, **kb)
+    for z_lo, zdim in SLABS:
+        view = lambda c: c[z_lo * P * P:(z_lo + zdim) * P * P]
+        scatter_kb.kb_scatter_3ch(*map(view, stacked), *samples, **kb,
+                                  zdim=zdim, z_lo=z_lo)
+    torch.cuda.synchronize()
+    stack_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(stacked, full))
+    log(f"  {name}: the two slabs stacked against the full-cube kernel: "
+        f"max|diff| / max|full| = {stack_err:.3e}")
+    check(np.isfinite(stack_err) and stack_err <= TOL, f"{name}: stacked "
+          f"slabs disagree with the full cube ({stack_err:.3e} > {TOL})")
+    total = lambda k: sum(p[k] for p in parts)
+    entry = dict(parts[0])
+    entry.update({k: total(k) for k in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "sector_bound_ms",
+        "live_taps", "touched_voxels", "touched_sectors")})
+    entry.update(
+        max_abs_err=max(p["max_abs_err"] for p in parts),
+        rel_err=max(p["rel_err"] for p in parts),
+        samples=M, atomics_per_s=3 * entry["live_taps"] / (entry["ms"] * 1e-3),
+        host_us_per_call=max(p["host_us_per_call"] for p in parts),
+        stacked_vs_full_rel_err=stack_err,
+        slabs=[{k: p[k] for k in ("z_lo", "zdim", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "sector_bound_ms",
+                                  "live_taps", "max_abs_err", "rel_err")}
+               for p in parts])
+    entry["bound_by"] = "bytes" if all(p["bound_by"] == "bytes"
+                                       for p in parts) else "operations"
+    return entry
 
 
 def cross_operands(seed):
@@ -509,6 +595,7 @@ def launch_counts(reset=False):
     where = {"scatter_add_3ch": (scatter, "launches"),
              "tri_scatter": (scatter_tri, "launches"),
              "kb_scatter_3ch": (scatter_kb, "launches"),
+             "kb_scatter_3ch_slab": (scatter_kb, "slab_launches"),
              "cross_spectrum": (cross, "launches"),
              "scatter_add_3ch_streams": (scatter, "streams_launches")}
     counts = {k: getattr(m, a) for k, (m, a) in where.items()}
@@ -532,13 +619,13 @@ def map_quality(path, ref):
     return rec, fsc.cpu().numpy(), corr
 
 
-def end_to_end(seed):
+def end_to_end(seed, root: Path):
+    """Phase 3 in root (kept for phase 5); returns the launches and the
+    dataset and serial kb volume phase 5 reads."""
     import torch
     from xmipp3_tpu_torch.core import timing
     from xmipp3_tpu_torch.programs import main as xmipp
-    root = ROOT / "chip_smoke_data"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir()
+    root.mkdir(parents=True)
     t0 = time.perf_counter()
     md = write_dataset(root, VIEWS, seed)
     log(f"phase 3: {VIEWS} phantom views at N={N} written in "
@@ -585,16 +672,28 @@ def end_to_end(seed):
     finally:
         timing.take_timing()
         timing.enable_timing(False)
-        shutil.rmtree(root, ignore_errors=True)
     log("e2e " + json.dumps({"runs": runs}))
-    return launches
+    return launches, md, root / "rec_0.vol"
 
 
 # ---------------------------------------------------------------------------
 # phase 4: gallery -> projection matching -> reconstruction, through the CLI
 # ---------------------------------------------------------------------------
 
-def matching_cycle(seed):
+def effective_directions(rows):
+    """Unit view directions of assignment rows: the matched reference's
+    direction, negated where the match is flipped (proj(-d) is the mirror
+    of proj(d), so both name the same view)."""
+    from xmipp3_tpu_torch.core.sampling import directions_from_angles
+    col = lambda k: np.array([float(r[k]) for r in rows])
+    d = directions_from_angles(np.stack([col("angleRot"), col("angleTilt")],
+                                        1))
+    return np.where((col("flip") > 0)[:, None], -d, d)
+
+
+def matching_cycle(seed, root: Path):
+    """Phase 4 in root (kept for phase 5); returns the launches and the
+    matching run's arguments."""
     import torch
     from xmipp3_tpu_torch.core import timing
     from xmipp3_tpu_torch.core.image import save_image
@@ -602,9 +701,7 @@ def matching_cycle(seed):
     from xmipp3_tpu_torch.core.sampling import directions_from_angles
     from xmipp3_tpu_torch.ops.match import _trial_shift_grid
     from xmipp3_tpu_torch.programs import main as xmipp
-    root = ROOT / "chip_smoke_data"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir()
+    root.mkdir(parents=True)
     ref = phantom(N, BLOBS8)
     save_image(str(root / "phantom.vol"), ref)
     rng = np.random.default_rng(seed + 3)
@@ -673,10 +770,7 @@ def matching_cycle(seed):
         order = col("itemId").astype(int) - 1
         flip = col("flip") > 0
         d_true = directions_from_angles(np.stack([rot, tilt], 1))[order]
-        d_got = directions_from_angles(
-            np.stack([col("angleRot"), col("angleTilt")], 1))
-        # proj(-d) is the mirror of proj(d): a flipped match names the antipode
-        d_got = np.where(flip[:, None], -d_got, d_got)
+        d_got = effective_directions(rows)
         ang = np.degrees(np.arccos(np.clip((d_true * d_got).sum(1), -1, 1)))
         within = float((ang <= 1.5 * GALLERY_RATE).mean())
         shift_err = np.hypot(col("shiftX") - sx[order],
@@ -702,14 +796,172 @@ def matching_cycle(seed):
     finally:
         timing.take_timing()
         timing.enable_timing(False)
-        shutil.rmtree(root, ignore_errors=True)
     log("cycle " + json.dumps(report))
-    return launches
+    return launches, steps[1][1]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the mesh paths through the CLI, ranks on the one card
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 300   # a whole run of the ranks, start to exit
+MESH_RUNS = (  # (program, mode, ranks)
+    ("reconstruct_fourier", "slab", 2), ("reconstruct_fourier", "slab2d", 4),
+    ("reconstruct_fourier", "dp", 2),
+    ("angular_projection_matching", "dp", 2),
+    ("angular_projection_matching", "tp", 2))
+
+
+def mesh_rank(argv) -> int:
+    """One rank of phase 5: run the program of argv with every launch count
+    at 0 and phase timing on, then print a line RANK {rc, wall_s, launches,
+    phases_s}."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.programs import main as xmipp
+    timing.enable_timing(True)
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    rc = xmipp(["xmipp", *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print("RANK " + json.dumps({
+        "rc": rc, "wall_s": wall, "launches": launch_counts(),
+        "phases_s": {k: v[0] for k, v in timing.take_timing().items()}}),
+        flush=True)
+    return rc
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_ranks(program, args, n, logs: Path):
+    """Start n ranks of `program args` in a gloo group on cuda:0, wait at
+    most RANK_TIMEOUT_S for all, stop every one that is left, and return
+    (wall seconds, each rank's RANK report); fails on any rank's failure."""
+    port = free_port()
+    procs = []
+    # host threads shared out among the ranks, as torchrun does
+    env = {**os.environ, "OMP_NUM_THREADS": str(max(1, os.cpu_count() // n))}
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            with open(logs / f"rank{r}.log", "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--mesh-rank", program, *args, "--dist_coordinator",
+                     f"127.0.0.1:{port}", "--dist_nprocs", str(n),
+                     "--dist_procid", str(r), "--device", DEVICE, "-v", "1"],
+                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
+                    env=env))
+        for p in procs:
+            left = RANK_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{program}: the ranks did not finish "
+                                   f"within {RANK_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    reports = []
+    for r, p in enumerate(procs):
+        text = (logs / f"rank{r}.log").read_text()
+        check(p.returncode == 0, f"{program} rank {r} of {n} exited with "
+              f"{p.returncode}:\n{text[-3000:]}")
+        line = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        check(line, f"{program} rank {r}: no report\n{text[-3000:]}")
+        reports.append(json.loads(line[-1][5:]))
+        mesh_line = [ln for ln in text.splitlines() if ln.startswith("mesh:")]
+        if r == 0 and mesh_line:
+            log(f"  {mesh_line[0]}")
+    return wall, reports
+
+
+def mesh_runs(root: Path, rec_md: Path, serial_vol: Path, match_args):
+    """Phase 5; returns the launches of K3's slab mode over every rank."""
+    import torch
+    from xmipp3_tpu_torch.core.image import Image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    torch.cuda.empty_cache()
+    serial = np.squeeze(Image(str(serial_vol)).data)
+    ref = phantom(N)
+    md = MetaData(str(match_args[match_args.index("-o") + 1]))
+    serial_rows = {int(r["itemId"]): r for r in (md.getRow(i) for i in md)}
+    slab_launches, runs = 0, []
+    for program, mode, n in MESH_RUNS:
+        label = f"{program} --mesh {mode} over {n} ranks"
+        work = root / f"mesh_{program}_{mode}"
+        work.mkdir()
+        out = work / ("rec.vol" if program == "reconstruct_fourier"
+                      else "assigned.xmd")
+        if program == "reconstruct_fourier":
+            args = ["-i", str(rec_md), "-o", str(out), "--interp", "kb"]
+        else:
+            args = list(match_args)
+            args[args.index("-o") + 1] = str(out)
+        wall, reps = run_ranks(program, args + ["--mesh", mode], n, work)
+        run = {"program": program, "mode": mode, "ranks": n, "wall_s": wall,
+               "per_rank": reps}
+        if program == "reconstruct_fourier":
+            kname = "kb_scatter_3ch" if mode == "dp" else \
+                "kb_scatter_3ch_slab"
+            for r, rep in enumerate(reps):
+                check(rep["launches"][kname] > 0, f"{label}: rank {r} never "
+                      f"launched {kname}: {rep['launches']}")
+            if mode != "dp":
+                slab_launches += sum(rep["launches"][kname] for rep in reps)
+            vol, fsc, corr = map_quality(out, ref)
+            err = float(np.abs(vol - serial).max() / np.abs(serial).max())
+            half = fsc[: len(fsc) // 2]
+            run.update(rel_err_vs_serial=err,
+                       fsc_min_to_half_nyquist=float(half.min()), corr=corr)
+            result = (f"max|mesh - serial| / max|serial| = {err:.3e}, min FSC "
+                      f"to Nyquist/2 {half.min():.4f}")
+            check(err <= TOL, f"{label}: the volume differs from the serial "
+                  f"one by {err:.3e} > {TOL}")
+            check(half.min() >= 0.9, f"{label}: FSC {half.min():.4f} < 0.9 "
+                  "below half Nyquist")
+        else:
+            for r, rep in enumerate(reps):
+                check(rep["launches"]["cross_spectrum"] > 0, f"{label}: rank "
+                      f"{r} never launched cross_spectrum")
+            md = MetaData(str(out))
+            rows = [md.getRow(i) for i in md]
+            check(len(rows) == len(serial_rows), f"{label}: {len(rows)} rows")
+            base = [serial_rows[int(r["itemId"])] for r in rows]
+            # the same view: within 0.1 deg (the angles are float32, gallery
+            # neighbours lie degrees apart), the exact antipode with the
+            # other flip counted in (effective_directions)
+            cos = (effective_directions(rows)
+                   * effective_directions(base)).sum(1)
+            ang = np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+            same = float((ang <= 0.1).mean())
+            run["same_direction_as_serial"] = same
+            result = f"{same:.4f} of the views in the serial run's direction"
+            check(same >= 0.99, f"{label}: only {same:.4f} of the views keep "
+                  "the serial run's direction")
+        log(f"  {label}: {wall:.3f} s, {result}; " + "; ".join(
+            f"rank {r} {rep['wall_s']:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in rep["phases_s"].items())
+            + ")" for r, rep in enumerate(reps)))
+        runs.append(run)
+    log("mesh " + json.dumps({"runs": runs}))
+    return slab_launches
 
 
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--mesh-rank"]:
+        return mesh_rank(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -742,14 +994,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    root = ROOT / "chip_smoke_data"
+    shutil.rmtree(root, ignore_errors=True)
     try:
         kernels = kernels_vs_plain(args.seed)
-        launches = end_to_end(args.seed)
-        launches.update({k: v for k, v in matching_cycle(args.seed).items()
+        launches, rec_md, serial_vol = end_to_end(args.seed, root / "e2e")
+        cycle, match_args = matching_cycle(args.seed, root / "cycle")
+        launches.update({k: v for k, v in cycle.items()
                          if k not in launches})
+        log("phase 5: the mesh paths, ranks of a gloo group on one card")
+        launches["kb_scatter_3ch_slab"] = mesh_runs(root, rec_md, serial_vol,
+                                                    match_args)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

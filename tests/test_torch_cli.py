@@ -79,8 +79,25 @@ def test_cli_dispatcher_runs_the_program(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--useCTF"], ["--mesh", "dp"],
                                   ["--dist_nprocs", "2"]])
 def test_cli_rejects_flags_of_later_slices(tmp_path, flag):
+    """--useCTF is still rejected, naming the ROADMAP queue. The mesh flags
+    behave as in the reference on one device: --mesh dp needs two ranks,
+    and --dist_nprocs without --dist_coordinator starts no process group,
+    so the run is the serial one (tests/test_torch_parallel.py runs the
+    mesh paths on ranks of their own)."""
     fn = _dataset(tmp_path)
     prog = get_program("reconstruct_fourier")
-    with pytest.raises(XmippError, match="ROADMAP"):
-        prog.run_with_args(["-i", fn, "-o", str(tmp_path / "r.vol"),
-                            "--device", "cpu"] + flag)
+    args = ["-i", fn, "-o", str(tmp_path / "r.vol"), "--device", "cpu"]
+    if flag[0] == "--useCTF":
+        with pytest.raises(XmippError, match="ROADMAP"):
+            prog.run_with_args(args + flag)
+    elif flag[0] == "--mesh":
+        with pytest.raises(RuntimeError, match="needs >= 2 devices"):
+            prog.run_with_args(args + flag)
+        assert not (tmp_path / "r.vol").exists()
+    else:
+        assert prog.run_with_args(args + ["--interp", "nn"] + flag) == 0
+        assert get_program("reconstruct_fourier").run_with_args(
+            ["-i", fn, "-o", str(tmp_path / "serial.vol"), "--device",
+             "cpu", "--interp", "nn"]) == 0
+        np.testing.assert_array_equal(_vol(tmp_path / "r.vol"),
+                                      _vol(tmp_path / "serial.vol"))

@@ -7,7 +7,8 @@ neighbour files; assignment rows to the tolerances of test_torch_match.py
 (same ref and flip, counting the exact antipodal-mirror tie as the same
 direction, for >= 98 % of the rows; on the same rows psi <= 0.5 deg, shifts
 <= 0.05 px, maxCC <= 1e-3). The flags of later slices raise with the
-ROADMAP queue's name."""
+ROADMAP queue's name; --method real_space is accepted and ignored, as in the
+reference."""
 import os
 import subprocess
 import sys
@@ -190,10 +191,41 @@ def test_programs_raise_without_a_card(work, tmp_path, monkeypatch):
     ("angular_projection_matching", ["--mesh", "tp"]),
     ("angular_projection_matching", ["--dist_nprocs", "2"])])
 def test_flags_of_later_slices_raise(work, tmp_path, program, flag):
+    """--ctf is still rejected, naming the ROADMAP queue. --method
+    real_space is accepted and ignored as in the reference (the gallery is
+    the reference's under the same flag). On one device the mesh flags
+    behave as in the reference: --mesh dp|tp need two ranks, and
+    --dist_nprocs without --dist_coordinator leaves the run serial
+    (tests/test_torch_parallel.py runs the mesh paths on ranks)."""
     args = {"angular_project_library":
             ["-i", str(work / "vol.vol"), "-o", str(tmp_path / "g")],
             "angular_projection_matching":
             ["-i", str(work / "parts.xmd"), "-o", str(tmp_path / "a.xmd"),
              "--ref", str(work / "port")]}[program]
-    with pytest.raises(XmippError, match="ROADMAP.md, port queue"):
-        get_program(program).run_with_args(args + ["--device", "cpu"] + flag)
+    run = lambda extra: get_program(program).run_with_args(
+        args + ["--device", "cpu"] + extra)
+    if flag[0] == "--ctf":
+        with pytest.raises(XmippError, match="ROADMAP.md, port queue"):
+            run(flag)
+    elif flag[0] == "--method":
+        flag = flag + ["--sampling_rate", "15"]
+        assert run(flag) == 0
+        assert jax_program(program).run_with_args(
+            ["-i", str(work / "vol.vol"), "-o", str(tmp_path / "r")]
+            + flag) == 0
+        for suffix in (".doc", "_sampling.xmd"):
+            assert (tmp_path / f"g{suffix}").read_text().replace(
+                "g.stk", "X") == (tmp_path / f"r{suffix}").read_text() \
+                .replace("r.stk", "X")
+        assert rel_err(np.squeeze(Image(str(tmp_path / "g.stk")).data),
+                       np.squeeze(Image(str(tmp_path / "r.stk")).data)) \
+            <= 1e-4
+    elif flag[0] == "--mesh":
+        with pytest.raises(RuntimeError, match="needs >= 2 devices"):
+            run(flag)
+        assert not list(tmp_path.iterdir())
+    else:
+        assert run(flag) == 0
+        serial = _rows(tmp_path / "a.xmd")
+        assert run([]) == 0
+        assert _rows(tmp_path / "a.xmd") == serial

@@ -5,10 +5,13 @@ The port must never import jax or the reference package, must run on the
 card unless told otherwise, and must raise, never fall back to the CPU,
 when no card is visible.
 """
+import json
 import os
 import re
+import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -137,6 +140,26 @@ def kb_edge_samples(seed: int = 13, P: int = KB_EDGE_P):
     return [a.astype(np.float32) for a in (zi, yi, xi, *vals)]
 
 
+# (z_lo, zdim) of K3's kz-slab cases in a KB_EDGE_P cube: the first and the
+# last planes, a one-plane slab, and slabs inside
+KB_SLABS = [(0, 5), (5, 6), (11, 5), (3, 1), (0, KB_EDGE_P)]
+
+
+def kb_slab_samples(z_lo: int, zdim: int, seed: int = 19, P: int = KB_EDGE_P):
+    """kb_edge_samples with the z of the in-cube samples moved around the
+    slab [z_lo, z_lo + zdim): floors at z_lo - 2, z_lo - 1, z_lo + zdim - 1
+    and z_lo + zdim (clipped into [0, P)), so that taps fall on both sides
+    of both slab faces; the samples whose floor lies outside the cube stay
+    (dropped whole, whatever the slab)."""
+    zi, yi, xi, *vals = kb_edge_samples(seed, P)
+    rng = np.random.default_rng(seed)
+    n = 4 * P
+    floors = np.array([z_lo - 2, z_lo - 1, z_lo + zdim - 1, z_lo + zdim])
+    zf = np.clip(floors[np.arange(n) % 4], 0, P - 1)
+    zi[:n] = (zf + rng.uniform(0, 1, n)).astype(np.float32)
+    return [zi, yi, xi, *vals]
+
+
 TRI_EDGE_P = 16
 
 
@@ -198,6 +221,7 @@ from xmipp3_tpu_torch.core import metadata_program, sampling
 from xmipp3_tpu_torch.ops import (cross, dft_mm, fourier, fsc, geo, match, polar,
                                   project, reconstruct, scatter, scatter_kb,
                                   scatter_tri, shear_rotate, shift)
+from xmipp3_tpu_torch.parallel import cli, match, mesh, reconstruct
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"
              or m.startswith("xmipp3_tpu."))
@@ -269,3 +293,164 @@ def test_timing_phases_and_profiler_trace(tmp_path):
     with timing.trace(str(tmp_path / "tr")):
         torch.ones(64).cumsum(0)
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+
+
+# ---------------------------------------------------------------------------
+# Ranks of a torch.distributed process group for the mesh tests: processes
+# of their own that run `python test_torch_common.py <spec> <rank>`, import
+# the port and never jax, and write their results beside the spec.
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 120
+
+
+def free_ports(k: int) -> list[int]:
+    """k distinct free TCP ports on the loopback (each bound to port 0
+    and released together)."""
+    socks = [socket.socket() for _ in range(k)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+class Ranks:
+    """n rank processes running `jobs` (see _rank_main) on `device` in
+    `workdir`, from numpy inputs saved as workdir/inputs.npz. join() waits
+    at most RANK_TIMEOUT_S for all of them, kills every one that is left,
+    and returns each rank's report; a rank that failed or hung fails the
+    caller."""
+
+    def __init__(self, n: int, jobs: list, workdir: Path, inputs: dict,
+                 device: str = "cpu"):
+        self.n, self.dir = n, Path(workdir)
+        np.savez(self.dir / "inputs.npz", **inputs)
+        ports = free_ports(len(jobs))
+        spec = {"world": n, "device": device,
+                "jobs": [dict(j, port=p) for j, p in zip(jobs, ports)]}
+        (self.dir / "spec.json").write_text(json.dumps(spec))
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(REPO), str(REPO / "tests")])}
+        self.procs = []
+        for r in range(n):
+            with open(self.dir / f"rank{r}.log", "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, __file__, str(self.dir / "spec.json"),
+                     str(r)], cwd=self.dir, env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        self.start = time.monotonic()
+
+    def join(self) -> list[dict]:
+        try:
+            for p in self.procs:
+                left = RANK_TIMEOUT_S - (time.monotonic() - self.start)
+                p.wait(timeout=max(left, 0.1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        logs = [(self.dir / f"rank{r}.log").read_text() for r in
+                range(self.n)]
+        for r, p in enumerate(self.procs):
+            assert p.returncode == 0, (f"rank {r} of {self.n} exited with "
+                                       f"{p.returncode}:\n{logs[r][-4000:]}")
+        return [json.loads((self.dir / f"rank{r}.json").read_text())
+                for r in range(self.n)]
+
+
+def _rank_mesh(kind: str, device: str):
+    from xmipp3_tpu_torch.parallel.mesh import (Mesh, data_mesh, rank_device,
+                                                world)
+    if kind == "slab2d":
+        return Mesh({"data": world()[0] // 2, "z": 2}, rank_device(device))
+    return data_mesh(axis_name=kind, device=device)
+
+
+def _rank_main(spec_path: str, rank: int) -> None:
+    """One rank: for each job, start the process group as the programs do
+    (maybe_init_distributed; a CLI job through its own --dist_* flags), run
+    the job and record what it returned or raised, the group's backend and
+    the kernels' launches. A call job saves its result as
+    out_<name>_r<rank>.npz. Every file write of the programs is counted
+    per job, to show that only rank 0 writes."""
+    from types import SimpleNamespace
+    import torch.distributed as dist
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
+    from xmipp3_tpu_torch.parallel import match as pm
+    from xmipp3_tpu_torch.parallel import reconstruct as pr
+    from xmipp3_tpu_torch.parallel.cli import maybe_init_distributed
+    from xmipp3_tpu_torch.programs import get_program
+    from xmipp3_tpu_torch.programs import reconstruct_fourier as rf_prog
+    torch.set_num_threads(1)
+    spec = json.loads(Path(spec_path).read_text())
+    n, device = spec["world"], spec["device"]
+    counters = ((scatter, "launches"), (scatter, "streams_launches"),
+                (scatter_tri, "launches"), (scatter_kb, "launches"),
+                (scatter_kb, "slab_launches"), (cross, "launches"))
+    inputs = dict(np.load(Path(spec_path).parent / "inputs.npz"))
+    writes = [0]
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            writes[0] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    rf_prog.save_image = counted(rf_prog.save_image)
+    MetaData.write = counted(MetaData.write)
+    report = {"rank": rank, "jobs": {}}
+    for job in spec["jobs"]:
+        writes[0] = 0
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        got = {}
+        flags = SimpleNamespace(
+            dist_coordinator=f"127.0.0.1:{job['port']}", dist_nprocs=n,
+            dist_procid=rank, device_arg=device)
+        try:
+            if "program" in job:
+                got["rc"] = get_program(job["program"]).run_with_args(
+                    job["argv"] + [
+                        "--dist_coordinator", flags.dist_coordinator,
+                        "--dist_nprocs", str(n), "--dist_procid", str(rank),
+                        "--device", device, "-v", "0"])
+            else:
+                assert maybe_init_distributed(flags)
+                try:
+                    got["backend"] = dist.get_backend()
+                    fn = getattr(pr, job["fn"], None) or getattr(pm, job["fn"])
+                    out = fn(_rank_mesh(job["mesh"], device),
+                             *(inputs[k] for k in job["args"]),
+                             **{k: inputs[v] for k, v in
+                                job.get("arrays", {}).items()},
+                             **job.get("kwargs", {}))
+                    if isinstance(out, torch.Tensor):
+                        out = {"vol": out}
+                    np.savez(Path(spec_path).parent /
+                             f"out_{job['name']}_r{rank}.npz",
+                             **{k: v.cpu().numpy() if torch.is_tensor(v)
+                                else np.asarray(v) for k, v in out.items()})
+                finally:
+                    dist.destroy_process_group()
+        except Exception as e:             # recorded, and read by the test
+            got["raised"] = f"{type(e).__name__}: {e}"
+        got["writes"] = writes[0]
+        got["launches"] = {f"{mod.__name__.split('.')[-1]}.{name}":
+                           getattr(mod, name) for mod, name in counters}
+        report["jobs"][job["name"]] = got
+    report["modules"] = sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "xmipp3_tpu" or m.startswith("xmipp3_tpu."))
+    (Path(spec_path).parent / f"rank{rank}.json").write_text(
+        json.dumps(report))
+
+
+if __name__ == "__main__":
+    _rank_main(sys.argv[1], int(sys.argv[2]))

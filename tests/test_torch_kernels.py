@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import (K1_CASES, KB_EDGE_P, SCATTER_CASES,
-                               TRI_EDGE_P, kb_edge_samples, phantom_batch,
-                               rel_err, require_cuda, scatter_case,
-                               tensor_at_offset, tri_edge_samples)
+from test_torch_common import (K1_CASES, KB_EDGE_P, KB_SLABS, SCATTER_CASES,
+                               TRI_EDGE_P, kb_edge_samples, kb_slab_samples,
+                               phantom_batch, rel_err, require_cuda,
+                               scatter_case, tensor_at_offset,
+                               tri_edge_samples)
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.ops import reconstruct as trec
 from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
@@ -224,6 +225,59 @@ def test_kb_kernel_rows_at_every_alignment_and_edge(offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("z_lo,zdim", KB_SLABS)
+def test_kb_kernel_slab_mode_at_the_slab_faces(z_lo, zdim, offset):
+    """K3 in kz-slab mode against its plain version: floors at z_lo - 1 and
+    z_lo + zdim - 1 (and one plane further out on each side), rows at every
+    alignment, samples outside the cube dropped whole, into slabs that
+    start 0-3 floats past an allocation; <= 1e-4 * max."""
+    require_cuda()
+    samples = [torch.as_tensor(a, device="cuda")
+               for a in kb_slab_samples(z_lo, zdim)]
+    base = np.random.default_rng(offset).standard_normal(
+        (3, zdim * KB_EDGE_P ** 2)).astype(np.float32)
+    at = lambda a: tensor_at_offset(a, offset, "cuda")
+    slab = dict(P=KB_EDGE_P, zdim=zdim, z_lo=z_lo, **KB)
+    before = scatter_kb.slab_launches, scatter_kb.launches
+    got = scatter_kb.kb_scatter_3ch(*map(at, base), *samples, **slab)
+    want = scatter_kb.kb_scatter_plain(*map(at, base), *samples, **slab)
+    torch.cuda.synchronize()
+    assert (scatter_kb.slab_launches, scatter_kb.launches) == (
+        before[0] + 1, before[1])
+    for g, w, b in zip(got, want, base):
+        assert (w.cpu().numpy() != b).any()   # the slab was written
+        assert rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_kb_kernel_slabs_of_one_tensor_stack_to_the_full_cube(offset):
+    """The slabs [0, 5), [5, 11) and [11, 16) as views of one (3, P^3)
+    allocation that starts `offset` floats in, each gridded by K3 in slab
+    mode: together they equal K3 on the full cube and the plain version,
+    to 1e-4 * max."""
+    require_cuda()
+    P = KB_EDGE_P
+    samples = [torch.as_tensor(a, device="cuda")
+               for a in kb_slab_samples(5, 6)]
+    big = torch.zeros(3 * P ** 3 + offset, device="cuda")
+    cube = big[offset:].view(3, P ** 3)
+    for lo, hi in ((0, 5), (5, 11), (11, 16)):
+        views = [cube[k, lo * P * P:hi * P * P] for k in range(3)]
+        scatter_kb.kb_scatter_3ch(*views, *samples, P=P, zdim=hi - lo,
+                                  z_lo=lo, **KB)
+    full = [torch.zeros(P ** 3, device="cuda") for _ in range(3)]
+    scatter_kb.kb_scatter_3ch(*full, *samples, P=P, **KB)
+    plain = [torch.zeros(P ** 3, device="cuda") for _ in range(3)]
+    scatter_kb.kb_scatter_plain(*plain, *samples, P=P, **KB)
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert rel_err(cube[k], full[k]) <= 1e-4
+        assert rel_err(cube[k], plain[k]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
 def test_tri_kernel_rows_at_every_alignment_and_edge(offset):
     """K2 on samples whose floors take every residue of x mod 4 and lie at
     -1 and P - 1 on each axis, with fractions of exactly 0 and samples with
@@ -362,6 +416,27 @@ def test_cross_and_streams_wrappers_reject_operands_off_the_card():
     assert (cross.launches, scatter.streams_launches) == before
 
 
+def _blob_volume(N):
+    """A volume of five Gaussian blobs whose views differ enough for
+    projection matching to tell them apart."""
+    z, y, x = np.mgrid[0:N, 0:N, 0:N].astype(np.float32) - N // 2
+    vol = sum(a * np.exp(-((z - cz) ** 2 + (y - cy) ** 2 + (x - cx) ** 2)
+                         / (2 * s ** 2))
+              for cz, cy, cx, s, a in [(0, 0, 0, 3.0, 1.0), (4, -3, 3, 2.0, .8),
+                                       (-3, 3, -2, 2.5, .6), (2, 4, -4, 1.8, .9),
+                                       (-5, -5, 1, 1.5, 1.1)])
+    return vol.astype(np.float32)
+
+
+def _gallery_directions(doc):
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.sampling import directions_from_angles
+    gal = MetaData(str(doc))
+    return directions_from_angles(np.array(
+        [[gal.getRow(i)["angleRot"], gal.getRow(i)["angleTilt"]]
+         for i in gal], float))
+
+
 @pytest.mark.cuda
 def test_matching_program_on_the_card_matches_the_cpu(tmp_path):
     """Gallery and matching programs on the card against --device cpu:
@@ -375,13 +450,7 @@ def test_matching_program_on_the_card_matches_the_cpu(tmp_path):
     from xmipp3_tpu_torch.ops.geo import apply_alignment_2d
     from xmipp3_tpu_torch.programs import get_program
     N, B = 32, 48
-    z, y, x = np.mgrid[0:N, 0:N, 0:N].astype(np.float32) - N // 2
-    vol = sum(a * np.exp(-((z - cz) ** 2 + (y - cy) ** 2 + (x - cx) ** 2)
-                         / (2 * s ** 2))
-              for cz, cy, cx, s, a in [(0, 0, 0, 3.0, 1.0), (4, -3, 3, 2.0, .8),
-                                       (-3, 3, -2, 2.5, .6), (2, 4, -4, 1.8, .9),
-                                       (-5, -5, 1, 1.5, 1.1)])
-    save_image(str(tmp_path / "v.vol"), vol.astype(np.float32))
+    save_image(str(tmp_path / "v.vol"), _blob_volume(N))
     for dev in ("cpu", "cuda"):
         assert get_program("angular_project_library").run_with_args(
             ["-i", str(tmp_path / "v.vol"), "-o", str(tmp_path / dev),
@@ -426,3 +495,81 @@ def test_matching_program_on_the_card_matches_the_cpu(tmp_path):
     assert dpsi[same].max() <= 0.5
     for k in ("shiftX", "shiftY"):
         assert np.abs(col("cpu", k) - col("cuda", k))[same].max() <= 0.05
+
+
+@pytest.mark.cuda
+def test_mesh_paths_on_the_cards(tmp_path):
+    """The mesh reconstructors and matchers on 4 ranks, each a process of
+    its own on cuda:{rank % cards}: NCCL when each rank has a card of its
+    own, gloo otherwise. Every volume within 1e-4 * max of the serial one
+    on the card; the matchers give the serial winners (the same reference
+    and flip, the exact antipodal-mirror tie counted as the same direction)
+    for >= 98 % of the particles; every rank launched the path's kernel."""
+    require_cuda()
+    from test_torch_common import Ranks
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.ops.geo import apply_alignment_2d
+    from xmipp3_tpu_torch.ops.match import match_to_gallery
+    from xmipp3_tpu_torch.programs import get_program
+    n, N, B = 4, 32, 23
+    b = phantom_batch(21, 15, N)
+    f = b["flip"]
+    b["imgs_f"] = np.where(f[:, None, None], b["imgs"][:, :, ::-1], b["imgs"])
+    b["sx_f"] = np.where(f, -b["sx"], b["sx"]).astype(np.float32)
+    save_image(str(tmp_path / "v.vol"), _blob_volume(N))
+    assert get_program("angular_project_library").run_with_args(
+        ["-i", str(tmp_path / "v.vol"), "-o", str(tmp_path / "g"),
+         "--sampling_rate", "15", "--device", "cuda", "-v", "0"]) == 0
+    refs = np.squeeze(Image(str(tmp_path / "g.stk")).data)
+    rng = np.random.default_rng(9)
+    mimgs = apply_alignment_2d(
+        refs[rng.integers(0, len(refs), B)],
+        rng.uniform(-180, 180, B).astype(np.float32),
+        rng.uniform(-3, 3, B).astype(np.float32),
+        rng.uniform(-3, 3, B).astype(np.float32), device="cpu").numpy()
+    mimgs += 0.1 * refs.std() * rng.standard_normal(mimgs.shape).astype(
+        np.float32)
+    rec = dict(args=["imgs", "rot", "tilt", "psi", "sx", "sy"],
+               arrays={"weights": "w", "flip": "flip"},
+               kwargs={"interp": "kb", "batch": 4})
+    slab = dict(rec, args=["imgs_f", "rot", "tilt", "psi", "sx_f", "sy"],
+                arrays={"weights": "w"})
+    match = dict(args=["refs", "mimgs"], kwargs={"max_shift": 4})
+    jobs = [dict(rec, name="dp", fn="parallel_reconstruct", mesh="data"),
+            dict(slab, name="slab", fn="slab_reconstruct", mesh="data"),
+            dict(slab, name="slab2d", fn="slab_reconstruct_2d",
+                 mesh="slab2d"),
+            dict(match, name="match_dp", fn="parallel_match_full",
+                 mesh="data"),
+            dict(match, name="match_tp", fn="parallel_match_tp",
+                 mesh="model")]
+    inputs = {k: b[k] for k in ("imgs", "rot", "tilt", "psi", "sx", "sy", "w",
+                                "flip", "imgs_f", "sx_f")}
+    ranks = Ranks(n, jobs, tmp_path, dict(inputs, refs=refs, mimgs=mimgs),
+                  device="cuda")
+    want = trec.reconstruct_fourier(
+        b["imgs"], b["rot"], b["tilt"], b["psi"], b["sx"], b["sy"], b["w"],
+        flip=b["flip"], interp="kb", batch=4, device="cuda")
+    serial = {k: v.cpu().numpy() for k, v in match_to_gallery(
+        refs, mimgs, max_shift=4, device="cuda").items()}
+    reports = ranks.join()
+    backend = "nccl" if torch.cuda.device_count() >= n else "gloo"
+    kernel = {"dp": "scatter_kb.launches", "slab": "scatter_kb.slab_launches",
+              "slab2d": "scatter_kb.slab_launches",
+              "match_dp": "cross.launches", "match_tp": "cross.launches"}
+    for rep in reports:
+        for name, got in rep["jobs"].items():
+            assert "raised" not in got, (rep["rank"], name, got)
+            assert got["backend"] == backend
+            assert got["launches"][kernel[name]] > 0, (rep["rank"], name)
+    out = lambda name: dict(np.load(tmp_path / f"out_{name}_r0.npz"))
+    for name in ("dp", "slab", "slab2d"):
+        assert rel_err(out(name)["vol"], want) <= 1e-4, name
+    d = _gallery_directions(tmp_path / "g.doc")
+    for name in ("match_dp", "match_tp"):
+        got = out(name)
+        flips = got["flip"] != serial["flip"]
+        same = (got["ref_idx"] == serial["ref_idx"]) & ~flips
+        tie = ~same & flips & (
+            (d[got["ref_idx"]] * d[serial["ref_idx"]]).sum(-1) < -0.9999)
+        assert (same | tie).mean() >= 0.98, name

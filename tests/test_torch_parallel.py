@@ -1,0 +1,430 @@
+"""The mesh paths of the port (xmipp3_tpu_torch.parallel) against the
+reference's on the CPU, and backproject_chunk's kz-slab mode.
+
+- backproject_chunk(slab_p, slab_z0) against the reference's (its XLA path)
+  at N=32, P=64, slabs of 16 and 32 planes at several origins: kb <= 5e-3
+  (K3's degree-7 window polynomial against the exact Bessel window), tri,
+  tri+kb and nn <= 1e-4, each relative to the max of the channel over the
+  full cube. (The roundoff of the two packages' 2-D FFTs is absolute, set
+  by the DC term; a slab far from the cube's centre holds only small
+  high-frequency values, and the full-cube accumulators agree to 3e-7 of
+  their max.) The slabs of a z partition, stacked, equal the port's full
+  cube to 1e-5 * max.
+- Ranks of a gloo process group, spawned as processes of their own on the
+  CPU (2, and 4 for slab2d), against the reference on a mesh of its
+  virtual CPU devices (tests/conftest.py): the three reconstructors
+  (1e-4, trilinear and nearest-neighbour windows), the five matchers (the
+  agreement of test_torch_match.py), and both programs under --mesh
+  dp|tp|slab|slab2d|auto (volumes 1e-4, assignment rows as in
+  test_torch_cli_match.py). Every rank returns the same result, only rank
+  0 writes files, and no rank imports jax or the reference package.
+- On one rank (no process group): --mesh auto is the serial path, and
+  dp|tp|slab|slab2d raise the reference's RuntimeError.
+
+The ranks of one process group share their spawn across the checks; each
+spawn is joined within RANK_TIMEOUT_S.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+from jax.sharding import Mesh as JaxMesh
+from test_torch_cli_match import _hold_rows, _rows
+from test_torch_common import Ranks, phantom_batch, rel_err
+from test_torch_match import _hold
+from test_torch_project import phantom8
+from xmipp3_tpu.ops import reconstruct as jrec
+from xmipp3_tpu.parallel import match as jpm
+from xmipp3_tpu.parallel import reconstruct as jpr
+from xmipp3_tpu.parallel.mesh import data_mesh as jax_data_mesh
+from xmipp3_tpu.programs import get_program as jax_program
+from xmipp3_tpu_torch.core.geometry import euler_matrix
+from xmipp3_tpu_torch.core.image import Image, save_image
+from xmipp3_tpu_torch.core.metadata import MetaData
+from xmipp3_tpu_torch.core.sampling import directions_from_angles
+from xmipp3_tpu_torch.ops import reconstruct as trec
+from xmipp3_tpu_torch.ops.geo import apply_alignment_2d
+from xmipp3_tpu_torch.parallel.cli import resolve_mesh
+from xmipp3_tpu_torch.programs import get_program
+
+torch.set_num_threads(1)
+
+N, P, C, B = 32, 64, 15, 23      # odd C and B: the meshes pad them
+TOL = {"tri": 1e-4, "tri+kb": 1e-4, "nn": 1e-4, "kb": 5e-3}
+
+
+# -- backproject_chunk in kz-slab mode ---------------------------------------
+
+def _chunk(seed=5, count=8):
+    b = phantom_batch(seed, count, N)
+    mats = np.asarray(euler_matrix(b["rot"], b["tilt"], b["psi"]),
+                      np.float32)
+    return b, mats
+
+
+def _port_slab(b, mats, interp, slab_p=None, z0=0):
+    zdim = P if slab_p is None else slab_p
+    acc = [torch.zeros((zdim, P, P)) for _ in range(3)]
+    trec.backproject_chunk(*acc, b["imgs"], mats, b["sx"], b["sy"], b["w"], P,
+                           0.5, slab_p=slab_p, slab_z0=z0, interp=interp)
+    return acc
+
+
+SLABS = [(16, 0), (16, 24), (16, 48), (32, 0), (32, 16), (32, 32)]
+
+
+@pytest.fixture(scope="module")
+def reference_slabs():
+    """The reference's slab accumulators for each interp and slab, on its
+    XLA path op by op (jax.disable_jit): the operations its jitted CPU path
+    runs, without a compile of the 64-tap exact-Bessel expansion for every
+    slab size."""
+    b, mats = _chunk()
+    out = {}
+    for interp in TOL:
+        for slab_p, z0 in SLABS + [(P, 0)]:
+            z = jax.numpy.zeros((slab_p, P, P))
+            with jax.disable_jit():
+                got = jrec.backproject_chunk(
+                    z, z, z, b["imgs"], mats, b["sx"], b["sy"], b["w"], P,
+                    0.5, slab_p=slab_p, slab_z0=z0, interp=interp)
+            out[interp, slab_p, z0] = [np.asarray(a) for a in got]
+    return out
+
+
+@pytest.mark.parametrize("slab_p,z0", SLABS)
+@pytest.mark.parametrize("interp", list(TOL))
+def test_backproject_slab_matches_the_reference(reference_slabs, interp,
+                                                slab_p, z0):
+    b, mats = _chunk()
+    got = _port_slab(b, mats, interp, slab_p, z0)
+    want = reference_slabs[interp, slab_p, z0]
+    full = reference_slabs[interp, P, 0]
+    for g, w, f in zip(got, want, full):
+        assert g.shape == (slab_p, P, P)
+        assert np.abs(w).max() > 0
+        assert np.abs(g.numpy() - w).max() <= TOL[interp] * np.abs(f).max()
+
+
+@pytest.mark.parametrize("interp", list(TOL) + ["wide kb"])
+def test_slabs_of_a_partition_stack_to_the_full_cube(interp):
+    """Slabs [0, 16), [16, 48) and [48, 64), stacked, against the full
+    cube (through K3, K1, K5, and K2 for the full trilinear cube)."""
+    b, mats = _chunk(6)
+    blob = dict(blob=(2.5, 0, 10.0)) if interp == "wide kb" else {}
+    interp = interp.split()[-1]
+
+    def run(slab_p=None, z0=0):
+        zdim = P if slab_p is None else slab_p
+        acc = [torch.zeros((zdim, P, P)) for _ in range(3)]
+        trec.backproject_chunk(*acc, b["imgs"], mats, b["sx"], b["sy"],
+                               b["w"], P, 0.5, slab_p=slab_p, slab_z0=z0,
+                               interp=interp, **blob)
+        return acc
+
+    full = run()
+    parts = [run(hi - lo, lo) for lo, hi in ((0, 16), (16, 48), (48, 64))]
+    for k in range(3):
+        stacked = torch.cat([p[k] for p in parts])
+        assert rel_err(stacked, full[k]) <= 1e-5
+
+
+# -- spawned ranks against the reference's virtual mesh ---------------------
+
+def _rec_dataset(d):
+    b = phantom_batch(21, C, N)
+    stk = str(d / "parts.mrcs")
+    save_image(stk, b["imgs"])
+    MetaData.fromRows(
+        {"image": f"{i + 1}@{stk}", "angleRot": float(b["rot"][i]),
+         "angleTilt": float(b["tilt"][i]), "anglePsi": float(b["psi"][i]),
+         "shiftX": float(b["sx"][i]), "shiftY": float(b["sy"][i]),
+         "weight": float(b["w"][i]), "flip": int(b["flip"][i])}
+        for i in range(C)).write(str(d / "parts.xmd"))
+    # the slab reconstructors take no flips: the programs mirror flipped
+    # images and negate their shiftX first
+    f = b["flip"]
+    b["imgs_f"] = np.where(f[:, None, None], b["imgs"][:, :, ::-1], b["imgs"])
+    b["sx_f"] = np.where(f, -b["sx"], b["sx"]).astype(np.float32)
+    return b
+
+
+def _match_dataset(d):
+    vol = d / "vol.vol"
+    save_image(str(vol), phantom8(N))
+    for side, prog, dev in (("ref", jax_program, []),
+                            ("port", get_program, ["--device", "cpu"])):
+        assert prog("angular_project_library").run_with_args(
+            ["-i", str(vol), "-o", str(d / side), "--sampling_rate", "15",
+             "-v", "0"] + dev) == 0
+    refs = np.squeeze(Image(str(d / "ref.stk")).data)
+    rng = np.random.default_rng(3)
+    idx = rng.integers(0, len(refs), B)
+    imgs = apply_alignment_2d(
+        refs[idx], rng.uniform(-180, 180, B).astype(np.float32),
+        rng.uniform(-3, 3, B).astype(np.float32),
+        rng.uniform(-3, 3, B).astype(np.float32), device="cpu").numpy()
+    imgs += 0.1 * refs.std() * rng.standard_normal(imgs.shape).astype(
+        np.float32)
+    stk = d / "views.mrcs"
+    save_image(str(stk), imgs)
+    MetaData.fromRows({"image": f"{i + 1}@{stk}", "itemId": i + 1}
+                      for i in range(B)).write(str(d / "views.xmd"))
+    allowed = (rng.uniform(size=(B, len(refs))) < 0.5).astype(np.float32)
+    return refs, imgs, allowed
+
+
+REC = dict(args=["imgs", "rot", "tilt", "psi", "sx", "sy"],
+           arrays={"weights": "w", "flip": "flip"})
+SLAB = dict(args=["imgs_f", "rot", "tilt", "psi", "sx_f", "sy"],
+            arrays={"weights": "w"})
+MATCH = dict(args=["refs", "mimgs"], kwargs={"max_shift": 4})
+FUNCS = {  # name -> (ranks, job); kwargs beside the inputs' arrays
+    "parallel_reconstruct": (2, dict(REC, mesh="data", kwargs={
+        "interp": "tri", "sym": "c2", "batch": 4})),
+    "slab_reconstruct": (2, dict(SLAB, mesh="data", kwargs={
+        "interp": "tri", "batch": 4})),
+    "slab_reconstruct_2d": (4, dict(SLAB, mesh="slab2d", kwargs={
+        "interp": "tri", "batch": 4})),
+    # P = 58 is no multiple of 4 ranks: padded to 60, 15 planes a slab
+    "slab_reconstruct_padded": (4, dict(SLAB, mesh="data", fn=
+                                        "slab_reconstruct", kwargs={
+        "interp": "nn", "pad_factor": 1.8125})),
+    "parallel_match": (2, dict(MATCH, mesh="data")),
+    "parallel_match_full": (2, dict(MATCH, mesh="data",
+                                    arrays={"allowed": "allowed"}, kwargs={
+        "max_shift": 4, "n_orientations": 2})),
+    "parallel_match_score_matrix": (2, dict(MATCH, mesh="data")),
+    "parallel_match_tp": (2, dict(MATCH, mesh="model")),
+    "parallel_match_refsharded": (2, dict(MATCH, mesh="model")),
+}
+REC_MODES = {"dp": 2, "slab": 2, "slab2d": 4, "auto": 2, "tp": 2}
+MATCH_MODES = {"dp": 2, "tp": 2, "slab": 2, "slab2d": 4, "auto": 2}
+
+
+def _cli_jobs(d, ranks):
+    jobs = []
+    for mode, n in REC_MODES.items():
+        if n == ranks:
+            jobs.append({"name": f"rec_{mode}", "program":
+                         "reconstruct_fourier", "argv": [
+                             "-i", str(d / "parts.xmd"), "-o",
+                             str(d / f"rec_{mode}.vol"), "--interp", "tri",
+                             "--weight", "--batch", "4", "--mesh", mode]})
+    for mode, n in MATCH_MODES.items():
+        if n == ranks:
+            jobs.append({"name": f"match_{mode}", "program":
+                         "angular_projection_matching", "argv": [
+                             "-i", str(d / "views.xmd"), "-o",
+                             str(d / f"match_{mode}.xmd"), "--ref",
+                             str(d / "port"), "--max_shift", "4", "--batch",
+                             "16", "--mesh", mode]})
+    return jobs
+
+
+def _reference_funcs(inputs):
+    """The reference's entry points on meshes of its virtual devices with
+    the ranks' shapes."""
+    devs = jax.devices()
+    mesh = lambda n, axis="data": jax_data_mesh(n, axis_name=axis)
+    a = lambda names: [inputs[k] for k in names]
+    kw = lambda job: {k: inputs[v] for k, v in job.get("arrays",
+                                                       {}).items()}
+    out = {}
+    for name, (n, job) in FUNCS.items():
+        fn = getattr(jpr, job.get("fn", name), None) or \
+            getattr(jpm, job.get("fn", name))
+        m = (JaxMesh(np.array(devs[:n]).reshape(n // 2, 2), ("data", "z"))
+             if job["mesh"] == "slab2d" else mesh(n, job["mesh"]))
+        extra = {k: v for k, v in job.get("kwargs", {}).items()
+                 if k != "batch"}         # the reference takes all at once
+        got = fn(m, *a(job["args"]), **kw(job), **extra)
+        out[name] = ({k: np.asarray(v) for k, v in got.items()}
+                     if isinstance(got, dict) else np.asarray(got))
+    return out
+
+
+@pytest.fixture(scope="module")
+def meshes(tmp_path_factory):
+    """Spawn the ranks (2 and 4, one gloo group a job), compute the
+    reference's results meanwhile, and join them."""
+    d = tmp_path_factory.mktemp("mesh")
+    b = _rec_dataset(d)
+    refs, mimgs, allowed = _match_dataset(d)
+    inputs = {k: b[k] for k in ("imgs", "rot", "tilt", "psi", "sx", "sy",
+                                "w", "flip", "imgs_f", "sx_f")}
+    inputs.update(refs=refs, mimgs=mimgs, allowed=allowed)
+    spawns = {}
+    for n in (2, 4):
+        jobs = [dict(job, name=name, fn=job.get("fn", name))
+                for name, (k, job) in FUNCS.items() if k == n]
+        (d / f"w{n}").mkdir()
+        spawns[n] = Ranks(n, jobs + _cli_jobs(d, n), d / f"w{n}", inputs)
+
+    ref = {"funcs": _reference_funcs(inputs)}
+    rec_args = ["-i", str(d / "parts.xmd"), "--interp", "tri", "--weight",
+                "-v", "0"]
+    for mode in ("dp", "slab", "slab2d"):
+        out = d / f"ref_rec_{mode}.vol"
+        assert jax_program("reconstruct_fourier").run_with_args(
+            rec_args + ["-o", str(out), "--mesh", mode]) == 0
+        ref[f"rec_{mode}"] = np.squeeze(Image(str(out)).data)
+    with pytest.raises(KeyError, match="data"):
+        jax_program("reconstruct_fourier").run_with_args(
+            rec_args + ["-o", str(d / "ref_rec_tp.vol"), "--mesh", "tp"])
+    for mode in ("dp", "tp"):
+        out = d / f"ref_match_{mode}.xmd"
+        assert jax_program("angular_projection_matching").run_with_args(
+            ["-i", str(d / "views.xmd"), "-o", str(out), "--ref",
+             str(d / "ref"), "--max_shift", "4", "--batch", "16", "--mesh",
+             mode, "-v", "0"]) == 0
+        ref[f"match_{mode}"] = _rows(out)
+    reports = {n: s.join() for n, s in spawns.items()}
+    return dict(dir=d, ref=ref, reports=reports, gallery=_rows(d / "ref.doc"),
+                angles=np.array([[r["angleRot"], r["angleTilt"]]
+                                 for r in _rows(d / "ref.doc")]))
+
+
+def _port_out(meshes, name, n, rank=0):
+    with np.load(meshes["dir"] / f"w{n}" / f"out_{name}_r{rank}.npz") as z:
+        return dict(z)
+
+
+def test_ranks_import_neither_jax_nor_the_reference(meshes):
+    for reps in meshes["reports"].values():
+        for rep in reps:
+            assert rep["modules"] == [], rep["rank"]
+
+
+@pytest.mark.parametrize("name", [k for k in FUNCS if "match" not in k])
+def test_mesh_reconstructors_match_the_reference(meshes, name):
+    n, job = FUNCS[name]
+    got = _port_out(meshes, name, n)["vol"]
+    assert got.shape == (N, N, N) and np.isfinite(got).all()
+    assert rel_err(got, meshes["ref"]["funcs"][name]) <= \
+        TOL[job["kwargs"]["interp"]]
+    for r in range(1, n):                 # every rank holds the volume
+        np.testing.assert_array_equal(_port_out(meshes, name, n, r)["vol"],
+                                      got)
+
+
+def _hold_scan(got, want, angles):
+    """A coarse scan's winners, as test_torch_match's _hold holds a full
+    match: the same (ref, flip, trial) for >= 98 % of the particles,
+    counting in the exact tie (the antipodal direction with the other
+    flip), and >= 80 % without it; the peaks to 1e-4 on both, psi to 0.5
+    deg at the 98th percentile of the same ones."""
+    d = directions_from_angles(angles)
+    same = (got["ref_idx"] == want["ref_idx"]) & \
+        (got["flip"] == want["flip"]) & (got["trial"] == want["trial"])
+    tie = ~same & (got["flip"] != want["flip"]) & \
+        ((d[got["ref_idx"]] * d[want["ref_idx"]]).sum(-1) < -0.9999)
+    assert (same | tie).mean() >= 0.98
+    assert same.mean() >= 0.8
+    assert np.abs(got["peak"] - want["peak"])[same | tie].max() <= 1e-4
+    dpsi = np.abs((got["psi"] - want["psi"] + 180) % 360 - 180)
+    assert np.quantile(dpsi[same], 0.98) <= 0.5
+
+
+@pytest.mark.parametrize("name", [k for k in FUNCS if "match" in k])
+def test_mesh_matchers_match_the_reference(meshes, name):
+    n = FUNCS[name][0]
+    got = _port_out(meshes, name, n)
+    want = dict(meshes["ref"]["funcs"][name])
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert v.shape == want[k].shape, k
+    if name in ("parallel_match", "parallel_match_refsharded"):
+        _hold_scan(got, want, meshes["angles"])
+        if "valid" in got:
+            np.testing.assert_array_equal(got["valid"], want["valid"])
+    elif name == "parallel_match_score_matrix":
+        np.testing.assert_array_equal(got["trials"], want["trials"])
+        assert np.abs(got["peak"] - want["peak"]).max() <= 1e-4
+    else:
+        _hold(got, want, B, meshes["angles"])
+    for r in range(1, n):                 # every rank holds the results
+        for k, v in _port_out(meshes, name, n, r).items():
+            np.testing.assert_array_equal(v, got[k])
+
+
+def _cli_report(meshes, job, n):
+    reps = meshes["reports"][n]
+    for rep in reps:
+        assert rep["jobs"][job].get("rc") == 0, (rep["rank"],
+                                                 rep["jobs"][job])
+    # only rank 0 writes files
+    assert reps[0]["jobs"][job]["writes"] >= 1
+    assert all(rep["jobs"][job]["writes"] == 0 for rep in reps[1:])
+
+
+@pytest.mark.parametrize("mode", ["dp", "slab", "slab2d", "auto"])
+def test_reconstruct_cli_mesh_matches_the_reference(meshes, mode):
+    _cli_report(meshes, f"rec_{mode}", REC_MODES[mode])
+    got = np.squeeze(Image(str(meshes["dir"] / f"rec_{mode}.vol")).data)
+    # on its eight devices the reference resolves auto to dp
+    want = meshes["ref"]["rec_" + ("dp" if mode == "auto" else mode)]
+    assert got.shape == (N, N, N)
+    assert rel_err(got, want) <= TOL["tri"]
+
+
+def test_reconstruct_cli_mesh_tp_raises_as_the_reference(meshes):
+    """The reference's reconstruct_fourier --mesh tp hands its "model"
+    mesh to parallel_reconstruct, which reads the "data" axis: KeyError,
+    on every rank of the port too."""
+    for rep in meshes["reports"][2]:
+        assert rep["jobs"]["rec_tp"]["raised"] == "KeyError: 'data'"
+        assert rep["jobs"]["rec_tp"]["writes"] == 0
+
+
+@pytest.mark.parametrize("mode", list(MATCH_MODES))
+def test_matching_cli_mesh_matches_the_reference(meshes, mode):
+    _cli_report(meshes, f"match_{mode}", MATCH_MODES[mode])
+    # the reference's auto and slab meshes run its dp matcher, as the
+    # port's do (slab2d over the data axis of its 2-D mesh)
+    want = meshes["ref"]["match_" + ("tp" if mode == "tp" else "dp")]
+    _hold_rows(_rows(meshes["dir"] / f"match_{mode}.xmd"), want,
+               meshes["gallery"])
+
+
+# -- one rank, no process group ----------------------------------------------
+
+def test_mesh_auto_on_one_rank_is_the_serial_path(meshes, tmp_path):
+    d = meshes["dir"]
+    assert resolve_mesh("auto", device="cpu") == (None, "none")
+    out = tmp_path / "rec.vol"
+    assert get_program("reconstruct_fourier").run_with_args(
+        ["-i", str(d / "parts.xmd"), "-o", str(out), "--interp", "tri",
+         "--weight", "--device", "cpu", "--mesh", "auto", "-v", "0"]) == 0
+    assert rel_err(np.squeeze(Image(str(out)).data),
+                   meshes["ref"]["rec_dp"]) <= TOL["tri"]
+    out = tmp_path / "a.xmd"
+    assert get_program("angular_projection_matching").run_with_args(
+        ["-i", str(d / "views.xmd"), "-o", str(out), "--ref",
+         str(d / "port"), "--max_shift", "4", "--device", "cpu", "-v",
+         "0"]) == 0                        # --mesh left at its default
+    _hold_rows(_rows(out), meshes["ref"]["match_dp"], meshes["gallery"])
+
+
+@pytest.mark.parametrize("program", ["reconstruct_fourier",
+                                     "angular_projection_matching"])
+@pytest.mark.parametrize("mode", ["dp", "tp", "slab", "slab2d"])
+def test_mesh_modes_on_one_rank_raise(tmp_path, program, mode):
+    args = {"reconstruct_fourier": ["-i", "p.xmd", "-o",
+                                    str(tmp_path / "r.vol")],
+            "angular_projection_matching": ["-i", "p.xmd", "-o",
+                                            str(tmp_path / "a.xmd"),
+                                            "--ref", "g"]}[program]
+    with pytest.raises(RuntimeError, match=f"--mesh {mode} needs >= 2 "
+                       "devices, found 1"):
+        get_program(program).run_with_args(
+            args + ["--device", "cpu", "--mesh", mode])
+    assert not list(tmp_path.iterdir())
+
+
+def test_resolve_mesh_modes():
+    with pytest.raises(ValueError, match="expected one of"):
+        resolve_mesh("ring")
+    for mode in ("none", "serial", "auto"):
+        assert resolve_mesh(mode) == (None, "none")

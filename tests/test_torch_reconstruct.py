@@ -79,11 +79,17 @@ def test_from_jax_state_rejects_a_cube_of_another_size():
 
 
 def test_deferred_paths_raise():
+    """--useCTF gridding is still deferred. The kz-slab mode is ported
+    (tests/test_torch_parallel.py holds it against the reference): a slab
+    of accumulators is taken, and full cubes given with slab_p raise."""
     cubes = [torch.zeros((64, 64, 64)) for _ in range(3)]
     args, _ = _stack(14)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trec.backproject_chunk(*cubes, args[0][:1], np.eye(3)[None],
-                               [0.0], [0.0], [1.0], 64, slab_p=16)
+    one = (args[0][:1], np.eye(3)[None], [0.0], [0.0], [1.0], 64)
+    with pytest.raises(ValueError, match="expected 65536"):
+        trec.backproject_chunk(*cubes, *one, slab_p=16)
+    slab = [torch.zeros((16, 64, 64)) for _ in range(3)]
+    trec.backproject_chunk(*slab, *one, slab_p=16, slab_z0=24)
+    assert float(slab[2].sum()) > 0
     with pytest.raises(NotImplementedError, match="useCTF"):
         trec.reconstruct_fourier(*args, ctfp={"defocusU": np.ones(C)},
                                  device="cpu")

@@ -20,10 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import (K1_CASES, KB_EDGE_P, SCATTER_CASES,
-                               TRI_EDGE_P, kb_edge_samples, particle_batch,
-                               rel_err, scatter_case, tensor_at_offset,
-                               tri_edge_samples)
+from test_torch_common import (K1_CASES, KB_EDGE_P, KB_SLABS, SCATTER_CASES,
+                               TRI_EDGE_P, kb_edge_samples, kb_slab_samples,
+                               particle_batch, rel_err, scatter_case,
+                               tensor_at_offset, tri_edge_samples)
 from xmipp3_tpu.core.geometry import euler_matrix
 from xmipp3_tpu.ops import reconstruct as jrec
 from xmipp3_tpu.ops.pallas_scatter import scatter_add_3ch as jax_scatter3
@@ -131,31 +131,75 @@ def test_kb_plain_at_the_cube_edges_matches_a_numpy_gridding():
     and zero beyond r^2, a sample with its floor outside the cube dropped
     whole, a tap outside it skipped. The wrapper's plain version (what the
     CPU runs) against numpy in float64: <= 1e-5 * max."""
-    zi, yi, xi, v0, v1, v2 = kb_edge_samples()
-    radius, alpha, order = 1.9, 15.0, 0
-    poly = np.asarray(jax_window_poly(radius, alpha, order))
-    want = np.zeros((3, KB_EDGE_P, KB_EDGE_P, KB_EDGE_P))
+    samples = kb_edge_samples()
+    want, used = _kb_numpy(samples)
+    assert used == samples[0].size - 6
+    cubes = [torch.zeros(KB_EDGE_P ** 3) for _ in range(3)]
+    got = scatter_kb.kb_scatter_3ch(*cubes, *map(torch.as_tensor, samples),
+                                    P=KB_EDGE_P, **KB)
+    for g, w in zip(got, want):
+        assert rel_err(g, w.reshape(-1)) <= 1e-5
+
+
+KB = dict(radius=1.9, alpha=15.0, order=0)
+
+
+def _kb_numpy(samples, z_lo=0, zdim=KB_EDGE_P):
+    """K3's contract in float64 numpy: the gridding of the samples into the
+    slab [z_lo, z_lo + zdim) of a KB_EDGE_P cube (the full cube by
+    default); returns (3, zdim, P, P) and the count of samples not dropped."""
+    zi, yi, xi, v0, v1, v2 = samples
+    P_ = KB_EDGE_P
+    poly = np.asarray(jax_window_poly(KB["radius"], KB["alpha"],
+                                      KB["order"]))
+    want = np.zeros((3, zdim, P_, P_))
     used = 0
     for s in range(zi.size):
         at = np.array([zi[s], yi[s], xi[s]], np.float64)
         f = np.floor(at).astype(int)
-        if ((f < 0) | (f >= KB_EDGE_P)).any():
+        if ((f < 0) | (f >= P_)).any():
             continue
         used += 1
         for d in itertools.product(range(-1, 3), repeat=3):
             j = f + d
             d2 = float(((np.array(d) - (at - f)) ** 2).sum())
-            if ((j < 0) | (j >= KB_EDGE_P)).any() or d2 > radius ** 2:
+            if ((j < 0) | (j >= P_)).any() or d2 > KB["radius"] ** 2 \
+                    or not z_lo <= j[0] < z_lo + zdim:
                 continue
             wt = max(np.polyval(poly, d2), 0.0)
-            want[:, j[0], j[1], j[2]] += wt * np.array([v0[s], v1[s], v2[s]])
-    assert used == zi.size - 6
-    cubes = [torch.zeros(KB_EDGE_P ** 3) for _ in range(3)]
-    got = scatter_kb.kb_scatter_3ch(
-        *cubes, *map(torch.as_tensor, (zi, yi, xi, v0, v1, v2)), P=KB_EDGE_P,
-        radius=radius, alpha=alpha, order=order)
+            want[:, j[0] - z_lo, j[1], j[2]] += wt * np.array(
+                [v0[s], v1[s], v2[s]])
+    return want, used
+
+
+@pytest.mark.parametrize("z_lo,zdim", KB_SLABS)
+def test_kb_plain_slab_mode_matches_a_numpy_gridding(z_lo, zdim):
+    """K3's kz-slab contract on samples with floors on both sides of both
+    slab faces (kb_slab_samples): the whole-sample drop tests the absolute
+    floor against [0, P), a tap is kept where its absolute plane lies in
+    the slab, at the slab's row; the wrapper's plain version against numpy
+    in float64, <= 1e-5 * max."""
+    samples = kb_slab_samples(z_lo, zdim)
+    want, _ = _kb_numpy(samples, z_lo, zdim)
+    assert np.abs(want).max() > 0
+    cubes = [torch.zeros(zdim * KB_EDGE_P ** 2) for _ in range(3)]
+    got = scatter_kb.kb_scatter_3ch(*cubes, *map(torch.as_tensor, samples),
+                                    P=KB_EDGE_P, zdim=zdim, z_lo=z_lo, **KB)
     for g, w in zip(got, want):
         assert rel_err(g, w.reshape(-1)) <= 1e-5
+
+
+def test_kb_wrapper_checks_the_slab():
+    """A slab must lie in the cube, and each operand must hold zdim * P * P
+    elements."""
+    v = torch.zeros(4)
+    slab = lambda n: [torch.zeros(n) for _ in range(3)]
+    with pytest.raises(ValueError, match="does not lie in a cube"):
+        scatter_kb.kb_scatter_3ch(*slab(4 * 64), v, v, v, v, v, v, P=8,
+                                  zdim=4, z_lo=5, **KB)
+    with pytest.raises(ValueError, match="expected 256"):
+        scatter_kb.kb_scatter_3ch(*slab(8 ** 3), v, v, v, v, v, v, P=8,
+                                  zdim=4, z_lo=4, **KB)
 
 
 def test_tri_plain_masks_each_corner_per_axis():

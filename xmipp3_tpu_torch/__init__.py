@@ -14,6 +14,7 @@ Layer map:
                geometry, symmetry (host numpy)
   ops/       — torch tensor ops and the kernel wrappers
   csrc/      — CUDA C++ sources of the hand-written kernels
+  parallel/  — the mesh paths: ranks of a torch.distributed process group
   programs/  — CLI endpoints: python -m xmipp3_tpu_torch.programs <name>
 """
 

@@ -33,8 +33,14 @@
 //   more to split it into three cubes.) A row wholly outside the blob is
 //   not sent; its dead taps ride in the quads with weight 0.
 //
-// The z range [0, P) is one test (`zj`), where a kz-slab mode would put
-// its window.
+// kz-slab mode (the TPU kernel's zdim and z_lo, which the mesh
+// reconstructors use): the three cubes are slabs of zdim planes of P x P
+// whose first plane is the absolute plane z_lo of the full cube. The
+// whole-sample drop still tests the floor corner against [0, P) on every
+// axis; a tap is kept where its absolute plane lies in [z_lo, z_lo + zdim),
+// and its row is addressed relative to the slab. zdim = P, z_lo = 0 is the
+// full cube. A slab may start anywhere in an allocation: add_row4 takes the
+// quad from the address.
 #include "scatter_common.cuh"
 
 using namespace xm;
@@ -64,8 +70,8 @@ kb_scatter_kernel(const float* __restrict__ zi, const float* __restrict__ yi,
                   const float* __restrict__ xi, const float* __restrict__ v0,
                   const float* __restrict__ v1, const float* __restrict__ v2,
                   float* __restrict__ c0, float* __restrict__ c1,
-                  float* __restrict__ c2, int64_t m, int p, float r2,
-                  Poly poly) {
+                  float* __restrict__ c2, int64_t m, int p, int zdim,
+                  int z_lo, float r2, Poly poly) {
   const float* __restrict__ v = pick((int)blockIdx.y, v0, v1, v2);
   float* __restrict__ c = pick((int)blockIdx.y, c0, c1, c2);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -78,8 +84,8 @@ kb_scatter_kernel(const float* __restrict__ zi, const float* __restrict__ yi,
     const float a = v[i];
 #pragma unroll
     for (int dz = -1; dz <= 2; ++dz) {
-      const int zj = z0 + dz;
-      if (zj < 0 || zj >= p) continue;
+      const int zs = z0 + dz - z_lo;  // the tap's plane in the slab
+      if (zs < 0 || zs >= zdim) continue;
       const float ddz = (float)dz - fz;
       const float dz2 = ddz * ddz;
 #pragma unroll
@@ -95,7 +101,7 @@ kb_scatter_kernel(const float* __restrict__ zi, const float* __restrict__ yi,
           const float ddx = (float)(t - 1) - fx;
           u[t] = window(dzy2 + ddx * ddx, r2, poly) * a;
         }
-        add_row4(c + ((int64_t)zj * p + yj) * p, x0 - 1, p,
+        add_row4(c + ((int64_t)zs * p + yj) * p, x0 - 1, p,
                  make_float4(u[0], u[1], u[2], u[3]));
       }
     }
@@ -107,13 +113,15 @@ kb_scatter_kernel(const float* __restrict__ zi, const float* __restrict__ yi,
 extern "C" int xm_kb_scatter(const float* zi, const float* yi, const float* xi,
                              const float* v0, const float* v1, const float* v2,
                              float* c0, float* c1, float* c2, int64_t m, int p,
-                             float r2, const float* poly_host, void* stream) {
+                             int zdim, int z_lo, float r2,
+                             const float* poly_host, void* stream) {
   xk::Poly poly;
   for (int k = 0; k < xk::kPolyTerms; ++k) poly.c[k] = poly_host[k];
   int64_t blocks = (m + xk::kThreads - 1) / xk::kThreads;
   if (blocks > xk::kMaxBlocks) blocks = xk::kMaxBlocks;
   xk::kb_scatter_kernel<<<dim3((unsigned)blocks, 3), xk::kThreads, 0,
                           (cudaStream_t)stream>>>(zi, yi, xi, v0, v1, v2, c0,
-                                                  c1, c2, m, p, r2, poly);
+                                                  c1, c2, m, p, zdim, z_lo,
+                                                  r2, poly);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,13 @@ Interpolation windows and the kernel each one runs (reference --blob
 The accumulators are plain (P, P, P) float32 tensors in fftshift layout,
 updated in place. Static index sets (the resolution disk, the slice
 frequencies) are built on the host once per shape and cached per device.
+
+kz-slab mode (slab_p, slab_z0; the mesh reconstructors of parallel/): the
+accumulators are the (slab_p, P, P) slab from the absolute plane slab_z0,
+and updates outside it are dropped. kb with a blob radius up to 2 goes to
+K3 in its slab mode; every other window goes through the tap expansion
+with the slab's window (nn to K1, footprints of several taps, trilinear
+ones too, to K5), as the reference's slab path does.
 """
 from __future__ import annotations
 
@@ -46,9 +53,6 @@ BLOB_ORDER = 0
 _LATER_CTF = ("--useCTF gridding is not yet ported to xmipp3_tpu_torch "
               "(ROADMAP.md, port queue: --useCTF, the ops/ctf.py subset and "
               "ctf_gridding_multipliers)")
-_LATER_SLAB = ("kz-slab accumulation (slab_p/slab_z0) is not yet ported to "
-               "xmipp3_tpu_torch (ROADMAP.md, port queue: the mesh paths "
-               "with K3's kz-slab mode)")
 
 
 def _disk_mask(out_n: int, max_freq: float) -> np.ndarray:
@@ -137,10 +141,11 @@ def _taps(interp: str, radius: float = BLOB_RADIUS):
 
 
 def _footprint(zi, yi, xi, interp: str, blob):
-    """What the tap expansion needs of a window without a gridding kernel
-    of its own (nn, or a blob wider than kb_scatter_3ch takes): the base
-    voxel (z0, y0, x0) int32 of every sample, the window's tap offsets and
-    tap_weight(dz, dy, dx), the window's value at each sample's tap."""
+    """What the tap expansion needs of a window that goes through it (nn,
+    a blob wider than kb_scatter_3ch takes, and every window but kb in
+    kz-slab mode): the base voxel (z0, y0, x0) int32 of every sample, the
+    window's tap offsets and tap_weight(dz, dy, dx), the window's value at
+    each sample's tap (xmipp3_tpu/ops/reconstruct.py:242-250)."""
     radius, order, alpha = float(blob[0]), int(blob[1]), float(blob[2])
     rnd = torch.round if interp == "nn" else torch.floor
     z0, y0, x0 = (rnd(a).to(torch.int32) for a in (zi, yi, xi))
@@ -149,6 +154,9 @@ def _footprint(zi, yi, xi, interp: str, blob):
     def tap_weight(dz, dy, dx):
         if interp == "nn":
             return torch.ones_like(fz)
+        if interp in ("tri", "tri+kb"):
+            return ((fz if dz else 1 - fz) * (fyw if dy else 1 - fyw)
+                    * (fxw if dx else 1 - fxw))
         d2 = (fz - dz) ** 2 + (fyw - dy) ** 2 + (fxw - dx) ** 2
         return _kb_window(d2, radius, alpha, order)
 
@@ -167,9 +175,17 @@ def backproject_chunk(data_r, data_i, weights, imgs, mats, sx, sy, img_w,
     float32 particles; mats: (C,3,3); sx/sy: (C,) alignment shifts
     (metadata shiftX/shiftY convention); img_w: (C,) weights.
     ctf_data/ctf_w: optional (C, S) per-kept-sample factors for the data
-    and weight streams. Returns the accumulators."""
-    if slab_p is not None:
-        raise NotImplementedError(_LATER_SLAB)
+    and weight streams. Returns the accumulators.
+
+    kz-slab mode: with slab_p set, the accumulators are the (slab_p, P, P)
+    z-slab whose first plane is the absolute plane slab_z0 (a host int);
+    updates outside the slab are dropped."""
+    zdim = P if slab_p is None else slab_p
+    for a in (data_r, data_i, weights):
+        if a.numel() != zdim * P * P:
+            raise ValueError(f"backproject_chunk: accumulators of "
+                             f"{a.numel()} elements, expected {zdim * P * P}"
+                             f" ({zdim} planes of {P} x {P})")
     dev = data_r.device
     f32 = dict(dtype=torch.float32, device=dev)
     imgs, mats, sx, sy, img_w = (torch.as_tensor(a, **f32)
@@ -197,20 +213,23 @@ def backproject_chunk(data_r, data_i, weights, imgs, mats, sx, sy, img_w,
     cubes = (data_r, data_i, weights)
     radius, order, alpha = float(blob[0]), int(blob[1]), float(blob[2])
 
+    slab = {} if slab_p is None else dict(zdim=int(slab_p),
+                                            z_lo=int(slab_z0))
     if interp == "kb" and radius <= 2.0:
         return scatter_kb.kb_scatter_3ch(*cubes, *samples, P=P, radius=radius,
-                                         alpha=alpha, order=order)
-    if interp in ("tri", "tri+kb"):
+                                         alpha=alpha, order=order, **slab)
+    if interp in ("tri", "tri+kb") and not slab:
         return scatter_tri.tri_scatter(*cubes, *samples, P=P)
 
     expand = (*_footprint(zi, yi, xi, interp, blob), sr, si, wstream, P)
     if interp == "nn":
-        return scatter.scatter_add_3ch(*cubes, *scatter.expand_taps(*expand))
+        return scatter.scatter_add_3ch(
+            *cubes, *scatter.expand_taps(*expand, **slab))
     # a footprint of several taps: one stream per tap, so that a sample's
     # taps go out together (on an H100, K5 takes 0.4 of K1's time on the 160
     # tap streams of a radius-2.5 blob and 0.6 on 8 trilinear ones)
     return scatter.scatter_add_3ch_streams(
-        *cubes, *scatter.expand_tap_streams(*expand))
+        *cubes, *scatter.expand_tap_streams(*expand, **slab))
 
 
 def _conj_mirror(a):

@@ -140,46 +140,58 @@ def scatter_add_3ch_streams(c0, c1, c2, idx_streams, v_streams):
     return c0, c1, c2
 
 
-def expand_tap_streams(z0, y0, x0, taps, tap_weight, v0, v1, v2, P: int):
+def _tap_index(z0, y0, x0, dz, dy, dx, P: int, zdim: int | None, z_lo: int):
+    """(flat index, inside) of the tap (dz, dy, dx) of every sample in a
+    slab of zdim planes of P x P whose first plane is the absolute plane
+    z_lo (the full cube: zdim None, z_lo 0): the voxel clipped into the
+    slab, and whether it lies in it on every axis (the per-axis mask of
+    xmipp3_tpu/ops/reconstruct.py:251-259)."""
+    zdim = P if zdim is None else zdim
+    zj, yj, xj = z0 + (dz - z_lo), y0 + dy, x0 + dx
+    inside = ((zj >= 0) & (zj < zdim) & (yj >= 0) & (yj < P)
+              & (xj >= 0) & (xj < P))
+    flat = ((zj.clamp(0, zdim - 1) * P + yj.clamp(0, P - 1)) * P
+            + xj.clamp(0, P - 1))
+    return flat, inside
+
+
+def expand_tap_streams(z0, y0, x0, taps, tap_weight, v0, v1, v2, P: int,
+                       zdim: int | None = None, z_lo: int = 0):
     """The update streams of a gridding footprint, one per tap, for K5.
 
     For each (dz, dy, dx) in `taps`: the flat index of voxel
     (z0+dz, y0+dy, x0+dx) clipped into the (P, P, P) cube, and the three
     channel values times tap_weight(dz, dy, dx), zeroed where the voxel
     lies outside the cube on any axis (the per-axis mask of
-    xmipp3_tpu/ops/reconstruct.py:251-263). z0/y0/x0 int32, values float32,
-    all of one shape with M elements. Returns (idx (ns, M) int32,
-    v (ns, 3, M) float32), filled tap by tap."""
+    xmipp3_tpu/ops/reconstruct.py:251-263). With zdim set the cube is the
+    slab of zdim planes from the absolute plane z_lo (kz-slab mode): the
+    index is relative to the slab and taps outside it are zeroed.
+    z0/y0/x0 int32, values float32, all of one shape with M elements.
+    Returns (idx (ns, M) int32, v (ns, 3, M) float32), filled tap by
+    tap."""
     ns, M = len(taps), z0.numel()
     idx = torch.empty((ns, M), dtype=torch.int32, device=z0.device)
     v = torch.empty((ns, 3, M), dtype=torch.float32, device=z0.device)
     chans = [u.reshape(-1) for u in (v0, v1, v2)]
     for t, (dz, dy, dx) in enumerate(taps):
-        zj, yj, xj = z0 + dz, y0 + dy, x0 + dx
-        inside = ((zj >= 0) & (zj < P) & (yj >= 0) & (yj < P)
-                  & (xj >= 0) & (xj < P))
+        flat, inside = _tap_index(z0, y0, x0, dz, dy, dx, P, zdim, z_lo)
         w = torch.where(inside, tap_weight(dz, dy, dx), 0.0).reshape(-1)
-        idx[t] = ((zj.clamp(0, P - 1) * P + yj.clamp(0, P - 1)) * P
-                  + xj.clamp(0, P - 1)).reshape(-1)
+        idx[t] = flat.reshape(-1)
         for k, u in enumerate(chans):
             torch.mul(w, u, out=v[t, k])
     return idx, v
 
 
-def expand_taps(z0, y0, x0, taps, tap_weight, v0, v1, v2, P: int):
+def expand_taps(z0, y0, x0, taps, tap_weight, v0, v1, v2, P: int,
+                zdim: int | None = None, z_lo: int = 0):
     """The update stream of a gridding footprint, tap-major, for K1 and for
     the plain versions of the gridding kernels: the same updates as
     `expand_tap_streams`, as (idx int32, u0, u1, u2), each 1-D of
     len(taps) * M."""
     idx, u0, u1, u2 = [], [], [], []
     for dz, dy, dx in taps:
-        w = tap_weight(dz, dy, dx)
-        zj, yj, xj = z0 + dz, y0 + dy, x0 + dx
-        inside = ((zj >= 0) & (zj < P) & (yj >= 0) & (yj < P)
-                  & (xj >= 0) & (xj < P))
-        w = torch.where(inside, w, 0.0)
-        flat = ((zj.clamp(0, P - 1) * P + yj.clamp(0, P - 1)) * P
-                + xj.clamp(0, P - 1))
+        flat, inside = _tap_index(z0, y0, x0, dz, dy, dx, P, zdim, z_lo)
+        w = torch.where(inside, tap_weight(dz, dy, dx), 0.0)
         idx.append(flat.reshape(-1))
         u0.append((w * v0).reshape(-1))
         u1.append((w * v1).reshape(-1))

@@ -11,15 +11,14 @@ machinery (cpp:315-345), --groups per-block sampling files
 (createGroupSamplingFiles, cpp:409-462), --sym_neigh. Runs on the card unless
 `--device cpu` is given.
 
-Not yet ported, and rejected with an error when given: --method real_space
-(the ray-casting projector); ROADMAP.md queues it.
+--method is accepted and ignored, as in the reference package's program,
+which declares it and always projects with FourierProjector.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from xmipp3_tpu_torch.core.errors import ErrCode, XmippError
 from xmipp3_tpu_torch.core.image import Image, save_image
 from xmipp3_tpu_torch.core.metadata import MetaData
 from xmipp3_tpu_torch.core.program import XmippProgram
@@ -57,7 +56,7 @@ class ProgAngularProjectLibrary(XmippProgram):
         self.addParamsLine("  [--max_tilt_angle <t=180>] : Maximum tilt")
         self.addParamsLine("  [--perturb <sigma=0.0>] : gaussian noise on the "
                            "projection unit vectors")
-        self.addParamsLine("  [--method <m=fourier>] : fourier (real_space is not yet ported: rejected)")
+        self.addParamsLine("  [--method <m=fourier>] : fourier | real_space (accepted; the gallery is always projected in Fourier space)")
         self.addParamsLine("  [--experimental_images <docfile=\"\">] : doc "
                            "file with experimental data")
         self.addParamsLine("  [--angular_distance <a=-1>] : Neighborhood radius (deg; required with --compute_neighbors)")
@@ -73,13 +72,6 @@ class ProgAngularProjectLibrary(XmippProgram):
         self.addParamsLine("  [--batch <b=256>]      : Projections per device batch")
 
     def readParams(self):
-        if self.checkParam("--method") and \
-                self.getParam("--method") != "fourier":
-            raise XmippError(
-                ErrCode.NOT_IMPLEMENTED,
-                f"--method {self.getParam('--method')} is not yet ported to "
-                "xmipp3_tpu_torch (ROADMAP.md, port queue: "
-                "project_real_space and --method real_space)")
         self.device_arg = self.getParam("--device")
         self.fn_vol = self.getParam("-i")
         self.fn_root = self.getParam("-o")

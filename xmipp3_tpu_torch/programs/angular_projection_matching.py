@@ -8,9 +8,14 @@ each particle batch is matched against ALL references by batched polar
 correlation (K4, ops/cross.py) + shift refinement (no cache, no worker
 state). Runs on the card unless `--device cpu` is given.
 
+--mesh dp (auto = dp on more than one rank; slab and slab2d shard the
+particles too) and --mesh tp run the matchers of parallel/match.py over the
+ranks of a torch.distributed process group, started from
+--dist_coordinator, --dist_nprocs and --dist_procid or by torchrun
+(parallel/cli.py), with the reference's routing; only rank 0 writes files.
+
 Not yet ported, and rejected with an error when given: --ctf (needs the
-ops/ctf.py subset) and the device-mesh flags (--mesh other than none/serial,
---dist_*); ROADMAP.md queues both.
+ops/ctf.py subset); ROADMAP.md queues it.
 """
 from __future__ import annotations
 
@@ -27,12 +32,12 @@ from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import resolve_device
 from xmipp3_tpu_torch.ops.geo import alignment_matrices_2d, apply_affine_2d
 from xmipp3_tpu_torch.ops.match import N_ANGLES, match_to_gallery
-
-_LATER = {
-    "--ctf": "--useCTF with angular_projection_matching --ctf (the "
-             "ops/ctf.py subset)",
-    "--mesh": "the mesh paths with K3's kz-slab mode",
-}
+from xmipp3_tpu_torch.parallel.cli import (add_mesh_params,
+                                           maybe_init_distributed,
+                                           read_mesh_params, resolve_mesh)
+from xmipp3_tpu_torch.parallel.match import (parallel_match_full,
+                                             parallel_match_tp)
+from xmipp3_tpu_torch.parallel.mesh import backend, world
 
 
 class ProgAngularProjectionMatching(XmippProgram):
@@ -63,25 +68,15 @@ class ProgAngularProjectionMatching(XmippProgram):
                            "reference qualifies if ANY symmetry copy is "
                            "close; mpi_angular_projection_matching --sym)")
         self.addParamsLine("  [--batch <b=512>] : Particles per device batch")
-        self.addParamsLine("  [--mesh <mode=none>]         : Device-mesh parallel mode (not yet ported: only none/serial)")
-        self.addParamsLine("  [--dist_coordinator <addr=\"\">] : Multi-host coordinator (not yet ported: rejected)")
-        self.addParamsLine("  [--dist_nprocs <n=-1>]       : Processes in a multi-host run (not yet ported: rejected)")
-        self.addParamsLine("  [--dist_procid <i=-1>]       : This process' index (not yet ported: rejected)")
-
-    def _reject(self, flag: str, item: str):
-        raise XmippError(ErrCode.NOT_IMPLEMENTED,
-                         f"{flag} is not yet ported to xmipp3_tpu_torch "
-                         f"(ROADMAP.md, port queue: {item})")
+        add_mesh_params(self)
 
     def readParams(self):
         if self.checkParam("--ctf") and self.getParam("--ctf"):
-            self._reject("--ctf", _LATER["--ctf"])
-        if self.checkParam("--mesh") and \
-                self.getParam("--mesh") not in ("none", "serial"):
-            self._reject("--mesh " + self.getParam("--mesh"), _LATER["--mesh"])
-        for flag in ("--dist_coordinator", "--dist_nprocs", "--dist_procid"):
-            if self.checkParam(flag):
-                self._reject(flag, _LATER["--mesh"])
+            raise XmippError(ErrCode.NOT_IMPLEMENTED,
+                             "--ctf is not yet ported to xmipp3_tpu_torch "
+                             "(ROADMAP.md, port queue: --useCTF with "
+                             "angular_projection_matching --ctf (the "
+                             "ops/ctf.py subset))")
         self.device_arg = self.getParam("--device")
         self.fn_in = self.getParam("-i")
         self.fn_out = self.getParam("-o")
@@ -108,6 +103,7 @@ class ProgAngularProjectionMatching(XmippProgram):
                 and self.getParam("--sym")):
             from xmipp3_tpu_torch.core.sym import SymList
             self.sym = SymList(self.getParam("--sym"))
+        read_mesh_params(self)
 
     def _extra_allowed(self, imgs, refs):
         """Optional per-batch candidate mask hook (B, R) — overridden by
@@ -176,8 +172,46 @@ class ProgAngularProjectionMatching(XmippProgram):
             best["scale"] = np.where(better, sc, best["scale"])
         return best
 
+    def _match_batch(self, mesh, mesh_mode, refs, imgs, max_shift, Ro,
+                     allowed, psi_allow):
+        """The reference's routing (programs/angular_projection_matching.py
+        :272-308): serial without a mesh or with a scale search; the
+        particle-sharded matcher for dp (and slab modes) and for candidate
+        masks, top-N or no mirrors; the gallery-sharded one for plain tp
+        (tp with masks runs serially)."""
+        masked = (self.n_orient > 1 or allowed is not None
+                  or psi_allow is not None or not self.check_mirror)
+        if mesh is None or self.scale_nsteps > 0 or \
+                (mesh_mode == "tp" and masked):
+            return self._match_with_scales(refs, imgs, max_shift, Ro,
+                                           allowed, psi_allow)
+        kw = dict(max_shift=max_shift, radius_min=max(self.Ri, 2),
+                  radius_max=Ro)
+        if mesh_mode == "tp":
+            return parallel_match_tp(mesh, refs, imgs, **kw)
+        if masked:
+            kw.update(check_mirror=self.check_mirror, allowed=allowed,
+                      psi_allow=psi_allow, n_orientations=self.n_orient)
+        return parallel_match_full(mesh, refs, imgs, **kw)
+
     def run(self):
         self.device = resolve_device(self.device_arg)
+        started = maybe_init_distributed(self)
+        try:
+            self._run()
+        finally:
+            if started:
+                torch.distributed.destroy_process_group()
+
+    def _run(self):
+        mesh, mesh_mode = resolve_mesh(self.mesh_mode, device=self.device_arg)
+        if mesh is not None:
+            self.device = mesh.device
+            if self.verbose:
+                # parallel_match_* pad the particle axis to a mesh multiple
+                print(f"mesh: {mesh_mode} {mesh.shape} over {mesh.size} "
+                      f"ranks, rank {mesh.rank} on {self.device}, backend "
+                      f"{backend()}")
         # the pipeline is full float32: no TF32 in library products (lower
         # precision in the correlations flips gallery winners)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -269,8 +303,8 @@ class ProgAngularProjectionMatching(XmippProgram):
                     allowed[empty] = 1.0
             psi_allow = self._psi_allow(chunk)
             with timed_phase("match_to_gallery"):
-                res = self._match_with_scales(refs, imgs, max_shift, Ro,
-                                              allowed, psi_allow)
+                res = self._match_batch(mesh, mesh_mode, refs, imgs,
+                                        max_shift, Ro, allowed, psi_allow)
             def col(name):
                 v = np.asarray(res[name])
                 return v[:, None] if v.ndim == 1 else v
@@ -308,6 +342,8 @@ class ProgAngularProjectionMatching(XmippProgram):
                     out_rows.append(d)
             if self.verbose:
                 print(f"  matched {min(s + self.batch, len(rows))}/{len(rows)}")
+        if world()[1] != 0:               # only rank 0 writes files
+            return
         with timed_phase("write metadata"):
             md_out = MetaData.fromRows(out_rows)
             md_out.write(self.fn_out, append=self.checkParam("--append"))

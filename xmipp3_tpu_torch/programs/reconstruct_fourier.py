@@ -5,9 +5,14 @@ reconstruct_fourier.cpp:36-62 defineParams; FSC-halves mode :1002-1047),
 with the flags and outputs of the reference package's program. Runs on the
 card unless `--device cpu` is given.
 
-Not yet ported, and rejected with an error when given: --useCTF and the
-device-mesh flags (--mesh other than none/serial, --dist_*); ROADMAP.md
-queues both.
+--mesh dp|slab|slab2d (auto = dp on more than one rank) runs the mesh
+reconstructors of parallel/reconstruct.py over the ranks of a
+torch.distributed process group, started from --dist_coordinator,
+--dist_nprocs and --dist_procid or by torchrun (parallel/cli.py); only
+rank 0 writes files.
+
+Not yet ported, and rejected with an error when given: --useCTF; ROADMAP.md
+queues it.
 """
 from __future__ import annotations
 
@@ -22,12 +27,13 @@ from xmipp3_tpu_torch.core.program import XmippProgram
 from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import resolve_device
 from xmipp3_tpu_torch.ops.reconstruct import FourierReconstructor
-
-_LATER = {
-    "--useCTF": "--useCTF (the ops/ctf.py subset and "
-                "ctf_gridding_multipliers)",
-    "--mesh": "the mesh paths with K3's kz-slab mode",
-}
+from xmipp3_tpu_torch.parallel.cli import (add_mesh_params,
+                                           maybe_init_distributed,
+                                           read_mesh_params, resolve_mesh)
+from xmipp3_tpu_torch.parallel.mesh import backend, world
+from xmipp3_tpu_torch.parallel.reconstruct import (parallel_reconstruct,
+                                                   slab_reconstruct,
+                                                   slab_reconstruct_2d)
 
 
 class ProgRecFourier(XmippProgram):
@@ -51,26 +57,16 @@ class ProgRecFourier(XmippProgram):
         self.addParamsLine("  [--sampling <Ts=1>]          : sampling rate of the input images in Angstroms/pixel")
         self.addParamsLine("  [--phaseFlipped]             : Give this flag if images have been already phase flipped")
         self.addParamsLine("  [--minCTF <ctf=0.01>]        : Minimum value of the CTF that will be inverted")
-        self.addParamsLine("  [--mesh <mode=none>]         : Device-mesh parallel mode (not yet ported: only none/serial)")
-        self.addParamsLine("  [--dist_coordinator <addr=\"\">] : Multi-host coordinator (not yet ported: rejected)")
-        self.addParamsLine("  [--dist_nprocs <n=-1>]       : Processes in a multi-host run (not yet ported: rejected)")
-        self.addParamsLine("  [--dist_procid <i=-1>]       : This process' index (not yet ported: rejected)")
+        add_mesh_params(self)
         self.addExampleLine("   python -m xmipp3_tpu_torch.programs reconstruct_fourier -i reconstruction.sel --sym i3 --weight")
-
-    def _reject(self, flag: str, item: str):
-        raise XmippError(ErrCode.NOT_IMPLEMENTED,
-                         f"{flag} is not yet ported to xmipp3_tpu_torch "
-                         f"(ROADMAP.md, port queue: {item})")
 
     def readParams(self):
         if self.checkParam("--useCTF"):
-            self._reject("--useCTF", _LATER["--useCTF"])
-        if self.checkParam("--mesh") and \
-                self.getParam("--mesh") not in ("none", "serial"):
-            self._reject("--mesh " + self.getParam("--mesh"), _LATER["--mesh"])
-        for flag in ("--dist_coordinator", "--dist_nprocs", "--dist_procid"):
-            if self.checkParam(flag):
-                self._reject(flag, _LATER["--mesh"])
+            raise XmippError(
+                ErrCode.NOT_IMPLEMENTED,
+                "--useCTF is not yet ported to xmipp3_tpu_torch (ROADMAP.md, "
+                "port queue: --useCTF (the ops/ctf.py subset and "
+                "ctf_gridding_multipliers))")
         self.fn_in = self.getParam("-i")
         self.fn_out = self.getParam("-o")
         self.sym = self.getParam("--sym")
@@ -89,6 +85,7 @@ class ProgRecFourier(XmippProgram):
         self.fn_fsc = self.getParam("--prepare_fsc") if \
             self.checkParam("--prepare_fsc") else ""
         self.device_arg = self.getParam("--device")
+        read_mesh_params(self)
 
     def show(self):
         if self.verbose:
@@ -100,6 +97,8 @@ class ProgRecFourier(XmippProgram):
 
     def _reconstruct_subset(self, md: MetaData, rows_idx, N: int):
         rows = [md.getRow(i) for i in rows_idx]
+        if self._mesh is not None:
+            return self._reconstruct_mesh(rows)
         rec = FourierReconstructor(N, self.pad, self.sym, self.max_res,
                                    interp=self.interp,
                                    niter_weight=self.niter_weight,
@@ -120,8 +119,57 @@ class ProgRecFourier(XmippProgram):
         with timed_phase("finish"):
             return rec.finish().cpu().numpy()
 
+    def _reconstruct_mesh(self, rows):
+        """Mesh-parallel reconstruction (the mpi_reconstruct_fourier
+        equivalent, reference programs/reconstruct_fourier.py:123-160): dp =
+        particle-sharded + one all_reduce of the cubes; slab/slab2d = kz-slab
+        sharding of the cube. Every rank reads the whole stack."""
+        with timed_phase("read images"):
+            imgs = load_image_rows(rows)
+        get = lambda k, d=0.0: np.array(
+            [float(r.get(k, d)) for r in rows], np.float32)
+        w = get("weight", 1.0) if self.use_weights else None
+        flip = get("flip", 0.0).astype(bool)
+        kw = dict(weights=w, pad_factor=self.pad, max_freq=self.max_res,
+                  interp=self.interp, niter_weight=self.niter_weight,
+                  batch=self.batch)
+        if self._mesh_mode in ("slab", "slab2d"):
+            if self.sym.lower() not in ("c1", ""):
+                raise ValueError("--mesh slab currently supports c1 only; "
+                                 "use --mesh dp for symmetric reconstructions")
+            fn = slab_reconstruct_2d if self._mesh_mode == "slab2d" \
+                else slab_reconstruct
+            vol = fn(self._mesh, np.where(flip[:, None, None],
+                                          imgs[:, :, ::-1], imgs),
+                     get("angleRot"), get("angleTilt"), get("anglePsi"),
+                     np.where(flip, -get("shiftX"), get("shiftX")),
+                     get("shiftY"), **kw)
+        else:
+            vol = parallel_reconstruct(
+                self._mesh, imgs, get("angleRot"), get("angleTilt"),
+                get("anglePsi"), get("shiftX"), get("shiftY"), sym=self.sym,
+                flip=flip, **kw)
+        return vol.cpu().numpy()
+
     def run(self):
         self.device = resolve_device(self.device_arg)
+        started = maybe_init_distributed(self)
+        try:
+            self._run()
+        finally:
+            if started:
+                torch.distributed.destroy_process_group()
+
+    def _run(self):
+        self._mesh, self._mesh_mode = resolve_mesh(self.mesh_mode,
+                                                   device=self.device_arg)
+        if self._mesh is not None:
+            self.device = self._mesh.device
+            if self.verbose:
+                print(f"mesh: {self._mesh_mode} {self._mesh.shape} over "
+                      f"{self._mesh.size} ranks, rank {self._mesh.rank} on "
+                      f"{self.device}, backend {backend()}")
+        writes = world()[1] == 0          # only rank 0 writes files
         # the pipeline is full float32: no TF32 in library products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -136,11 +184,14 @@ class ProgRecFourier(XmippProgram):
             h1 = self._reconstruct_subset(md, all_idx[0::2], N)
             h2 = self._reconstruct_subset(md, all_idx[1::2], N)
             root = self.fn_fsc
-            save_image(root + "_1_recons.vol", h1)
-            save_image(root + "_2_recons.vol", h2)
+            if writes:
+                save_image(root + "_1_recons.vol", h1)
+                save_image(root + "_2_recons.vol", h2)
             vol = 0.5 * (h1 + h2)
         else:
             vol = self._reconstruct_subset(md, all_idx, N)
+        if not writes:
+            return
         with timed_phase("write volume"):
             save_image(self.fn_out, vol)
         if self.verbose:
