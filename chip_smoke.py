@@ -49,7 +49,9 @@ Phases; any failure exits non-zero before the result line is printed:
    of the views must be assigned within 7.5 degrees of their true direction
    (the antipode with a flip is the same view), the median shift error must
    be <= 0.5 px and the closing map must correlate >= 0.8 with the phantom.
-   Its FSC curve and the matching run's per-phase seconds are printed.
+   Its FSC curve, the 0.143 resolution that the port's resolution_fsc
+   program reads against the phantom, and the matching run's per-phase
+   seconds are printed.
    Phase 2 also holds the Kaiser-Bessel kernel's kz-slab mode: the batch
    gridded into two slabs of 128 planes (z_lo 0 and 128), each against its
    plain version (1e-4 * max), then both into views of one allocation
@@ -69,7 +71,33 @@ Phases; any failure exits non-zero before the result line is printed:
    rank must have launched the cross-spectrum kernel. A rank that fails, or
    a run longer than RANK_TIMEOUT_S, fails the script. One line a run
    gives its wall and every rank's wall and phase seconds.
-6. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+6. The CTF-corrected cycle through the CLI, on phase 4's clean views, poses,
+   phantom and gallery, at 2 A/px: 20 micrographs of 500 views, each with
+   its own CTF (300 kV, Cs 2.7 mm, Q0 0.1, defocusU evenly over
+   8,000-20,000 A, defocusV 300 A more, azimuths evenly over [0, 180)),
+   planted with a numpy expression (plant_ctf) that the port's
+   CTFDescription.generate_2d must equal to CTF_TOL * max; noise of 0.5
+   sigma after the CTF. Metadata with a ctfModel column (20 .ctfparam
+   files) and with inline ctf* labels. (a) reconstruct_fourier --useCTF
+   --sampling 2 (kb) on the clean CTF views at their true poses: FSC >= 0.9
+   against the phantom to half Nyquist, and better than the same run
+   without --useCTF. (b) ctf_phase_flip on the noisy views ->
+   angular_projection_matching --phase_flipped --ctf <middle micrograph>
+   --max_shift 4 --batch 512 against phase 4's gallery ->
+   reconstruct_fourier --useCTF --phaseFlipped --sampling 2 --prepare_fsc
+   -> resolution_fsc on the halves and against the phantom: phase 4's
+   limits (>= 90 % within 7.5 degrees, median shift error <= 0.5 px), and
+   a closing map correlation >= CYCLE_CTF_MAP_CORR (0.79, what the
+   reference package's reconstruction reaches on this recipe; phase 4's
+   0.8 does not hold under --useCTF). The phase-flipped views are also
+   rebuilt at their true poses: the closing map's ceiling. (c) ctf_correct_wiener2d --pad 2 on
+   512 noisy views: closer to the clean views than the raw ones. The kb
+   kernel must launch 40 times in each reconstruction, the cross-spectrum
+   13 x 20 times in the matching. A `ctf {...}` line gives each program's
+   wall, phases, untimed rest, launches and peak memory, the quality, and
+   the card's milliseconds for the CTF table of a batch, a batch's per-row
+   CTFs and its phase flip.
+7. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
 from beside itself (from any working directory), builds every kernel from
@@ -710,12 +738,10 @@ def matching_cycle(seed, root: Path):
     psi = rng.uniform(0, 360, VIEWS)
     sx, sy = rng.uniform(-3, 3, (2, VIEWS))
     t0 = time.perf_counter()
-    imgs = projections(N, rot, tilt, psi, sx, sy, BLOBS8)
-    imgs += (0.5 * imgs.std()) * rng.standard_normal(imgs.shape,
-                                                     dtype=np.float32)
+    clean = projections(N, rot, tilt, psi, sx, sy, BLOBS8)
     stk = root / "views.mrcs"
-    save_image(str(stk), imgs)
-    del imgs
+    save_image(str(stk), clean + (0.5 * clean.std()) * rng.standard_normal(
+        clean.shape, dtype=np.float32))
     MetaData.fromRows({"image": f"{i + 1}@{stk}", "itemId": i + 1}
                       for i in range(VIEWS)).write(str(root / "views.xmd"))
     log(f"phase 4: {VIEWS} noisy views of the 8-blob phantom at N={N} "
@@ -776,17 +802,21 @@ def matching_cycle(seed, root: Path):
         shift_err = np.hypot(col("shiftX") - sx[order],
                              col("shiftY") - sy[order])
         _, fsc, corr = map_quality(root / "cycle.vol", ref)
+        res = fsc_program(root / "cycle.vol", root / "phantom.vol", 1.0,
+                          root / "cycle_vs_phantom.frc")
         report["quality"] = {
             "gallery_directions": n_refs,
             "within_7.5_deg": within, "median_angle_deg": float(np.median(ang)),
             "median_shift_err_px": float(np.median(shift_err)),
             "flipped": float(flip.mean()),
             "mean_maxCC": float(col("maxCC").mean()), "map_corr": corr,
-            "fsc": [round(float(v), 4) for v in fsc]}
+            "fsc": [round(float(v), 4) for v in fsc],
+            "resolution_fsc_0.143_px": res}
         log(f"  {within:.4f} of the views within {1.5 * GALLERY_RATE} deg of "
             f"their direction (median {np.median(ang):.2f} deg), median shift "
             f"error {np.median(shift_err):.3f} px, map correlation "
-            f"{corr:.4f}")
+            f"{corr:.4f}; resolution_fsc against the phantom: {res:.3f} px "
+            "(0.143)")
         check(within >= 0.9, f"only {within:.4f} of the views were assigned "
               f"within {1.5 * GALLERY_RATE} deg of their direction")
         check(np.median(shift_err) <= 0.5, "median shift error "
@@ -797,7 +827,22 @@ def matching_cycle(seed, root: Path):
         timing.take_timing()
         timing.enable_timing(False)
     log("cycle " + json.dumps(report))
-    return launches, steps[1][1]
+    poses = dict(rot=rot, tilt=tilt, psi=psi, sx=sx, sy=sy)
+    return launches, steps[1][1], clean, poses
+
+
+def fsc_program(vol, ref, sampling, out: Path) -> float:
+    """The port's resolution_fsc -i vol --ref ref -s sampling -o out on the
+    card; returns its 0.143 resolution (in the unit of `sampling`)."""
+    from xmipp3_tpu_torch.programs import get_program
+    prog = get_program("resolution_fsc")
+    rc = prog.run_with_args(["-i", str(vol), "--ref", str(ref), "-s",
+                             str(sampling), "-o", str(out), "--device",
+                             DEVICE, "-v", "0"])
+    check(rc == 0 and out.is_file(), f"resolution_fsc {vol.name}: rc {rc}")
+    check(np.isfinite(prog.resolution) and prog.resolution > 0,
+          f"resolution_fsc {vol.name}: resolution {prog.resolution}")
+    return float(prog.resolution)
 
 
 # ---------------------------------------------------------------------------
@@ -957,6 +1002,325 @@ def mesh_runs(root: Path, rec_md: Path, serial_vol: Path, match_args):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the CTF-corrected cycle through the CLI
+# ---------------------------------------------------------------------------
+
+CTF_TS = 2.0                     # A/px
+CTF_GROUPS = 20                  # micrographs of VIEWS / CTF_GROUPS views
+CTF_KV, CTF_CS, CTF_Q0 = 300.0, 2.7, 0.1
+WIENER_VIEWS = 512
+CTF_TOL = 1e-4                   # port (float32) against numpy (float64)
+# The closing map's limit under --useCTF: phase 4's 0.8 does not hold for
+# this recipe (1/c at minCTF 0.01 amplifies the noise near the CTF zeros).
+# tools/plan_ctf_cycle.py: the reference package's map of the same views at
+# their true poses correlates 0.906 with the phantom, and at the poses of
+# the port's assignment 0.794, the limit's origin.
+CYCLE_CTF_MAP_CORR = 0.79
+
+
+def ctf_recipe(groups: int = CTF_GROUPS):
+    """(defocusU, defocusV, azimuth in degrees) of each micrograph:
+    defocusU evenly over 8,000-20,000 A, 300 A of astigmatism, azimuths
+    evenly over [0, 180)."""
+    dfu = np.linspace(8000.0, 20000.0, groups)
+    return dfu, dfu + 300.0, 180.0 * np.arange(groups) / groups
+
+
+def plant_ctf(n: int, Ts: float, dfu: float, dfv: float, az_deg: float,
+              kv: float = CTF_KV, cs: float = CTF_CS, q0: float = CTF_Q0):
+    """The CTF of one micrograph in the rfft2 layout of an n x n image, in
+    float64 numpy, written out here rather than taken from the port, so
+    that a sign or a unit wrong in the port cannot cancel itself: chi =
+    pi lambda df(theta) u^2 + pi/2 Cs lambda^3 u^4, with
+    df(theta) = -(dfU + dfV)/2 - (dfU - dfV)/2 cos 2(theta - azimuth);
+    CTF = -(sqrt(1 - Q0^2) sin chi - Q0 cos chi). The self-conjugate
+    columns (fx = 0 and Nyquist) are averaged over +-fy, so that the
+    filter keeps real images real."""
+    fy = np.fft.fftfreq(n)[:, None] / Ts
+    fx = np.fft.rfftfreq(n)[None, :] / Ts
+    u2 = fx * fx + fy * fy
+    v = kv * 1e3
+    lam = 12.2643247 / np.sqrt(v * (1 + 0.978466e-6 * v))
+    df = -(dfu + dfv) / 2 - (dfu - dfv) / 2 * np.cos(
+        2 * (np.arctan2(fy, fx) - np.deg2rad(az_deg)))
+    chi = np.pi * lam * df * u2 + np.pi / 2 * cs * 1e7 * lam ** 3 * u2 ** 2
+    c = -(np.sqrt(1 - q0 ** 2) * np.sin(chi) - q0 * np.cos(chi))
+    for col in (0, -1):
+        c[:, col] = 0.5 * (c[:, col] + np.roll(c[::-1, col], 1))
+    return c
+
+
+def ctf_stack(clean, groups: int = CTF_GROUPS, Ts: float = CTF_TS):
+    """The views with micrograph g's CTF applied to views
+    [g * per, (g + 1) * per), float32."""
+    n = clean.shape[-1]
+    per = -(-len(clean) // groups)
+    out = np.empty_like(clean)
+    for g, (u, v, az) in enumerate(zip(*ctf_recipe(groups))):
+        sl = slice(g * per, (g + 1) * per)
+        out[sl] = np.fft.irfft2(np.fft.rfft2(clean[sl])
+                                * plant_ctf(n, Ts, u, v, az), s=(n, n))
+    return out
+
+
+def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
+    """Phase 6 in root, on phase 4's clean views (clean) and poses, with
+    phase 4's gallery and phantom (in cycle); returns the launches of the
+    phase's runs."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.sampling import directions_from_angles
+    from xmipp3_tpu_torch.ops.ctf import (CTFDescription, ctf_params_arrays,
+                                          generate_2d_rows, phase_flip)
+    from xmipp3_tpu_torch.ops.reconstruct import ctf_gridding_multipliers
+    from xmipp3_tpu_torch.programs import main as xmipp
+    root.mkdir(parents=True)
+    descs = [CTFDescription(sampling_rate=CTF_TS, voltage=CTF_KV,
+                            defocusU=float(u), defocusV=float(v),
+                            azimuthal_angle=float(az), Cs=CTF_CS, Q0=CTF_Q0)
+             for u, v, az in zip(*ctf_recipe())]
+    worst = 0.0
+    for d, (u, v, az) in zip(descs, zip(*ctf_recipe())):
+        want = plant_ctf(N, CTF_TS, u, v, az)
+        got = d.generate_2d(N, N, damped=False, device=DEVICE).cpu().numpy()
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+    log(f"phase 6: the port's CTF against the planted one: max |port - "
+        f"numpy| / max = {worst:.3e} over {CTF_GROUPS} micrographs")
+    # float32 chi reaches ~78 rad at Nyquist (20,000 A at 2 A/px): its
+    # roundoff, a few 1e-6 rad an operation, leaves ~2e-5 of the max
+    check(worst <= CTF_TOL, f"the port's generate_2d differs from the "
+          f"planted CTF by {worst:.3e} > {CTF_TOL} of its max")
+
+    t0 = time.perf_counter()
+    per = VIEWS // CTF_GROUPS
+    models = []
+    for g, d in enumerate(descs):
+        models.append(str(root / f"mic{g:02d}.ctfparam"))
+        d.write(models[-1])
+    ctf_clean = ctf_stack(clean)
+    rng = np.random.default_rng(seed + 5)
+    ctf_noisy = ctf_clean + (0.5 * ctf_clean.std()) * rng.standard_normal(
+        ctf_clean.shape, dtype=np.float32)
+    save_image(str(root / "ctf_clean.mrcs"), ctf_clean)
+    save_image(str(root / "ctf_noisy.mrcs"), ctf_noisy)
+    del ctf_clean
+    pose = lambda i: {"angleRot": float(poses["rot"][i]),
+                      "angleTilt": float(poses["tilt"][i]),
+                      "anglePsi": float(poses["psi"][i]),
+                      "shiftX": float(poses["sx"][i]),
+                      "shiftY": float(poses["sy"][i])}
+    MetaData.fromRows(
+        {"image": f"{i + 1}@{root / 'ctf_clean.mrcs'}", **pose(i),
+         "ctfModel": models[i // per]} for i in range(VIEWS)).write(
+        str(root / "true_model.xmd"))
+    inline = lambda d: {"ctfSamplingRate": d.sampling_rate,
+                        "ctfVoltage": d.voltage, "ctfDefocusU": d.defocusU,
+                        "ctfDefocusV": d.defocusV,
+                        "ctfDefocusAngle": d.azimuthal_angle,
+                        "ctfSphericalAberration": d.Cs, "ctfQ0": d.Q0}
+    rows = [{"image": f"{i + 1}@{root / 'ctf_noisy.mrcs'}", "itemId": i + 1,
+             **inline(descs[i // per])} for i in range(VIEWS)]
+    MetaData.fromRows(rows).write(str(root / "noisy.xmd"))
+    # the phase-flipped views (named as ctf_phase_flip writes them) at their
+    # true poses: the map the cycle would close on with perfect matching
+    MetaData.fromRows(
+        {**r, "image": f"{i + 1:06d}@{root / 'flipped.mrcs'}", **pose(i)}
+        for i, r in enumerate(rows)).write(str(root / "flipped_true.xmd"))
+    MetaData.fromRows(rows[:WIENER_VIEWS]).write(str(root / "wiener_in.xmd"))
+    log(f"  {VIEWS} views in {CTF_GROUPS} micrographs of {per} (defocusU "
+        f"8,000-20,000 A at {CTF_TS} A/px), CTF planted with numpy, noise of "
+        f"0.5 sigma after it, written in {time.perf_counter() - t0:.2f} s")
+
+    ref = phantom(N, BLOBS8)
+    mid = models[CTF_GROUPS // 2]
+    steps = (
+        ("true poses --useCTF", "reconstruct_fourier",
+         ["-i", str(root / "true_model.xmd"), "-o", str(root / "true.vol"),
+          "--useCTF", "--sampling", str(CTF_TS)]),
+        ("true poses, no --useCTF", "reconstruct_fourier",
+         ["-i", str(root / "true_model.xmd"), "-o",
+          str(root / "true_noctf.vol")]),
+        ("phase flip", "ctf_phase_flip",
+         ["-i", str(root / "noisy.xmd"), "-o", str(root / "flipped.mrcs"),
+          "--save_metadata_stack", str(root / "flipped.xmd")]),
+        ("flipped views, true poses", "reconstruct_fourier",
+         ["-i", str(root / "flipped_true.xmd"), "-o",
+          str(root / "flipped_true.vol"), "--useCTF", "--phaseFlipped",
+          "--sampling", str(CTF_TS)]),
+        ("matching", "angular_projection_matching",
+         ["-i", str(root / "flipped.xmd"), "-o", str(root / "assigned.xmd"),
+          "--ref", str(cycle / "gallery"), "--max_shift", str(MATCH_SHIFT),
+          "--batch", str(MATCH_BATCH), "--phase_flipped", "--ctf", mid]),
+        ("cycle reconstruction", "reconstruct_fourier",
+         ["-i", str(root / "assigned.xmd"), "-o", str(root / "cycle.vol"),
+          "--useCTF", "--phaseFlipped", "--sampling", str(CTF_TS),
+          "--prepare_fsc", str(root / "half")]),
+        ("halves", "resolution_fsc",
+         ["-i", str(root / "half_2_recons.vol"), "--ref",
+          str(root / "half_1_recons.vol"), "-s", str(CTF_TS), "-o",
+          str(root / "halves.frc")]),
+        ("Wiener", "ctf_correct_wiener2d",
+         ["-i", str(root / "wiener_in.xmd"), "-o", str(root / "wiener.mrcs"),
+          "--pad", "2"]))
+    report, launches, failed = {}, {}, []
+
+    def limit(ok, msg):
+        """A quality limit: every one is read and reported before the
+        phase fails on any."""
+        if not ok:
+            failed.append(msg)
+
+    timing.enable_timing(True)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for label, name, args in steps:
+            launch_counts(reset=True)
+            timing.take_timing()
+            t0 = time.perf_counter()
+            rc = xmipp(["xmipp", name, *args, "--device", DEVICE, "-v", "0"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"phase 6 {label} ({name}): rc {rc}")
+            phases = {k: v[0] for k, v in timing.take_timing().items()}
+            # scan and refine are timed inside match_to_gallery
+            timed = sum(v for k, v in phases.items()
+                        if k not in ("scan", "refine"))
+            report[label] = {
+                "program": name, "wall_s": wall,
+                "launches": {k: v for k, v in launch_counts().items() if v},
+                "phases_s": phases, "rest_s": wall - timed,
+                "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+            torch.cuda.reset_peak_memory_stats()
+            log(f"  {label} ({name}): {wall:.3f} s, launches "
+                f"{report[label]['launches']}, phases "
+                + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+        batches = -(-VIEWS // BATCH)
+        for label in ("true poses --useCTF", "true poses, no --useCTF",
+                      "flipped views, true poses", "cycle reconstruction"):
+            k3 = report[label]["launches"].get("kb_scatter_3ch", 0)
+            check(k3 == batches, f"phase 6 {label}: kb_scatter_3ch launched "
+                  f"{k3} times, expected {batches}")
+        k4 = report["matching"]["launches"].get("cross_spectrum", 0)
+        check(k4 == 13 * -(-VIEWS // MATCH_BATCH), f"phase 6 matching: "
+              f"cross_spectrum launched {k4} times, expected "
+              f"{13 * -(-VIEWS // MATCH_BATCH)}")
+        launches = {"kb_scatter_3ch": sum(
+            report[k]["launches"].get("kb_scatter_3ch", 0) for k in report),
+            "cross_spectrum": k4}
+
+        # (a) the correction undoes the planted CTF
+        quality = {}
+        for key, label in (("usectf", "true poses --useCTF"),
+                           ("no_usectf", "true poses, no --useCTF")):
+            vol = root / ("true.vol" if key == "usectf" else "true_noctf.vol")
+            _, fsc, corr = map_quality(vol, ref)
+            half = fsc[: len(fsc) // 2]
+            quality[f"true_{key}"] = {"fsc_min_to_half_nyquist":
+                                      float(half.min()), "corr": corr}
+        a, b = quality["true_usectf"], quality["true_no_usectf"]
+        fa, fb = a["fsc_min_to_half_nyquist"], b["fsc_min_to_half_nyquist"]
+        log(f"  true poses: min FSC to Nyquist/2 {fa:.4f} with --useCTF, "
+            f"{fb:.4f} without; corr {a['corr']:.4f} / {b['corr']:.4f}")
+        limit(fa >= 0.9, f"--useCTF from true poses: FSC {fa:.4f} < 0.9 "
+              "below half Nyquist")
+        limit(fa > fb and a["corr"] > b["corr"], "--useCTF did not improve "
+              "on the uncorrected reconstruction")
+
+        # (b) the phase-flipped cycle
+        md = MetaData(str(root / "assigned.xmd"))
+        rows = [md.getRow(i) for i in md]
+        check(len(rows) == VIEWS, f"phase 6: {len(rows)} assignments")
+        col = lambda k: np.array([float(r[k]) for r in rows])
+        order = col("itemId").astype(int) - 1
+        d_true = directions_from_angles(np.stack(
+            [poses["rot"], poses["tilt"]], 1))[order]
+        ang = np.degrees(np.arccos(np.clip(
+            (d_true * effective_directions(rows)).sum(1), -1, 1)))
+        within = float((ang <= 1.5 * GALLERY_RATE).mean())
+        shift_err = float(np.median(np.hypot(col("shiftX") - poses["sx"][order],
+                                             col("shiftY") - poses["sy"][order])))
+        _, fsc, corr = map_quality(root / "cycle.vol", ref)
+        _, _, corr_true = map_quality(root / "flipped_true.vol", ref)
+        res_vs_phantom = fsc_program(root / "cycle.vol", cycle / "phantom.vol",
+                                     CTF_TS, root / "vs_phantom.frc")
+        halves = MetaData(str(root / "halves.frc"))
+        frc = halves.getColumn("resolutionFRC").astype(float)
+        freq = halves.getColumn("resolutionFreq").astype(float)
+        below = np.nonzero(frc < 0.143)[0]
+        res_halves = float(1 / freq[below[0]]) if len(below) else \
+            2 * CTF_TS
+        quality["cycle"] = {
+            "within_7.5_deg": within,
+            "median_angle_deg": float(np.median(ang)),
+            "median_shift_err_px": shift_err, "map_corr": corr,
+            "map_corr_flipped_views_true_poses": corr_true,
+            "fsc_min_to_half_nyquist": float(fsc[: len(fsc) // 2].min()),
+            "resolution_vs_phantom_A": res_vs_phantom,
+            "halves_first_shell_below_0.143_A": res_halves}
+        log(f"  cycle: {within:.4f} of the views within {1.5 * GALLERY_RATE} "
+            f"deg (median {np.median(ang):.2f} deg), median shift error "
+            f"{shift_err:.3f} px, map correlation {corr:.4f} (the same "
+            f"views at their true poses {corr_true:.4f}); resolution_fsc "
+            f"against the phantom {res_vs_phantom:.3f} A, halves' FRC first "
+            f"below 0.143 at {res_halves:.3f} A")
+        limit(within >= 0.9, f"phase 6: only {within:.4f} of the views within "
+              f"{1.5 * GALLERY_RATE} deg")
+        limit(shift_err <= 0.5, f"phase 6: median shift error "
+              f"{shift_err:.3f} px > 0.5")
+        limit(corr >= CYCLE_CTF_MAP_CORR, f"phase 6: the cycle's map "
+              f"correlates {corr:.4f} < {CYCLE_CTF_MAP_CORR} with the "
+              "phantom")
+
+        # (c) Wiener: closer to the clean projections than the raw views
+        wien = np.squeeze(Image(str(root / "wiener.mrcs")).data)
+        check(wien.shape == (WIENER_VIEWS, N, N) and np.isfinite(wien).all(),
+              f"phase 6 Wiener: output of shape {wien.shape}")
+
+        def mean_corr(a, b):
+            a = a.reshape(len(a), -1) - a.reshape(len(a), -1).mean(1)[:, None]
+            b = b.reshape(len(b), -1) - b.reshape(len(b), -1).mean(1)[:, None]
+            return float(((a * b).sum(1) / np.sqrt((a * a).sum(1)
+                                                   * (b * b).sum(1))).mean())
+        quality["wiener"] = {
+            "corr_raw": mean_corr(ctf_noisy[:WIENER_VIEWS],
+                                  clean[:WIENER_VIEWS]),
+            "corr_corrected": mean_corr(wien, clean[:WIENER_VIEWS])}
+        w = quality["wiener"]
+        log(f"  Wiener ({WIENER_VIEWS} views): mean correlation with the clean "
+            f"views {w['corr_corrected']:.4f} corrected, {w['corr_raw']:.4f} "
+            "raw")
+        limit(w["corr_corrected"] > w["corr_raw"], "phase 6: the Wiener-"
+              "corrected views are no closer to the clean ones than the raw")
+
+        # what the CTF work costs on the card
+        p_batch = ctf_params_arrays(descs[:1] * BATCH)
+        table_ms = time_ms(lambda: ctf_gridding_multipliers(
+            p_batch, CTF_TS, 0.01, N, 0.5, False, device=DEVICE), 20)
+        flip_descs = [descs[i // per] for i in range(MATCH_BATCH)]
+        rows_ms = time_ms(lambda: generate_2d_rows(
+            flip_descs, N, N, damped=False, device=DEVICE), 20)
+        batch = torch.as_tensor(ctf_noisy[:MATCH_BATCH], device=DEVICE)
+        flip_ms = time_ms(lambda: phase_flip(batch, flip_descs), 20)
+        quality["card_ms"] = {
+            f"ctf_table_{BATCH}_rows": table_ms,
+            f"per_row_ctfs_{MATCH_BATCH}_rows": rows_ms,
+            f"phase_flip_{MATCH_BATCH}_views": flip_ms}
+        log(f"  on the card: CTF table of a {BATCH}-view batch "
+            f"{table_ms:.4f} ms; {MATCH_BATCH} per-row CTFs {rows_ms:.4f} ms; "
+            f"phase flip of {MATCH_BATCH} views {flip_ms:.4f} ms")
+        report["quality"] = quality
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    log("ctf " + json.dumps(report))
+    check(not failed, "phase 6: " + "; ".join(failed))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -999,12 +1363,15 @@ def main(argv=None) -> int:
     try:
         kernels = kernels_vs_plain(args.seed)
         launches, rec_md, serial_vol = end_to_end(args.seed, root / "e2e")
-        cycle, match_args = matching_cycle(args.seed, root / "cycle")
+        cycle, match_args, clean, poses = matching_cycle(args.seed,
+                                                         root / "cycle")
         launches.update({k: v for k, v in cycle.items()
                          if k not in launches})
         log("phase 5: the mesh paths, ranks of a gloo group on one card")
         launches["kb_scatter_3ch_slab"] = mesh_runs(root, rec_md, serial_vol,
                                                     match_args)
+        log("phase 6: the CTF-corrected cycle")
+        ctf_cycle(args.seed, root / "ctf", clean, poses, root / "cycle")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

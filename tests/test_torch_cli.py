@@ -8,7 +8,6 @@ import torch
 
 from test_torch_common import phantom_batch, rel_err
 from xmipp3_tpu.programs import get_program as jax_program
-from xmipp3_tpu_torch.core.errors import XmippError
 from xmipp3_tpu_torch.core.image import Image, save_image
 from xmipp3_tpu_torch.core.metadata import MetaData
 from xmipp3_tpu_torch.programs import get_program, main
@@ -79,7 +78,9 @@ def test_cli_dispatcher_runs_the_program(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--useCTF"], ["--mesh", "dp"],
                                   ["--dist_nprocs", "2"]])
 def test_cli_rejects_flags_of_later_slices(tmp_path, flag):
-    """--useCTF is still rejected, naming the ROADMAP queue. The mesh flags
+    """--useCTF is ported: on rows without CTF labels it is the plain
+    reconstruction (the reference's hasCTF gate; the CTF paths are held in
+    test_torch_reconstruct_ctf.py). The mesh flags
     behave as in the reference on one device: --mesh dp needs two ranks,
     and --dist_nprocs without --dist_coordinator starts no process group,
     so the run is the serial one (tests/test_torch_parallel.py runs the
@@ -88,8 +89,12 @@ def test_cli_rejects_flags_of_later_slices(tmp_path, flag):
     prog = get_program("reconstruct_fourier")
     args = ["-i", fn, "-o", str(tmp_path / "r.vol"), "--device", "cpu"]
     if flag[0] == "--useCTF":
-        with pytest.raises(XmippError, match="ROADMAP"):
-            prog.run_with_args(args + flag)
+        assert prog.run_with_args(args + ["--interp", "nn"] + flag) == 0
+        assert get_program("reconstruct_fourier").run_with_args(
+            ["-i", fn, "-o", str(tmp_path / "plain.vol"), "--device", "cpu",
+             "--interp", "nn"]) == 0
+        np.testing.assert_array_equal(_vol(tmp_path / "r.vol"),
+                                      _vol(tmp_path / "plain.vol"))
     elif flag[0] == "--mesh":
         with pytest.raises(RuntimeError, match="needs >= 2 devices"):
             prog.run_with_args(args + flag)

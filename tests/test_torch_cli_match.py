@@ -20,7 +20,6 @@ import torch
 from test_torch_common import REPO, rel_err
 from test_torch_project import phantom8
 from xmipp3_tpu.programs import get_program as jax_program
-from xmipp3_tpu_torch.core.errors import XmippError
 from xmipp3_tpu_torch.core.image import Image, save_image
 from xmipp3_tpu_torch.core.metadata import MetaData
 from xmipp3_tpu_torch.core.sampling import directions_from_angles
@@ -151,6 +150,49 @@ def test_matching_matches_the_reference(work, tmp_path, extra):
                _rows(work / "ref.doc"))
 
 
+def _ctf_file(d, kind):
+    """A --ctf input: a .ctfparam file (a CTF with zeros in the band, so
+    that --phase_flipped changes the gallery), or the centred 2-D
+    amplitude image of the same CTF."""
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription
+    ctf = CTFDescription(sampling_rate=2.0, voltage=300, Cs=2.7, Q0=0.1,
+                         defocusU=9000, defocusV=9600, azimuthal_angle=30)
+    if kind == "ctfparam":
+        fn = str(d / "g.ctfparam")
+        ctf.write(fn)
+        return fn
+    fn = str(d / "amp.xmp")
+    save_image(fn, np.abs(ctf.generate_2d(N, N, rfft_layout=False,
+                                          device="cpu").numpy()))
+    return fn
+
+
+@pytest.mark.parametrize("flipped", [False, True])
+@pytest.mark.parametrize("kind", ["ctfparam", "amplitude"])
+def test_matching_with_ctf_matches_the_reference(work, tmp_path, kind,
+                                                 flipped):
+    """--ctf multiplies the gallery by the file's CTF (a .ctfparam, in
+    absolute value under --phase_flipped) or by a 2-D amplitude image."""
+    extra = ["--ctf", _ctf_file(tmp_path, kind)] + (
+        ["--phase_flipped"] if flipped else [])
+    for side, prog, dev in SIDES:
+        dev = dev or ["--mesh", "none"]
+        args = ["-i", str(work / "parts.xmd"), "-o",
+                str(tmp_path / f"{side}.xmd"), "--ref", str(work / "ref"),
+                "--max_shift", "4"] + extra + dev
+        assert prog("angular_projection_matching").run_with_args(args) == 0
+    got = _rows(tmp_path / "port.xmd")
+    _hold_rows(got, _rows(tmp_path / "ref.xmd"), _rows(work / "ref.doc"))
+    # the CTF reached the gallery: the scores differ from a plain run's
+    assert get_program("angular_projection_matching").run_with_args(
+        ["-i", str(work / "parts.xmd"), "-o", str(tmp_path / "plain.xmd"),
+         "--ref", str(work / "ref"), "--max_shift", "4", "--device",
+         "cpu"]) == 0
+    plain = _rows(tmp_path / "plain.xmd")
+    assert max(abs(g["maxCC"] - p["maxCC"]) for g, p in zip(got, plain)) \
+        > 1e-3
+
+
 def test_both_programs_through_the_dispatcher(work, tmp_path):
     """`python -m xmipp3_tpu_torch.programs` in a process of its own, which
     never imports jax or the reference package."""
@@ -186,14 +228,15 @@ def test_programs_raise_without_a_card(work, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("program,flag", [
     ("angular_project_library", ["--method", "real_space"]),
-    ("angular_projection_matching", ["--ctf", "some.ctfparam"]),
+    ("angular_projection_matching", ["--ctf", "{d}/g.ctfparam"]),
     ("angular_projection_matching", ["--mesh", "dp"]),
     ("angular_projection_matching", ["--mesh", "tp"]),
     ("angular_projection_matching", ["--dist_nprocs", "2"])])
 def test_flags_of_later_slices_raise(work, tmp_path, program, flag):
-    """--ctf is still rejected, naming the ROADMAP queue. --method
-    real_space is accepted and ignored as in the reference (the gallery is
-    the reference's under the same flag). On one device the mesh flags
+    """--ctf is ported: a .ctfparam file gives the reference's rows (see
+    test_matching_with_ctf_matches_the_reference). --method real_space is
+    accepted and ignored as in the reference (the gallery is the
+    reference's under the same flag). On one device the mesh flags
     behave as in the reference: --mesh dp|tp need two ranks, and
     --dist_nprocs without --dist_coordinator leaves the run serial
     (tests/test_torch_parallel.py runs the mesh paths on ranks)."""
@@ -205,8 +248,14 @@ def test_flags_of_later_slices_raise(work, tmp_path, program, flag):
     run = lambda extra: get_program(program).run_with_args(
         args + ["--device", "cpu"] + extra)
     if flag[0] == "--ctf":
-        with pytest.raises(XmippError, match="ROADMAP.md, port queue"):
-            run(flag)
+        _ctf_file(tmp_path, "ctfparam")
+        flag = [flag[0], flag[1].format(d=tmp_path)]
+        assert run(flag) == 0
+        assert jax_program(program).run_with_args(
+            args[:2] + ["-o", str(tmp_path / "r.xmd"), "--ref",
+                        str(work / "ref"), "--mesh", "none"] + flag) == 0
+        _hold_rows(_rows(tmp_path / "a.xmd"), _rows(tmp_path / "r.xmd"),
+                   _rows(work / "ref.doc"))
     elif flag[0] == "--method":
         flag = flag + ["--sampling_rate", "15"]
         assert run(flag) == 0

@@ -214,13 +214,14 @@ import sys
 import xmipp3_tpu_torch
 import xmipp3_tpu_torch.programs
 from xmipp3_tpu_torch.programs import get_program
-for name in ("reconstruct_fourier", "angular_project_library",
-             "angular_projection_matching"):
+from xmipp3_tpu_torch.programs import list_programs
+for name in list_programs():
     get_program(name)
 from xmipp3_tpu_torch.core import metadata_program, sampling
-from xmipp3_tpu_torch.ops import (cross, dft_mm, fourier, fsc, geo, match, polar,
-                                  project, reconstruct, scatter, scatter_kb,
-                                  scatter_tri, shear_rotate, shift)
+from xmipp3_tpu_torch.ops import (cross, ctf, dft_mm, fourier, fsc, geo, match,
+                                  polar, project, reconstruct, scatter,
+                                  scatter_kb, scatter_tri, shear_rotate, shift)
+from xmipp3_tpu_torch.programs import ctf_correct, resolution_fsc
 from xmipp3_tpu_torch.parallel import cli, match, mesh, reconstruct
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"

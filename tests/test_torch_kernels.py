@@ -1,6 +1,6 @@
 """On a card only: each CUDA kernel of the port against its plain version,
-and the whole reconstruction and the matching program on the card against
-the same on the CPU.
+and the whole reconstruction (plain and --useCTF), phase flipping and the
+matching program on the card against the same on the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -124,6 +124,62 @@ def test_reconstruct_on_the_card_matches_the_cpu(interp, tol):
     want = trec.reconstruct_fourier(*args, **kw, device="cpu")
     assert got.is_cuda and got.shape == (32, 32, 32)
     assert rel_err(got, want) <= tol
+
+
+def _ctf_descs(count):
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription
+    return [CTFDescription(sampling_rate=2.0, voltage=300, Cs=2.7, Q0=0.1,
+                           defocusU=8000 + 12000 * k / count,
+                           defocusV=8300 + 12000 * k / count,
+                           azimuthal_angle=180.0 * k / count)
+            for k in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp,counter", [
+    ("kb", (scatter_kb, "launches")), ("tri+kb", (scatter_tri, "launches")),
+    ("nn", (scatter, "launches"))])
+def test_usectf_reconstruct_on_the_card_matches_the_cpu(interp, counter):
+    """--useCTF: the CTF table and the CTF-weighted streams through the
+    kernel on the card against the same on the CPU (minCTF 0.1: 1/c
+    amplifies the card's and the host's sin roundoff by up to 1/minCTF^2),
+    phase flipped or not."""
+    require_cuda()
+    from xmipp3_tpu_torch.ops.ctf import ctf_params_arrays
+    b = phantom_batch(33, 32, 32)
+    args = (b["imgs"], b["rot"], b["tilt"], b["psi"])
+    for flipped in (False, True):
+        kw = dict(sx=b["sx"], sy=b["sy"], weights=b["w"], flip=b["flip"],
+                  interp=interp, batch=16,
+                  ctfp=ctf_params_arrays(_ctf_descs(32)), sampling=2.0,
+                  min_ctf=0.1, phase_flipped=flipped)
+        mod, name = counter
+        setattr(mod, name, 0)
+        got = trec.reconstruct_fourier(*args, **kw, device="cuda")
+        assert getattr(mod, name) == 2
+        want = trec.reconstruct_fourier(*args, **kw, device="cpu")
+        assert got.is_cuda and got.shape == (32, 32, 32)
+        assert rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_phase_flip_on_the_card_matches_the_cpu():
+    """Per-row CTFs in one pass and the flip on the card against the CPU:
+    the sign tables equal wherever |c| > 1e-5, the images to 1e-4 * max
+    (a sample at a zero crossing may take the other sign)."""
+    require_cuda()
+    from xmipp3_tpu_torch.ops.ctf import generate_2d_rows, phase_flip
+    ctfs = _ctf_descs(16)
+    imgs = np.random.default_rng(7).standard_normal((16, 64, 64)).astype(
+        np.float32)
+    c_gpu = generate_2d_rows(ctfs, 64, 64, damped=False, device="cuda")
+    c_cpu = generate_2d_rows(ctfs, 64, 64, damped=False, device="cpu")
+    away = c_cpu.abs() > 1e-5
+    assert torch.equal(torch.sign(c_gpu.cpu())[away], torch.sign(c_cpu)[away])
+    got = phase_flip(imgs, ctfs, device="cuda")
+    want = phase_flip(imgs, ctfs, device="cpu")
+    assert got.is_cuda
+    assert rel_err(got, want) <= 1e-4
 
 
 def _ring_spectra(B, nr, R, K, seed=5):

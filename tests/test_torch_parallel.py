@@ -142,6 +142,18 @@ def _rec_dataset(d):
          "shiftX": float(b["sx"][i]), "shiftY": float(b["sy"][i]),
          "weight": float(b["w"][i]), "flip": int(b["flip"][i])}
         for i in range(C)).write(str(d / "parts.xmd"))
+    # the same rows with inline CTF labels, for --useCTF: CTFs with |c| >=
+    # --minCTF 0.3 at every sample (Q0 0.7, 1,500-2,500 A at 4 A/px), where
+    # the reference's CPU path, which drops the weight modulator
+    # (tests/test_torch_reconstruct_ctf.py), grids what the port grids
+    md = MetaData(str(d / "parts.xmd"))
+    for k, lbl in (("ctfSamplingRate", 4.0), ("ctfVoltage", 300.0),
+                   ("ctfSphericalAberration", 2.7), ("ctfQ0", 0.7)):
+        md.setColumnValues(k, [lbl] * C)
+    md.setColumnValues("ctfDefocusU", [1500.0 + 60 * i for i in range(C)])
+    md.setColumnValues("ctfDefocusV", [1600.0 + 60 * i for i in range(C)])
+    md.setColumnValues("ctfDefocusAngle", [13.0 * i for i in range(C)])
+    md.write(str(d / "parts_ctf.xmd"))
     # the slab reconstructors take no flips: the programs mirror flipped
     # images and negate their shiftX first
     f = b["flip"]
@@ -199,7 +211,9 @@ FUNCS = {  # name -> (ranks, job); kwargs beside the inputs' arrays
     "parallel_match_tp": (2, dict(MATCH, mesh="model")),
     "parallel_match_refsharded": (2, dict(MATCH, mesh="model")),
 }
-REC_MODES = {"dp": 2, "slab": 2, "slab2d": 4, "auto": 2, "tp": 2}
+REC_MODES = {"dp": 2, "slab": 2, "slab2d": 4, "auto": 2, "tp": 2,
+             "slab_ctf": 2}
+CTF_FLAGS = ["--useCTF", "--sampling", "4", "--minCTF", "0.3"]
 MATCH_MODES = {"dp": 2, "tp": 2, "slab": 2, "slab2d": 4, "auto": 2}
 
 
@@ -207,11 +221,15 @@ def _cli_jobs(d, ranks):
     jobs = []
     for mode, n in REC_MODES.items():
         if n == ranks:
+            ctf = mode.endswith("_ctf")
             jobs.append({"name": f"rec_{mode}", "program":
                          "reconstruct_fourier", "argv": [
-                             "-i", str(d / "parts.xmd"), "-o",
+                             "-i", str(d / ("parts_ctf.xmd" if ctf else
+                                            "parts.xmd")), "-o",
                              str(d / f"rec_{mode}.vol"), "--interp", "tri",
-                             "--weight", "--batch", "4", "--mesh", mode]})
+                             "--weight", "--batch", "4", "--mesh",
+                             mode.split("_")[0]] + (CTF_FLAGS if ctf
+                                                    else [])})
     for mode, n in MATCH_MODES.items():
         if n == ranks:
             jobs.append({"name": f"match_{mode}", "program":
@@ -270,6 +288,11 @@ def meshes(tmp_path_factory):
         assert jax_program("reconstruct_fourier").run_with_args(
             rec_args + ["-o", str(out), "--mesh", mode]) == 0
         ref[f"rec_{mode}"] = np.squeeze(Image(str(out)).data)
+    out = d / "ref_rec_slab_ctf.vol"
+    assert jax_program("reconstruct_fourier").run_with_args(
+        ["-i", str(d / "parts_ctf.xmd"), "--interp", "tri", "--weight", "-v",
+         "0", "-o", str(out), "--mesh", "slab"] + CTF_FLAGS) == 0
+    ref["rec_slab_ctf"] = np.squeeze(Image(str(out)).data)
     with pytest.raises(KeyError, match="data"):
         jax_program("reconstruct_fourier").run_with_args(
             rec_args + ["-o", str(d / "ref_rec_tp.vol"), "--mesh", "tp"])
@@ -367,6 +390,25 @@ def test_reconstruct_cli_mesh_matches_the_reference(meshes, mode):
     want = meshes["ref"]["rec_" + ("dp" if mode == "auto" else mode)]
     assert got.shape == (N, N, N)
     assert rel_err(got, want) <= TOL["tri"]
+
+
+def test_reconstruct_cli_mesh_slab_usectf_matches_the_reference(meshes,
+                                                               tmp_path):
+    """--mesh slab --useCTF on 2 ranks: every rank grids the CTF factors
+    of every row into its slab; the volume is the reference's on its
+    virtual mesh and the port's serial one."""
+    _cli_report(meshes, "rec_slab_ctf", REC_MODES["slab_ctf"])
+    d = meshes["dir"]
+    got = np.squeeze(Image(str(d / "rec_slab_ctf.vol")).data)
+    assert rel_err(got, meshes["ref"]["rec_slab_ctf"]) <= TOL["tri"]
+    assert get_program("reconstruct_fourier").run_with_args(
+        ["-i", str(d / "parts_ctf.xmd"), "-o", str(tmp_path / "s.vol"),
+         "--interp", "tri", "--weight", "--device", "cpu", "-v", "0"]
+        + CTF_FLAGS) == 0
+    assert rel_err(got, np.squeeze(Image(str(tmp_path / "s.vol")).data)) \
+        <= TOL["tri"]
+    plain = np.squeeze(Image(str(d / "rec_slab.vol")).data)
+    assert rel_err(got, plain) > 1e-2          # the CTF was corrected for
 
 
 def test_reconstruct_cli_mesh_tp_raises_as_the_reference(meshes):

@@ -79,9 +79,12 @@ def test_from_jax_state_rejects_a_cube_of_another_size():
 
 
 def test_deferred_paths_raise():
-    """--useCTF gridding is still deferred. The kz-slab mode is ported
-    (tests/test_torch_parallel.py holds it against the reference): a slab
-    of accumulators is taken, and full cubes given with slab_p raise."""
+    """No path of this module is deferred any more. The kz-slab mode is
+    ported (tests/test_torch_parallel.py holds it against the reference): a
+    slab of accumulators is taken, and full cubes given with slab_p raise.
+    --useCTF gridding is ported (tests/test_torch_reconstruct_ctf.py): a
+    ctfp dict is taken, and one without every CTF field raises KeyError,
+    as the reference's does."""
     cubes = [torch.zeros((64, 64, 64)) for _ in range(3)]
     args, _ = _stack(14)
     one = (args[0][:1], np.eye(3)[None], [0.0], [0.0], [1.0], 64)
@@ -90,6 +93,12 @@ def test_deferred_paths_raise():
     slab = [torch.zeros((16, 64, 64)) for _ in range(3)]
     trec.backproject_chunk(*slab, *one, slab_p=16, slab_z0=24)
     assert float(slab[2].sum()) > 0
-    with pytest.raises(NotImplementedError, match="useCTF"):
+    with pytest.raises(KeyError):
         trec.reconstruct_fourier(*args, ctfp={"defocusU": np.ones(C)},
                                  device="cpu")
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription, ctf_params_arrays
+    ctfp = ctf_params_arrays([CTFDescription(voltage=300, defocusU=9000,
+                                             defocusV=9000)] * C)
+    vol = trec.reconstruct_fourier(*args, ctfp=ctfp, interp="nn",
+                                   device="cpu")
+    assert torch.isfinite(vol).all() and float(vol.abs().max()) > 0

@@ -23,6 +23,13 @@ The accumulators are plain (P, P, P) float32 tensors in fftshift layout,
 updated in place. Static index sets (the resolution disk, the slice
 frequencies) are built on the host once per shape and cached per device.
 
+--useCTF (ctfp=): each batch's (C, S) table of CTF factors for the kept
+samples (ctf_gridding_multipliers: 1/CTF on the data streams, clipped at
+min_ctf, and the modulator on the weight stream; reference
+reconstruct_fourier.cpp:576-625) is computed once on the device and reused
+across the symmetry loop; the kernels grid the weighted streams as they
+are.
+
 kz-slab mode (slab_p, slab_z0; the mesh reconstructors of parallel/): the
 accumulators are the (slab_p, P, P) slab from the absolute plane slab_z0,
 and updates outside it are dropped. kb with a blob radius up to 2 goes to
@@ -43,17 +50,13 @@ from xmipp3_tpu_torch.core.sym import SymList
 from xmipp3_tpu_torch.device import resolve_device
 from xmipp3_tpu_torch.ops import scatter, scatter_kb, scatter_tri
 from xmipp3_tpu_torch.ops.basis import kaiser_fourier_value, kaiser_value
+from xmipp3_tpu_torch.ops.ctf import ctf_pure_batched, gridding_ctf_factors
 from xmipp3_tpu_torch.ops.fourier import shift_spec_2d
 
 # reference defaults: --blob <radius=1.9> <order=0> <alpha=15>
 BLOB_RADIUS = 1.9
 BLOB_ALPHA = 15.0
 BLOB_ORDER = 0
-
-_LATER_CTF = ("--useCTF gridding is not yet ported to xmipp3_tpu_torch "
-              "(ROADMAP.md, port queue: --useCTF, the ops/ctf.py subset and "
-              "ctf_gridding_multipliers)")
-
 
 def _disk_mask(out_n: int, max_freq: float) -> np.ndarray:
     """Static boolean mask of rfft2 samples inside the resolution cutoff;
@@ -83,6 +86,39 @@ def _slice_freqs(out_n: int, P: int, max_freq, device: torch.device):
         KX, KY = KX[keep], KY[keep]
     return (torch.as_tensor(np.ascontiguousarray(KX.ravel()), device=device),
             torch.as_tensor(np.ascontiguousarray(KY.ravel()), device=device))
+
+
+@lru_cache(maxsize=32)
+def _kept_freqs(out_n: int, max_freq: float, device: torch.device):
+    """(FX, FY) digital frequencies (cycles/px) of the kept rfft2 samples,
+    float32 (S,) on `device`: the grid of the CTF table."""
+    keep = _disk_mask(out_n, max_freq)
+    fy = np.fft.fftfreq(out_n).astype(np.float32)
+    fx = np.fft.rfftfreq(out_n).astype(np.float32)
+    FX = np.broadcast_to(fx[None, :], keep.shape)[keep].ravel()
+    FY = np.broadcast_to(fy[:, None], keep.shape)[keep].ravel()
+    return (torch.as_tensor(np.ascontiguousarray(FX), device=device),
+            torch.as_tensor(np.ascontiguousarray(FY), device=device))
+
+
+def ctf_gridding_multipliers(ctfp: dict, Ts, min_ctf, N: int,
+                             max_freq: float = 0.5,
+                             phase_flipped: bool = False, device=None):
+    """Per-sample CTF inversion factors for the kept rfft2 samples.
+
+    The reference evaluates each row's CTF at every 2-D Fourier sample
+    inside the gridding loop and splits it into a data factor (1/CTF,
+    clipped at minCTF) and a weights-cube modulator
+    (reconstruct_fourier.cpp:576-625). Here the whole (C, S) table is one
+    elementwise pass per batch on `device` (the card by default). ctfp:
+    dict of (C,) arrays (ops.ctf.CTF_PURE_FIELDS); Ts = the --sampling
+    flag (A/px, converts the grid to continuous frequencies, reference
+    iTs=1/Ts :495; the rows' own ctfSamplingRate is not read). Returns
+    (m_data, m_w), each (C, S) float32."""
+    FX, FY = _kept_freqs(N, max_freq, resolve_device(device))
+    iTs = 1.0 / torch.tensor(Ts, dtype=torch.float32, device=FX.device)
+    cvals = ctf_pure_batched(FX * iTs, FY * iTs, ctfp)
+    return gridding_ctf_factors(cvals, min_ctf, phase_flipped)
 
 
 def _slice_tap_coords(mats, out_n: int, P: int, max_freq=None):
@@ -352,9 +388,14 @@ class FourierReconstructor:
     def __init__(self, N: int, pad_factor: float = 2.0, sym: str = "c1",
                  max_freq: float = 0.5, interp: str = "kb",
                  niter_weight: int = 1,
-                 blob=(BLOB_RADIUS, BLOB_ORDER, BLOB_ALPHA), device=None):
+                 blob=(BLOB_RADIUS, BLOB_ORDER, BLOB_ALPHA),
+                 sampling: float = 1.0, min_ctf: float = 0.01,
+                 phase_flipped: bool = False, device=None):
         self.device = resolve_device(device)
         self.N = N
+        self.sampling = float(sampling)
+        self.min_ctf = float(min_ctf)
+        self.phase_flipped = bool(phase_flipped)
         P = int(round(N * pad_factor))
         P += P % 2
         self.P = P
@@ -387,9 +428,13 @@ class FourierReconstructor:
 
     def add_batch(self, imgs, rot, tilt, psi, sx=None, sy=None, weights=None,
                   flip=None, ctfp=None):
-        """Grid one batch of particles, once per symmetry operator."""
-        if ctfp is not None:
-            raise NotImplementedError(_LATER_CTF)
+        """Grid one batch of particles, once per symmetry operator.
+
+        ctfp: optional dict of (C,) arrays (ops.ctf.CTF_PURE_FIELDS) —
+        --useCTF per-frequency inversion during gridding. The (C, S) factor
+        table is computed once per batch and reused across the symmetry
+        loop (the CTF lives in the image frame; symmetry only rotates the
+        3-D insertion coordinates)."""
         imgs = torch.as_tensor(imgs, dtype=torch.float32, device=self.device)
         if imgs.ndim == 2:
             imgs = imgs[None]
@@ -411,12 +456,18 @@ class FourierReconstructor:
                                     np.asarray(psi, np.float32)), np.float32)
         if A.ndim == 2:
             A = np.broadcast_to(A[None], (C, 3, 3))
+        ctf_data = ctf_w = None
+        if ctfp is not None:
+            ctf_data, ctf_w = ctf_gridding_multipliers(
+                ctfp, self.sampling, self.min_ctf, int(imgs.shape[-1]),
+                self.max_freq, self.phase_flipped, device=self.device)
         for S in self.sym.sym_matrices():
             # symmetry-equivalent pose: volume rotated by S ~ slice at A·S
             Asym = np.einsum("cij,jk->cik", A, S.astype(np.float32))
             backproject_chunk(self.data_r, self.data_i, self.weights, imgs,
                               Asym, sx, sy, w, self.P, self.max_freq,
-                              interp=self.interp, blob=self.blob)
+                              interp=self.interp, blob=self.blob,
+                              ctf_data=ctf_data, ctf_w=ctf_w)
 
     def finish(self):
         return finalize_volume(self.data_r, self.data_i, self.weights,
@@ -430,15 +481,18 @@ def reconstruct_fourier(imgs, rot, tilt, psi, sx=None, sy=None, weights=None,
                         batch: int = 256, max_freq: float = 0.5, flip=None,
                         interp: str = "kb", niter_weight: int = 1,
                         blob=(BLOB_RADIUS, BLOB_ORDER, BLOB_ALPHA),
-                        ctfp=None, device=None):
+                        ctfp=None, sampling: float = 1.0,
+                        min_ctf: float = 0.01, phase_flipped: bool = False,
+                        device=None):
     """One-call reconstruction of a full stack; returns the volume as a
-    tensor on `device` (default: the card)."""
-    if ctfp is not None:
-        raise NotImplementedError(_LATER_CTF)
+    tensor on `device` (default: the card). ctfp: optional dict of (B,)
+    arrays (ops.ctf.CTF_PURE_FIELDS) enabling --useCTF gridding."""
     imgs = np.asarray(imgs, np.float32)
     N = imgs.shape[-1]
     rec = FourierReconstructor(N, pad_factor, sym, max_freq, interp,
-                               niter_weight, blob, device=device)
+                               niter_weight, blob, sampling=sampling,
+                               min_ctf=min_ctf, phase_flipped=phase_flipped,
+                               device=device)
     B = imgs.shape[0]
     for s in range(0, B, batch):
         sl = slice(s, min(s + batch, B))
@@ -447,5 +501,7 @@ def reconstruct_fourier(imgs, rot, tilt, psi, sx=None, sy=None, weights=None,
                       None if sx is None else np.asarray(sx)[sl],
                       None if sy is None else np.asarray(sy)[sl],
                       None if weights is None else np.asarray(weights)[sl],
-                      None if flip is None else np.asarray(flip)[sl])
+                      None if flip is None else np.asarray(flip)[sl],
+                      ctfp=None if ctfp is None else
+                      {k: np.asarray(v)[sl] for k, v in ctfp.items()})
     return rec.finish()

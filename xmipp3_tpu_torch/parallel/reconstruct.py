@@ -13,6 +13,10 @@ its device, in chunks of `batch` particles, and the ranks meet once:
   slab_reconstruct_2d   particles sharded over "data" and the cube over
                         "z": all_reduce over data, all_gather over z.
 
+--useCTF (ctfp=): each rank computes the CTF factor table of the rows it
+grids (its shard, or every row for a slab rank), a chunk at a time, and
+reuses it across the symmetry loop (_ctf_tables).
+
 P is padded to a multiple of the z size, as in the reference, so a slab
 volume differs slightly from the serial one where the z size does not
 divide P. Every rank finalizes the full cube and returns the (N, N, N)
@@ -27,17 +31,35 @@ import torch
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.core.sym import SymList
 from xmipp3_tpu_torch.core.timing import timed_phase
-from xmipp3_tpu_torch.ops.reconstruct import (_LATER_CTF, backproject_chunk,
+from xmipp3_tpu_torch.ops.reconstruct import (backproject_chunk,
+                                              ctf_gridding_multipliers,
                                               finalize_volume)
 from xmipp3_tpu_torch.parallel.mesh import (all_gather, all_reduce,
                                             pad_to_multiple, shard_rows)
 
 
-def _ctf_tables(ctfp):
-    """The reference builds (B, S) CTF gridding multipliers here; --useCTF
-    is not ported yet."""
-    if ctfp is not None:
-        raise NotImplementedError(_LATER_CTF)
+def _ctf_tables(ctfp, sampling, min_ctf, N, max_freq, phase_flipped,
+                device):
+    """A function of a row slice that returns that chunk's (C, S) CTF
+    data/weight gridding multipliers on `device`, or (None, None) when
+    --useCTF is off. ctfp: dict of (B,) arrays, padded like the rows (the
+    padded rows weigh 0)."""
+    def tables(sl):
+        if ctfp is None:
+            return None, None
+        return ctf_gridding_multipliers(
+            {k: v[sl] for k, v in ctfp.items()}, sampling, min_ctf, N,
+            max_freq, phase_flipped, device=device)
+    return tables
+
+
+def _padded_ctf(ctfp, multiple: int):
+    """ctfp with each (B,) array padded to a multiple of `multiple` rows by
+    repeating the last row (padded rows weigh 0)."""
+    if ctfp is None:
+        return None
+    return {k: np.pad(np.asarray(v, np.float32), (0, (-len(v)) % multiple),
+                      mode="edge") for k, v in ctfp.items()}
 
 
 def _padded_size(N: int, pad_factor: float, multiple: int = 1) -> int:
@@ -60,9 +82,10 @@ def _poses(B, rot, tilt, psi, sx, sy, weights, multiple: int):
 
 
 def _grid(mesh, imgs, mats, sx, sy, w, P: int, max_freq, interp, batch,
-          sym="c1", slab_p=None, slab_z0=0):
+          tables, sym="c1", slab_p=None, slab_z0=0):
     """Backproject rows of one rank in chunks into new accumulators on its
-    device: (P, P, P), or (slab_p, P, P) from plane slab_z0."""
+    device: (P, P, P), or (slab_p, P, P) from plane slab_z0. tables(sl)
+    gives a chunk's CTF factors (_ctf_tables)."""
     zdim = P if slab_p is None else slab_p
     acc = [torch.zeros((zdim, P, P), dtype=torch.float32, device=mesh.device)
            for _ in range(3)]
@@ -71,11 +94,13 @@ def _grid(mesh, imgs, mats, sx, sy, w, P: int, max_freq, interp, batch,
         chunk = torch.as_tensor(np.ascontiguousarray(imgs[sl]),
                                 device=mesh.device)
         with timed_phase("add_batch", sync=acc[0]):
+            ctf_data, ctf_w = tables(sl)
             for S in SymList(sym).sym_matrices():
                 m = np.einsum("cij,jk->cik", mats[sl], S.astype(np.float32))
                 backproject_chunk(*acc, chunk, m, sx[sl], sy[sl], w[sl], P,
                                   max_freq, slab_p=slab_p, slab_z0=slab_z0,
-                                  interp=interp)
+                                  interp=interp, ctf_data=ctf_data,
+                                  ctf_w=ctf_w)
     return acc
 
 
@@ -97,8 +122,9 @@ def parallel_reconstruct(mesh, imgs, rot, tilt, psi, sx=None, sy=None,
 
     imgs: (B, N, N) float32, the whole stack on every rank (padded to a
     mesh multiple here; each rank grids its contiguous shard). Returns the
-    (N, N, N) volume on the rank's device."""
-    _ctf_tables(ctfp)
+    (N, N, N) volume on the rank's device. ctfp: optional dict of (B,)
+    CTF parameter arrays (--useCTF); the rank grids its own rows' CTF
+    factors."""
     imgs = np.asarray(imgs, np.float32)
     if flip is not None and np.any(flip):
         # stored flip: backproject the x-mirrored image with negated
@@ -114,8 +140,12 @@ def parallel_reconstruct(mesh, imgs, rot, tilt, psi, sx=None, sy=None,
     imgs_p, _ = pad_to_multiple(imgs, n_dev)
     mats, sx_p, sy_p, w_p = _poses(B, rot, tilt, psi, sx, sy, weights, n_dev)
     sl = shard_rows(len(imgs_p), mesh, axis_name)
+    ctf_p = _padded_ctf(ctfp, n_dev)
+    tables = _ctf_tables(None if ctf_p is None else
+                         {k: v[sl] for k, v in ctf_p.items()}, sampling,
+                         min_ctf, N, max_freq, phase_flipped, mesh.device)
     acc = _grid(mesh, imgs_p[sl], mats[sl], sx_p[sl], sy_p[sl], w_p[sl], P,
-                max_freq, interp, batch, sym=sym)
+                max_freq, interp, batch, tables, sym=sym)
     # the MPI_Reduce replacement: one all_reduce over the data axis
     with timed_phase("reduce", sync=acc[0]):
         for a in acc:
@@ -135,16 +165,18 @@ def slab_reconstruct(mesh, imgs, rot, tilt, psi, sx=None, sy=None,
     full sample stream and keeps the updates that land in its slab, so the
     ranks do not meet during backprojection. The slabs are gathered before
     the finalize step (Hermitian symmetrization and inverse FFT), which
-    crosses slab boundaries."""
-    _ctf_tables(ctfp)
+    crosses slab boundaries. With ctfp every rank computes the CTF factors
+    of every row, as it grids every row."""
     imgs = np.asarray(imgs, np.float32)
     B, N, _ = imgs.shape
     n_dev = mesh.shape[axis_name]
     P = _padded_size(N, pad_factor, n_dev)
     slab_p = P // n_dev
     mats, sx_a, sy_a, w = _poses(B, rot, tilt, psi, sx, sy, weights, 1)
+    tables = _ctf_tables(ctfp, sampling, min_ctf, N, max_freq,
+                         phase_flipped, mesh.device)
     acc = _grid(mesh, imgs, mats, sx_a, sy_a, w, P, max_freq, interp, batch,
-                slab_p=slab_p, slab_z0=mesh.coords[axis_name] * slab_p)
+                tables, slab_p=slab_p, slab_z0=mesh.coords[axis_name] * slab_p)
     with timed_phase("reduce", sync=acc[0]):
         acc = [all_gather(a, mesh, axis_name) for a in acc]
     return _finish(acc, N, P, interp, niter_weight)
@@ -164,7 +196,6 @@ def slab_reconstruct_2d(mesh, imgs, rot, tilt, psi, sx=None, sy=None,
     axis fuses the image shards, and the slabs are gathered along z.
 
     mesh must carry both axes (resolve_mesh("slab2d") gives (n/2, 2))."""
-    _ctf_tables(ctfp)
     imgs = np.asarray(imgs, np.float32)
     B, N, _ = imgs.shape
     n_data, n_z = mesh.shape[data_axis], mesh.shape[z_axis]
@@ -174,8 +205,12 @@ def slab_reconstruct_2d(mesh, imgs, rot, tilt, psi, sx=None, sy=None,
     mats, sx_p, sy_p, w_p = _poses(B, rot, tilt, psi, sx, sy, weights,
                                    n_data)
     sl = shard_rows(len(imgs_p), mesh, data_axis)
+    ctf_p = _padded_ctf(ctfp, n_data)
+    tables = _ctf_tables(None if ctf_p is None else
+                         {k: v[sl] for k, v in ctf_p.items()}, sampling,
+                         min_ctf, N, max_freq, phase_flipped, mesh.device)
     acc = _grid(mesh, imgs_p[sl], mats[sl], sx_p[sl], sy_p[sl], w_p[sl], P,
-                max_freq, interp, batch, slab_p=slab_p,
+                max_freq, interp, batch, tables, slab_p=slab_p,
                 slab_z0=mesh.coords[z_axis] * slab_p)
     with timed_phase("reduce", sync=acc[0]):
         acc = [all_gather(all_reduce(a, mesh, data_axis), mesh, z_axis)

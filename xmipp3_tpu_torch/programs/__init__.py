@@ -9,13 +9,18 @@ from __future__ import annotations
 import os
 import sys
 
-# program name -> module path (module's PROGRAM attribute)
+_P = "xmipp3_tpu_torch.programs."
+
+# program name -> "module" (its PROGRAM attribute) or "module:Class"
 _REGISTRY: dict[str, str] = {
-    "angular_project_library":
-        "xmipp3_tpu_torch.programs.angular_project_library",
-    "angular_projection_matching":
-        "xmipp3_tpu_torch.programs.angular_projection_matching",
-    "reconstruct_fourier": "xmipp3_tpu_torch.programs.reconstruct_fourier",
+    "angular_project_library": _P + "angular_project_library",
+    "angular_projection_matching": _P + "angular_projection_matching",
+    "reconstruct_fourier": _P + "reconstruct_fourier",
+    "resolution_fsc": _P + "resolution_fsc",
+    "ctf_phase_flip": _P + "ctf_correct:ProgCTFPhaseFlip",
+    "ctf_correct_wiener2d": _P + "ctf_correct:ProgCTFCorrectWiener2D",
+    # the reference's alias (programs/registry.py:216)
+    "ctf_correct_phase": _P + "ctf_correct:ProgCTFPhaseFlip",
 }
 
 
@@ -25,7 +30,8 @@ def get_program(name: str):
 
     if name not in _REGISTRY:
         return None
-    return importlib.import_module(_REGISTRY[name]).PROGRAM()
+    module, _, cls = _REGISTRY[name].partition(":")
+    return getattr(importlib.import_module(module), cls or "PROGRAM")()
 
 
 def list_programs() -> list[str]:

@@ -14,22 +14,24 @@ ranks of a torch.distributed process group, started from
 --dist_coordinator, --dist_nprocs and --dist_procid or by torchrun
 (parallel/cli.py), with the reference's routing; only rank 0 writes files.
 
-Not yet ported, and rejected with an error when given: --ctf (needs the
-ops/ctf.py subset); ROADMAP.md queues it.
+--ctf multiplies the gallery by a CTF before matching: a .ctfparam file
+(its damped CTF, in absolute value under --phase_flipped) or a 2-D
+amplitude image (centred), on the card like the rest.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from xmipp3_tpu_torch.core.errors import ErrCode, XmippError
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.core.metadata import MetaData
 from xmipp3_tpu_torch.core.metadata_program import (BatchPrefetcher,
                                                     load_image_rows)
+from xmipp3_tpu_torch.core.image import Image
 from xmipp3_tpu_torch.core.program import XmippProgram
 from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import resolve_device
+from xmipp3_tpu_torch.ops.ctf import CTFDescription
 from xmipp3_tpu_torch.ops.geo import alignment_matrices_2d, apply_affine_2d
 from xmipp3_tpu_torch.ops.match import N_ANGLES, match_to_gallery
 from xmipp3_tpu_torch.parallel.cli import (add_mesh_params,
@@ -61,7 +63,7 @@ class ProgAngularProjectionMatching(XmippProgram):
         self.addParamsLine("  [--neighbors <md=\"\">] : Per-image neighbor lists from angular_project_library --compute_neighbors (overrides --max_angular_change)")
         self.addParamsLine("  [--scale <step=1> <n_steps=0>] : Scale search: step factor (1 = 0.01 increments) and steps around 1")
         self.addParamsLine("     alias -s;")
-        self.addParamsLine("  [--ctf <file=\"\">]  : CTF to apply to the references (not yet ported: rejected)")
+        self.addParamsLine("  [--ctf <file=\"\">]  : CTF to apply to the references (.ctfparam or 2D amplitude image)")
         self.addParamsLine("  [--phase_flipped] : Experimental images are phase flipped")
         self.addParamsLine("  [--sym <symmetry=\"\">] : Symmetry group for "
                            "the --max_angular_change restriction (a "
@@ -71,12 +73,6 @@ class ProgAngularProjectionMatching(XmippProgram):
         add_mesh_params(self)
 
     def readParams(self):
-        if self.checkParam("--ctf") and self.getParam("--ctf"):
-            raise XmippError(ErrCode.NOT_IMPLEMENTED,
-                             "--ctf is not yet ported to xmipp3_tpu_torch "
-                             "(ROADMAP.md, port queue: --useCTF with "
-                             "angular_projection_matching --ctf (the "
-                             "ops/ctf.py subset))")
         self.device_arg = self.getParam("--device")
         self.fn_in = self.getParam("-i")
         self.fn_out = self.getParam("-o")
@@ -90,6 +86,8 @@ class ProgAngularProjectionMatching(XmippProgram):
             if self.checkParam("--neighbors") else ""
         self.scale_step = self.getDoubleParam("--scale", 0)
         self.scale_nsteps = self.getIntParam("--scale", 1)
+        self.fn_ctf = self.getParam("--ctf") if self.checkParam("--ctf") \
+            else ""
         self.phase_flipped = self.checkParam("--phase_flipped")
         self.batch = self.getIntParam("--batch")
         ts = self.getDoubleParam("--search5d_step")
@@ -109,6 +107,22 @@ class ProgAngularProjectionMatching(XmippProgram):
         """Optional per-batch candidate mask hook (B, R) — overridden by
         the wavelet-space discrete assignment."""
         return None
+
+    def _apply_ctf_to_refs(self, refs):
+        """Multiply the gallery (R, H, H) tensor by a CTF amplitude in
+        Fourier space (the reference's --ctf path,
+        programs/angular_projection_matching.py:87-105)."""
+        H = refs.shape[-1]
+        if self.fn_ctf.endswith(".ctfparam"):
+            amp = CTFDescription.from_metadata(self.fn_ctf).generate_2d(
+                H, H, rfft_layout=True, device=refs.device)
+            if self.phase_flipped:
+                amp = torch.abs(amp)
+        else:
+            amp = np.squeeze(Image(self.fn_ctf).data).astype(np.float32)
+            amp = torch.as_tensor(np.ascontiguousarray(
+                np.fft.ifftshift(amp)[:, : H // 2 + 1]), device=refs.device)
+        return torch.fft.irfft2(torch.fft.rfft2(refs) * amp, s=(H, H))
 
     def _psi_allow(self, chunk):
         """Per-image psi search mask (B, N_ANGLES) from --psi_step /
@@ -226,6 +240,11 @@ class ProgAngularProjectionMatching(XmippProgram):
                                    device=self.device)
         ref_rot = md_ref.getColumn("angleRot").astype(np.float32)
         ref_tilt = md_ref.getColumn("angleTilt").astype(np.float32)
+        if self.fn_ctf:
+            # apply the CTF (amplitude) to the gallery (reference --ctf,
+            # angular_projection_matching.cpp produceSideInfo)
+            with timed_phase("ctf gallery", sync=refs):
+                refs = self._apply_ctf_to_refs(refs)
 
         md_in = MetaData(self.fn_in)
         md_in.removeDisabled()

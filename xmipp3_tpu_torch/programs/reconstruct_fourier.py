@@ -11,21 +11,24 @@ torch.distributed process group, started from --dist_coordinator,
 --dist_nprocs and --dist_procid or by torchrun (parallel/cli.py); only
 rank 0 writes files.
 
-Not yet ported, and rejected with an error when given: --useCTF; ROADMAP.md
-queues it.
+--useCTF corrects for each row's CTF during gridding (1/CTF on the data,
+clipped at --minCTF; --phaseFlipped when the images were phase flipped),
+with the frequencies converted by --sampling, when the rows carry CTF
+labels: inline ctf* labels or a ctfModel .ctfparam file per row (the
+reference's hasCTF gate; without them the run is the plain one).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from xmipp3_tpu_torch.core.errors import ErrCode, XmippError
 from xmipp3_tpu_torch.core.image import Image, save_image
 from xmipp3_tpu_torch.core.metadata import MetaData
 from xmipp3_tpu_torch.core.metadata_program import load_image_rows
 from xmipp3_tpu_torch.core.program import XmippProgram
 from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import resolve_device
+from xmipp3_tpu_torch.ops.ctf import CTFDescription, ctf_params_arrays
 from xmipp3_tpu_torch.ops.reconstruct import FourierReconstructor
 from xmipp3_tpu_torch.parallel.cli import (add_mesh_params,
                                            maybe_init_distributed,
@@ -53,7 +56,7 @@ class ProgRecFourier(XmippProgram):
         self.addParamsLine("  [--blob <radius=1.9> <order=0> <alpha=15>] : Blob parameters (reference interpolant; radius<=0 selects trilinear)")
         self.addParamsLine("  [--interp <mode=kb>]         : Gridding window: kb (Kaiser-Bessel blob, reference default), tri (trilinear, fastest), tri+kb, nn")
         self.addParamsLine("  [--batch <b=256>]            : Images per device batch")
-        self.addParamsLine("  [--useCTF]                   : Use CTF information if present (not yet ported: rejected)")
+        self.addParamsLine("  [--useCTF]                   : Use CTF information if present (per-frequency 1/CTF inversion during gridding)")
         self.addParamsLine("  [--sampling <Ts=1>]          : sampling rate of the input images in Angstroms/pixel")
         self.addParamsLine("  [--phaseFlipped]             : Give this flag if images have been already phase flipped")
         self.addParamsLine("  [--minCTF <ctf=0.01>]        : Minimum value of the CTF that will be inverted")
@@ -61,12 +64,6 @@ class ProgRecFourier(XmippProgram):
         self.addExampleLine("   python -m xmipp3_tpu_torch.programs reconstruct_fourier -i reconstruction.sel --sym i3 --weight")
 
     def readParams(self):
-        if self.checkParam("--useCTF"):
-            raise XmippError(
-                ErrCode.NOT_IMPLEMENTED,
-                "--useCTF is not yet ported to xmipp3_tpu_torch (ROADMAP.md, "
-                "port queue: --useCTF (the ops/ctf.py subset and "
-                "ctf_gridding_multipliers))")
         self.fn_in = self.getParam("-i")
         self.fn_out = self.getParam("-o")
         self.sym = self.getParam("--sym")
@@ -84,6 +81,11 @@ class ProgRecFourier(XmippProgram):
             self.interp = "tri"
         self.fn_fsc = self.getParam("--prepare_fsc") if \
             self.checkParam("--prepare_fsc") else ""
+        self.use_ctf = self.checkParam("--useCTF")
+        self.phase_flipped = self.checkParam("--phaseFlipped")
+        self.min_ctf = self.getDoubleParam("--minCTF")
+        self.sampling = self.getDoubleParam("--sampling")
+        self._ctf_cache = {}
         self.device_arg = self.getParam("--device")
         read_mesh_params(self)
 
@@ -95,6 +97,34 @@ class ProgRecFourier(XmippProgram):
             print(f"Padding factor    : {self.pad}")
             print(f"Max resolution    : {self.max_res}")
 
+    def _ctf_params_for(self, rows):
+        """Per-row CTF parameter arrays for --useCTF gridding, or None.
+
+        The reference's hasCTF gate (ctfModel or ctfDefocusU label present
+        AND --useCTF, reconstruct_fourier.cpp:335-336) and its per-row
+        readFromMetadataRow (:367-372): inline ctf* labels, or a per-row
+        ctfModel file (parsed once per distinct path)."""
+        if not self.use_ctf:
+            return None
+        with timed_phase("ctf params"):
+            if not any(("ctfModel" in r) or ("ctfDefocusU" in r)
+                       for r in rows):
+                return None
+            descs = []
+            for r in rows:
+                if "ctfModel" in r and r["ctfModel"]:
+                    fn = str(r["ctfModel"])
+                    if fn not in self._ctf_cache:
+                        self._ctf_cache[fn] = CTFDescription.from_metadata(fn)
+                    descs.append(self._ctf_cache[fn])
+                else:
+                    descs.append(CTFDescription.from_row(r))
+            return ctf_params_arrays(descs)
+
+    def _ctf_kw(self):
+        return dict(sampling=self.sampling, min_ctf=self.min_ctf,
+                    phase_flipped=self.phase_flipped)
+
     def _reconstruct_subset(self, md: MetaData, rows_idx, N: int):
         rows = [md.getRow(i) for i in rows_idx]
         if self._mesh is not None:
@@ -102,18 +132,20 @@ class ProgRecFourier(XmippProgram):
         rec = FourierReconstructor(N, self.pad, self.sym, self.max_res,
                                    interp=self.interp,
                                    niter_weight=self.niter_weight,
-                                   blob=self.blob, device=self.device)
+                                   blob=self.blob, device=self.device,
+                                   **self._ctf_kw())
         for s in range(0, len(rows), self.batch):
             chunk = rows[s:s + self.batch]
             with timed_phase("read images"):
                 imgs = load_image_rows(chunk)
             get = lambda k, d=0.0: np.array(
                 [float(r.get(k, d)) for r in chunk], np.float32)
+            ctfp = self._ctf_params_for(chunk)
             with timed_phase("add_batch", sync=rec.data_r):
                 rec.add_batch(imgs, get("angleRot"), get("angleTilt"),
                               get("anglePsi"), get("shiftX"), get("shiftY"),
                               get("weight", 1.0) if self.use_weights else None,
-                              flip=get("flip", 0.0).astype(bool))
+                              flip=get("flip", 0.0).astype(bool), ctfp=ctfp)
             if self.verbose:
                 print(f"  processed {min(s + self.batch, len(rows))}/{len(rows)}")
         with timed_phase("finish"):
@@ -132,7 +164,8 @@ class ProgRecFourier(XmippProgram):
         flip = get("flip", 0.0).astype(bool)
         kw = dict(weights=w, pad_factor=self.pad, max_freq=self.max_res,
                   interp=self.interp, niter_weight=self.niter_weight,
-                  batch=self.batch)
+                  batch=self.batch, ctfp=self._ctf_params_for(rows),
+                  **self._ctf_kw())
         if self._mesh_mode in ("slab", "slab2d"):
             if self.sym.lower() not in ("c1", ""):
                 raise ValueError("--mesh slab currently supports c1 only; "
