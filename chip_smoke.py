@@ -78,7 +78,8 @@ Phases; any failure exits non-zero before the result line is printed:
    planted with a numpy expression (plant_ctf) that the port's
    CTFDescription.generate_2d must equal to CTF_TOL * max; noise of 0.5
    sigma after the CTF. Metadata with a ctfModel column (20 .ctfparam
-   files) and with inline ctf* labels. (a) reconstruct_fourier --useCTF
+   files) and with inline ctf* labels. Every --useCTF reconstruction runs
+   at --minCTF 0.1 (CTF_MIN). (a) reconstruct_fourier --useCTF
    --sampling 2 (kb) on the clean CTF views at their true poses: FSC >= 0.9
    against the phantom to half Nyquist, and better than the same run
    without --useCTF. (b) ctf_phase_flip on the noisy views ->
@@ -86,10 +87,9 @@ Phases; any failure exits non-zero before the result line is printed:
    --max_shift 4 --batch 512 against phase 4's gallery ->
    reconstruct_fourier --useCTF --phaseFlipped --sampling 2 --prepare_fsc
    -> resolution_fsc on the halves and against the phantom: phase 4's
-   limits (>= 90 % within 7.5 degrees, median shift error <= 0.5 px), and
-   a closing map correlation >= CYCLE_CTF_MAP_CORR (0.79, what the
-   reference package's reconstruction reaches on this recipe; phase 4's
-   0.8 does not hold under --useCTF). The phase-flipped views are also
+   limits (>= 90 % within 7.5 degrees, median shift error <= 0.5 px, a
+   closing map correlation >= 0.8, CYCLE_CTF_MAP_CORR). The phase-flipped
+   views are also
    rebuilt at their true poses: the closing map's ceiling. (c) ctf_correct_wiener2d --pad 2 on
    512 noisy views: closer to the clean views than the raw ones. The kb
    kernel must launch 40 times in each reconstruction, the cross-spectrum
@@ -97,7 +97,25 @@ Phases; any failure exits non-zero before the result line is printed:
    wall, phases, untimed rest, launches and peak memory, the quality, and
    the card's milliseconds for the CTF table of a batch, a batch's per-row
    CTFs and its phase flip.
-7. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+7. BASELINE config 1 through the CLI at N=128: one view of the 8-blob
+   phantom at rot 30, tilt 60 is the clean reference; 10,000 analytic
+   views of it are evaluated on the card (psi uniform on [0, 360), shifts
+   uniform in +-6 px, half mirrored in x, noise of 0.5 sigma of the clean
+   view, drawn with numpy; the truth is kept out of the rows) ->
+   transform_filter --fourier low_pass 0.25 -> transform_normalize
+   --method NewXmipp --background circle 56 -> image_align --ref <clean>
+   --max_shift 8 --oaligned -> transform_geometry --apply_transform of its
+   rows (B-spline) -> reference-free image_align --iter 3. Checks: the
+   filter within 1e-4 * max of a numpy rfft low-pass on 64 views; the
+   normalised background's mean within 0.05 of 0 and std within 0.05 of 1;
+   against the truth, mirror flags right for >= 99 %, psi within 2 degrees
+   for >= 95 % and a median shift error <= 0.5 px; transform_geometry's
+   average correlates >= 0.99 with image_align's own aligned average, each
+   >= 0.9 with the clean view, as does the reference-free average once
+   registered to it. An `align2d {...}` line gives each program's wall,
+   images/s, phases, untimed rest and peak device memory, and the quality.
+   No kernel runs in it. Its files are removed when it ends.
+8. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
 from beside itself (from any working directory), builds every kernel from
@@ -1010,12 +1028,13 @@ CTF_GROUPS = 20                  # micrographs of VIEWS / CTF_GROUPS views
 CTF_KV, CTF_CS, CTF_Q0 = 300.0, 2.7, 0.1
 WIENER_VIEWS = 512
 CTF_TOL = 1e-4                   # port (float32) against numpy (float64)
-# The closing map's limit under --useCTF: phase 4's 0.8 does not hold for
-# this recipe (1/c at minCTF 0.01 amplifies the noise near the CTF zeros).
-# tools/plan_ctf_cycle.py: the reference package's map of the same views at
-# their true poses correlates 0.906 with the phantom, and at the poses of
-# the port's assignment 0.794, the limit's origin.
-CYCLE_CTF_MAP_CORR = 0.79
+# --minCTF of every --useCTF reconstruction: at the default 0.01, 1/c
+# amplifies the noise near the CTF zeros, and the reference package's map
+# of phase 6's views at the port's assigned poses correlates 0.794 with the
+# phantom; at 0.05 / 0.1 it reaches 0.897 / 0.915
+# (tools/plan_ctf_cycle.py --min-ctf). At 0.1 phase 4's limit holds.
+CTF_MIN = 0.1
+CYCLE_CTF_MAP_CORR = 0.8
 
 
 def ctf_recipe(groups: int = CTF_GROUPS):
@@ -1139,7 +1158,7 @@ def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
     steps = (
         ("true poses --useCTF", "reconstruct_fourier",
          ["-i", str(root / "true_model.xmd"), "-o", str(root / "true.vol"),
-          "--useCTF", "--sampling", str(CTF_TS)]),
+          "--useCTF", "--sampling", str(CTF_TS), "--minCTF", str(CTF_MIN)]),
         ("true poses, no --useCTF", "reconstruct_fourier",
          ["-i", str(root / "true_model.xmd"), "-o",
           str(root / "true_noctf.vol")]),
@@ -1149,7 +1168,7 @@ def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
         ("flipped views, true poses", "reconstruct_fourier",
          ["-i", str(root / "flipped_true.xmd"), "-o",
           str(root / "flipped_true.vol"), "--useCTF", "--phaseFlipped",
-          "--sampling", str(CTF_TS)]),
+          "--sampling", str(CTF_TS), "--minCTF", str(CTF_MIN)]),
         ("matching", "angular_projection_matching",
          ["-i", str(root / "flipped.xmd"), "-o", str(root / "assigned.xmd"),
           "--ref", str(cycle / "gallery"), "--max_shift", str(MATCH_SHIFT),
@@ -1157,7 +1176,7 @@ def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
         ("cycle reconstruction", "reconstruct_fourier",
          ["-i", str(root / "assigned.xmd"), "-o", str(root / "cycle.vol"),
           "--useCTF", "--phaseFlipped", "--sampling", str(CTF_TS),
-          "--prepare_fsc", str(root / "half")]),
+          "--minCTF", str(CTF_MIN), "--prepare_fsc", str(root / "half")]),
         ("halves", "resolution_fsc",
          ["-i", str(root / "half_2_recons.vol"), "--ref",
           str(root / "half_1_recons.vol"), "-s", str(CTF_TS), "-o",
@@ -1298,7 +1317,7 @@ def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
         # what the CTF work costs on the card
         p_batch = ctf_params_arrays(descs[:1] * BATCH)
         table_ms = time_ms(lambda: ctf_gridding_multipliers(
-            p_batch, CTF_TS, 0.01, N, 0.5, False, device=DEVICE), 20)
+            p_batch, CTF_TS, CTF_MIN, N, 0.5, False, device=DEVICE), 20)
         flip_descs = [descs[i // per] for i in range(MATCH_BATCH)]
         rows_ms = time_ms(lambda: generate_2d_rows(
             flip_descs, N, N, damped=False, device=DEVICE), 20)
@@ -1318,6 +1337,274 @@ def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
     log("ctf " + json.dumps(report))
     check(not failed, "phase 6: " + "; ".join(failed))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: BASELINE config 1 through the CLI — filter, normalise, align,
+# geometry, and the reference-free alignment
+# ---------------------------------------------------------------------------
+
+ALIGN_POSE = (30.0, 60.0)        # rot, tilt of the clean view of BLOBS8
+ALIGN_SHIFT = 6.0                # shifts uniform in +-6 px per axis at N=128
+ALIGN_MAX_SHIFT = 8
+ALIGN_LOWPASS = 0.25
+ALIGN_BG_RADIUS = 56
+ALIGN_FREE_ITERS = 3
+# Limits, none looser than asked; the planning runs of the reference
+# package (tools/plan_align_2d.py) read them beforehand.
+ALIGN_FILTER_TOL = 1e-4          # the filter against a numpy rfft low-pass
+ALIGN_BG_TOL = 0.05              # background mean 0 and std 1 after NewXmipp
+ALIGN_FLIP_OK = 0.99             # mirror flags right
+ALIGN_PSI_DEG, ALIGN_PSI_OK = 2.0, 0.95
+ALIGN_SHIFT_MEDIAN_PX = 0.5
+ALIGN_AVG_CORR = 0.99            # geometry's average vs image_align's own
+ALIGN_CLEAN_CORR = 0.9           # each average, and the reference-free one
+
+
+def align2d_recipe(n: int, views: int, seed: int):
+    """Phase 7's data, drawn with numpy from the seed: the clean view's
+    blob centres (BLOBS8 at ALIGN_POSE, centres scaled by n/N, widths kept)
+    and each view's 2-D transform G (B,3,3) float64, content moved by G
+    (ops.geo's matrices: x-mirror of half the views, then psi uniform on
+    [0, 360), then shifts uniform in +-ALIGN_SHIFT*n/N px)."""
+    from xmipp3_tpu_torch.core.geometry import euler_matrix
+    from xmipp3_tpu_torch.ops.geo import alignment_matrices_2d
+    A = np.asarray(euler_matrix(*ALIGN_POSE, 0.0), np.float64)
+    blobs = []
+    for cz, cy, cx, s, a in BLOBS8:
+        c = np.array([cx, cy, cz]) * n / N
+        blobs.append((A[0] @ c, A[1] @ c, s, a * s * np.sqrt(2 * np.pi)))
+    rng = np.random.default_rng(seed + 7)
+    psi = rng.uniform(0, 360, views)
+    sx, sy = rng.uniform(-ALIGN_SHIFT, ALIGN_SHIFT, (2, views)) * n / N
+    mirror = rng.uniform(size=views) < 0.5
+    # content moved by G: G = T(s)·R(psi)·F^mirror (mirror applied first)
+    G = alignment_matrices_2d(psi.astype(np.float32), sx.astype(np.float32),
+                              sy.astype(np.float32), device="cpu").numpy()
+    G = G.astype(np.float64) @ np.where(mirror[:, None, None],
+                                        np.diag([-1.0, 1.0, 1.0]), np.eye(3))
+    return blobs, G, mirror, rng
+
+
+def align2d_views(n: int, views: int, seed: int, device, batch: int = 1000):
+    """(clean view (n,n), views (V,n,n), G, mirror) as float32 numpy: each
+    view the analytic blobs at the centres G moves them to, evaluated on
+    `device` a batch at a time, plus Gaussian noise of 0.5 sigma of the
+    clean view drawn with numpy."""
+    import torch
+    blobs, G, mirror, rng = align2d_recipe(n, views, seed)
+    c = torch.arange(n, dtype=torch.float64, device=device) - n // 2
+    y, x = c[:, None], c[None, :]
+
+    def render(Gb):
+        Gb = torch.as_tensor(Gb, device=device)
+        out = torch.zeros((len(Gb), n, n), dtype=torch.float64, device=device)
+        for px, py, s, amp in blobs:
+            qx = (Gb[:, 0, 0] * px + Gb[:, 0, 1] * py + Gb[:, 0, 2])
+            qy = (Gb[:, 1, 0] * px + Gb[:, 1, 1] * py + Gb[:, 1, 2])
+            out += amp * torch.exp(-((x - qx[:, None, None]) ** 2
+                                     + (y - qy[:, None, None]) ** 2)
+                                   / (2 * s * s))
+        return out.to(torch.float32).cpu().numpy()
+
+    clean = render(np.eye(3)[None])[0]
+    imgs = np.concatenate([render(G[lo:lo + batch])
+                           for lo in range(0, views, batch)])
+    imgs += (0.5 * clean.std()) * rng.standard_normal(imgs.shape,
+                                                      dtype=np.float32)
+    return clean, imgs, G, mirror
+
+
+def lowpass_numpy(imgs, w1: float, raised: float = 0.02):
+    """The raised-cosine low-pass of transform_filter --fourier low_pass,
+    written with numpy's rfft2."""
+    n = imgs.shape[-1]
+    r = np.hypot(np.fft.fftfreq(n)[:, None], np.fft.rfftfreq(n)[None, :])
+    mask = np.where(r <= w1, 1.0, np.where(
+        r >= w1 + raised, 0.0,
+        0.5 * (1 + np.cos(np.pi * np.clip((r - w1) / raised, 0, 1)))))
+    return np.fft.irfft2(np.fft.rfft2(imgs.astype(np.float64)) * mask,
+                         s=imgs.shape[-2:])
+
+
+def registration_errors(rows, G, mirror):
+    """(flip right, psi error deg, shift error px) of alignment rows against
+    the truth: the rows' registration matrix (ops.geo's metadata
+    convention) times the view's transform G must be the identity."""
+    from xmipp3_tpu_torch.ops.geo import metadata_alignment_matrices
+    col = lambda k: np.array([float(r[k]) for r in rows])
+    order = col("itemId").astype(int) - 1
+    flip = col("flip") > 0
+    M = metadata_alignment_matrices(
+        col("anglePsi").astype(np.float32), col("shiftX").astype(np.float32),
+        col("shiftY").astype(np.float32), flip, device="cpu").numpy()
+    E = M.astype(np.float64) @ G[order]
+    psi_err = np.abs(np.degrees(np.arctan2(E[:, 0, 1], E[:, 0, 0])))
+    return (flip == mirror[order], psi_err,
+            np.hypot(E[:, 0, 2], E[:, 1, 2]))
+
+
+def stack_corr(a, b) -> float:
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+
+
+def align_2d(seed, root: Path):
+    """Phase 7 in root: BASELINE config 1 at N=128 on VIEWS views."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.ops.align import align_considering_mirrors
+    from xmipp3_tpu_torch.programs import main as xmipp
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    clean, views, G, mirror = align2d_views(N, VIEWS, seed, DEVICE)
+    made = time.perf_counter() - t0
+    save_image(str(root / "clean.xmp"), clean)
+    save_image(str(root / "views.mrcs"), views)
+    log(f"phase 7: {VIEWS} views of one BLOBS8 view (rot, tilt "
+        f"{ALIGN_POSE}) at N={N}, made in {made:.2f} s on the card and "
+        f"written in {time.perf_counter() - t0 - made:.2f} s "
+        f"({views.nbytes / 1e6:.0f} MB)")
+    f = lambda name: str(root / name)
+    steps = (
+        ("filter", "transform_filter",
+         ["-i", f("views.mrcs"), "-o", f("filt.mrcs"), "--fourier",
+          "low_pass", str(ALIGN_LOWPASS)]),
+        ("normalise", "transform_normalize",
+         ["-i", f("filt.mrcs"), "-o", f("norm.mrcs"), "--method", "NewXmipp",
+          "--background", "circle", str(ALIGN_BG_RADIUS)]),
+        ("align", "image_align",
+         ["-i", f("norm.mrcs"), "--ref", f("clean.xmp"), "--max_shift",
+          str(ALIGN_MAX_SHIFT), "-o", f("aligned.xmd"), "--oaligned",
+          f("aligned.mrcs")]),
+        ("geometry", "transform_geometry",
+         ["-i", f("aligned.xmd"), "-o", f("geo.mrcs"), "--apply_transform"]),
+        ("reference-free align", "image_align",
+         ["-i", f("norm.mrcs"), "--iter", str(ALIGN_FREE_ITERS),
+          "--max_shift", str(ALIGN_MAX_SHIFT), "-o", f("free.xmd"),
+          "--oaligned", f("free.mrcs")]))
+    report, failed = {}, []
+
+    def limit(ok, msg):
+        """A quality limit: every one is read and reported before the
+        phase fails on any."""
+        if not ok:
+            failed.append(msg)
+
+    timing.enable_timing(True)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for label, name, args in steps:
+            launch_counts(reset=True)
+            timing.take_timing()
+            t0 = time.perf_counter()
+            rc = xmipp(["xmipp", name, *args, "--device", DEVICE, "-v", "0"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"phase 7 {label} ({name}): rc {rc}")
+            phases = {k: v[0] for k, v in timing.take_timing().items()}
+            report[label] = {
+                "program": name, "wall_s": wall, "images_per_s": VIEWS / wall,
+                "launches": {k: v for k, v in launch_counts().items() if v},
+                "phases_s": phases, "rest_s": wall - sum(phases.values()),
+                "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+            torch.cuda.reset_peak_memory_stats()
+            log(f"  {label} ({name}): {wall:.3f} s, {VIEWS / wall:.1f} "
+                f"images/s, peak {report[label]['peak_device_GB']:.2f} GB, "
+                "phases " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                      phases.items()))
+        quality = {}
+        load = lambda name: np.squeeze(Image(f(name)).data)
+
+        # the filter against numpy, on 64 views
+        filt = load("filt.mrcs")
+        check(filt.shape == views.shape and np.isfinite(filt).all(),
+              f"phase 7 filter: output of shape {filt.shape}")
+        want = lowpass_numpy(views[:64], ALIGN_LOWPASS)
+        err = float(np.abs(filt[:64] - want).max() / np.abs(want).max())
+        quality["filter_vs_numpy"] = err
+        log(f"  filter vs a numpy rfft low-pass (64 views): max |port - "
+            f"numpy| / max = {err:.3e}")
+        limit(err <= ALIGN_FILTER_TOL, f"phase 7: the filter differs from "
+              f"numpy by {err:.3e} > {ALIGN_FILTER_TOL} of the max")
+        del filt, want
+
+        # the background after NewXmipp
+        norm = load("norm.mrcs")
+        c = np.arange(N) - N // 2
+        bg = np.hypot(c[:, None], c[None, :]) > ALIGN_BG_RADIUS
+        bg_mean = float(norm[:, bg].mean(1).mean())
+        bg_std = float(norm[:, bg].std(1).mean())
+        quality["background_mean"], quality["background_std"] = bg_mean, \
+            bg_std
+        log(f"  normalised background: mean {bg_mean:.4f}, std {bg_std:.4f}")
+        limit(abs(bg_mean) <= ALIGN_BG_TOL and abs(bg_std - 1) <= ALIGN_BG_TOL,
+              f"phase 7: background mean {bg_mean:.4f} / std {bg_std:.4f} "
+              f"not within {ALIGN_BG_TOL} of 0 / 1")
+        del norm
+
+        # the alignment against the truth
+        md = MetaData(f("aligned.xmd"))
+        rows = [md.getRow(i) for i in md]
+        check(len(rows) == VIEWS, f"phase 7: {len(rows)} alignment rows")
+        flip_ok, psi_err, shift_err = registration_errors(rows, G, mirror)
+        quality.update({
+            "flip_right": float(flip_ok.mean()),
+            "psi_within_2_deg": float((psi_err[flip_ok] <= ALIGN_PSI_DEG)
+                                      .sum() / VIEWS),
+            "median_psi_err_deg": float(np.median(psi_err[flip_ok])),
+            "median_shift_err_px": float(np.median(shift_err[flip_ok])),
+            "mean_maxCC": float(np.mean([float(r["maxCC"]) for r in rows]))})
+        q = quality
+        log(f"  align vs the truth: mirror right {q['flip_right']:.4f}, psi "
+            f"within {ALIGN_PSI_DEG} deg {q['psi_within_2_deg']:.4f} (median "
+            f"{q['median_psi_err_deg']:.3f} deg), median shift error "
+            f"{q['median_shift_err_px']:.3f} px, mean maxCC "
+            f"{q['mean_maxCC']:.4f}")
+        limit(q["flip_right"] >= ALIGN_FLIP_OK, f"phase 7: mirror right for "
+              f"{q['flip_right']:.4f} < {ALIGN_FLIP_OK} of the views")
+        limit(q["psi_within_2_deg"] >= ALIGN_PSI_OK, f"phase 7: psi within "
+              f"{ALIGN_PSI_DEG} deg for {q['psi_within_2_deg']:.4f} < "
+              f"{ALIGN_PSI_OK}")
+        limit(q["median_shift_err_px"] <= ALIGN_SHIFT_MEDIAN_PX, "phase 7: "
+              f"median shift error {q['median_shift_err_px']:.3f} px > "
+              f"{ALIGN_SHIFT_MEDIAN_PX}")
+
+        # the pose convention end to end: the geometry of the written rows
+        # against image_align's own aligned stack
+        aligned_avg = load("aligned.mrcs").mean(0)
+        geo_avg = load("geo.mrcs").mean(0)
+        free_avg = load("free_avg.mrcs")
+        quality["geo_vs_aligned_avg"] = stack_corr(geo_avg, aligned_avg)
+        quality["aligned_avg_vs_clean"] = stack_corr(aligned_avg, clean)
+        quality["geo_avg_vs_clean"] = stack_corr(geo_avg, clean)
+        _, _, _, flip, corr, _ = align_considering_mirrors(
+            clean, free_avg[None], n_iters=3, max_shift=ALIGN_MAX_SHIFT,
+            device=DEVICE)
+        quality["free_avg_vs_clean"] = float(corr[0])
+        quality["free_avg_mirrored"] = bool(flip[0])
+        log(f"  averages: geometry vs aligned {q['geo_vs_aligned_avg']:.4f}; "
+            f"vs the clean view: aligned {q['aligned_avg_vs_clean']:.4f}, "
+            f"geometry {q['geo_avg_vs_clean']:.4f}, reference-free "
+            f"(registered, mirrored {q['free_avg_mirrored']}) "
+            f"{q['free_avg_vs_clean']:.4f}")
+        limit(q["geo_vs_aligned_avg"] >= ALIGN_AVG_CORR, "phase 7: the "
+              "geometry's average correlates "
+              f"{q['geo_vs_aligned_avg']:.4f} < {ALIGN_AVG_CORR} with "
+              "image_align's")
+        for key in ("aligned_avg_vs_clean", "geo_avg_vs_clean",
+                    "free_avg_vs_clean"):
+            limit(q[key] >= ALIGN_CLEAN_CORR, f"phase 7: {key} {q[key]:.4f} "
+                  f"< {ALIGN_CLEAN_CORR}")
+        report["quality"] = quality
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+        shutil.rmtree(root, ignore_errors=True)
+    log("align2d " + json.dumps(report))
+    check(not failed, "phase 7: " + "; ".join(failed))
 
 
 # ---------------------------------------------------------------------------
@@ -1372,6 +1659,9 @@ def main(argv=None) -> int:
                                                     match_args)
         log("phase 6: the CTF-corrected cycle")
         ctf_cycle(args.seed, root / "ctf", clean, poses, root / "cycle")
+        log("phase 7: 2-D filter, normalise, align and geometry (BASELINE "
+            "config 1)")
+        align_2d(args.seed, root / "align2d")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

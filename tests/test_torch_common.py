@@ -217,11 +217,17 @@ from xmipp3_tpu_torch.programs import get_program
 from xmipp3_tpu_torch.programs import list_programs
 for name in list_programs():
     get_program(name)
-from xmipp3_tpu_torch.core import metadata_program, sampling
-from xmipp3_tpu_torch.ops import (cross, ctf, dft_mm, fourier, fsc, geo, match,
-                                  polar, project, reconstruct, scatter,
-                                  scatter_kb, scatter_tri, shear_rotate, shift)
-from xmipp3_tpu_torch.programs import ctf_correct, resolution_fsc
+from xmipp3_tpu_torch.core import image_formats, metadata_program, sampling
+from xmipp3_tpu_torch.ops import (align, cross, ctf, denoise, dft_mm, features,
+                                  fourier, fourier_filter, fsc, geo, mask,
+                                  match, normalize, polar, project,
+                                  reconstruct, scatter, scatter_kb,
+                                  scatter_tri, shear_rotate, shift,
+                                  spatial_filters)
+from xmipp3_tpu_torch.programs import (ctf_correct, image_align,
+                                       resolution_fsc, transform_filter,
+                                       transform_geometry,
+                                       transform_normalize)
 from xmipp3_tpu_torch.parallel import cli, match, mesh, reconstruct
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"

@@ -9,8 +9,8 @@ batch's per-row CTFs in one pass, and equals the one-image-at-a-time form
 to 1e-6 * max. XmippMetadataProgram: every output mode of the reference's
 (a stack, a metadata beside a stack, --oroot images, in place,
 --save_metadata_stack), --resume, and the native geometry on read (the
-reference's to 1e-5 * max); --geo_convention xmipp raises, naming the
-ROADMAP queue.
+reference's to 1e-5 * max), and the reference's readApplyGeo convention on
+read (--geo_convention xmipp, B-spline; the reference's to 1e-5 * max).
 """
 import numpy as np
 import pytest
@@ -253,11 +253,17 @@ def test_metadata_program_resume(posed):
 
 
 def test_geo_convention_xmipp_raises_naming_the_queue(posed):
+    """--geo_convention xmipp applies the rows as the reference's
+    readApplyGeo does (it raised until read_apply_geo was ported)."""
     d, _ = posed
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue"):
-        _Scale().run_with_args(["-i", f"{d}/in.xmd", "-o", f"{d}/x.mrcs",
-                                "--geo_convention", "xmipp", "--device",
-                                "cpu"])
+    args = ["-i", f"{d}/in.xmd", "--geo_convention", "xmipp"]
+    _run(_Scale, args + ["-o", f"{d}/x.mrcs"], ["--device", "cpu"])
+    _run(_JaxScale, args + ["-o", f"{d}/x_ref.mrcs"])
+    port = np.squeeze(Image(f"{d}/x.mrcs").data)
+    assert rel_err(port, np.squeeze(Image(f"{d}/x_ref.mrcs").data)) <= 1e-5
+    native = f"{d}/native.mrcs"
+    _run(_Scale, ["-i", f"{d}/in.xmd", "-o", native], ["--device", "cpu"])
+    assert rel_err(port, np.squeeze(Image(native).data)) > 1e-2
     # not applying the geometry, the convention is moot
     _run(_Scale, ["-i", f"{d}/in.xmd", "-o", f"{d}/x.mrcs",
                   "--geo_convention", "xmipp", "--dont_apply_geo"],

@@ -1,6 +1,7 @@
 """On a card only: each CUDA kernel of the port against its plain version,
-and the whole reconstruction (plain and --useCTF), phase flipping and the
-matching program on the card against the same on the CPU.
+and the whole reconstruction (plain and --useCTF), phase flipping, the
+matching program and the 2-D path (the order-3 B-spline warp, alignment
+and the Fourier filter) on the card against the same on the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -629,3 +630,77 @@ def test_mesh_paths_on_the_cards(tmp_path):
         tie = ~same & flips & (
             (d[got["ref_idx"]] * d[serial["ref_idx"]]).sum(-1) < -0.9999)
         assert (same | tie).mean() >= 0.98, name
+
+
+# ---------------------------------------------------------------------------
+# the 2-D path (no kernel of its own): the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _blob_views(B=32, N=64, seed=7):
+    """Views of an asymmetric blob image at random psi (away from the
+    45 + k*90 ties), shifts and mirrors, with noise; and the image."""
+    from xmipp3_tpu_torch.ops.geo import alignment_matrices_2d, apply_affine_2d
+    y, x = np.mgrid[0:N, 0:N].astype(np.float32) - N // 2
+    ref = sum(a * np.exp(-((y - cy) ** 2 + (x - cx) ** 2) / (2 * s * s))
+              for cy, cx, s, a in [(0, 0, 5, 1.0), (8, -7, 3, 0.8),
+                                   (-9, 4, 4, 0.6), (5, 11, 2.5, 0.9),
+                                   (-4, -12, 2.5, 1.1)]).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    psi = rng.uniform(-180, 180, 4 * B)
+    psi = psi[np.abs(np.abs((psi - 45) % 90 - 45) - 45) > 5][:B]
+    A = alignment_matrices_2d(psi.astype(np.float32),
+                              *rng.uniform(-4, 4, (2, B)).astype(np.float32),
+                              flip=rng.uniform(size=B) < 0.5, device="cpu")
+    imgs = apply_affine_2d(np.broadcast_to(ref, (B, N, N)), A, order=3,
+                           device="cpu").numpy()
+    return imgs + 0.05 * rng.standard_normal(imgs.shape).astype(
+        np.float32), ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", [False, True])
+def test_order3_affine_on_the_card_matches_the_cpu(wrap):
+    require_cuda()
+    from xmipp3_tpu_torch.ops.geo import alignment_matrices_2d, apply_affine_2d
+    imgs, _ = _blob_views()
+    rng = np.random.default_rng(8)
+    A = alignment_matrices_2d(rng.uniform(-180, 180, 32).astype(np.float32),
+                              *rng.uniform(-3, 3, (2, 32)).astype(np.float32),
+                              device="cpu")
+    want = apply_affine_2d(imgs, A, order=3, wrap=wrap, device="cpu")
+    got = apply_affine_2d(imgs, A, order=3, wrap=wrap, device="cuda")
+    assert got.is_cuda
+    assert rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_iterative_align_on_the_card_matches_the_cpu():
+    require_cuda()
+    from xmipp3_tpu_torch.ops.align import align_considering_mirrors
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    imgs, ref = _blob_views()
+    want = align_considering_mirrors(ref, imgs, n_iters=3, max_shift=6,
+                                     device="cpu")
+    got = align_considering_mirrors(ref, imgs, n_iters=3, max_shift=6,
+                                    device="cuda")
+    assert got[0].is_cuda
+    psi_g, psi_w = got[0].cpu().numpy(), want[0].numpy()
+    assert np.abs((psi_g - psi_w + 180) % 360 - 180).max() <= 0.1
+    for g, w in zip(got[1:3], want[1:3]):
+        assert np.abs(g.cpu().numpy() - w.numpy()).max() <= 0.02
+    np.testing.assert_array_equal(got[3].cpu().numpy(), want[3].numpy())
+    assert np.abs(got[4].cpu().numpy() - want[4].numpy()).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fourier_mask_on_the_card_matches_the_cpu():
+    require_cuda()
+    from xmipp3_tpu_torch.ops.fourier_filter import (apply_fourier_mask_2d,
+                                                     low_pass_mask)
+    imgs, _ = _blob_views()
+    mask = low_pass_mask(64, 64, 0.25)
+    got = apply_fourier_mask_2d(imgs, mask, device="cuda")
+    assert got.is_cuda
+    assert rel_err(got, apply_fourier_mask_2d(imgs, mask,
+                                              device="cpu")) <= 1e-5

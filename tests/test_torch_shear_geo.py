@@ -147,8 +147,11 @@ def test_affine_matches_alignment_and_one_matrix_for_all():
     assert np.abs(out1.numpy() - out2.numpy()).max() <= 1e-5
     assert rel_err(out1, np.asarray(jgeo.apply_affine_2d(img[None],
                                                          A[None]))[0]) <= 1e-5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        geo.apply_affine_2d(img, A, order=3, **CPU)
+    # order 3, the cubic B-spline (tests/test_torch_geo_bspline.py has
+    # the rest of its cases)
+    assert rel_err(geo.apply_affine_2d(img, A, order=3, **CPU)[0],
+                   np.asarray(jgeo.apply_affine_2d(img[None], A[None],
+                                                   order=3))[0]) <= 1e-5
 
 
 def test_gather_bilinear():

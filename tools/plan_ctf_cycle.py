@@ -19,7 +19,7 @@ Run from the repo root on a CPU host with jax (the port's numpy helpers
 come from chip_smoke.py):
 
     JAX_PLATFORMS=cpu python tools/plan_ctf_cycle.py [--views 2000]
-        [--n 64] [--no-matching]
+        [--n 64] [--no-matching] [--min-ctf 0.01,0.1,...]
 
 --no-matching stops after the reconstructions from true poses (the
 closing map's ceiling), which is what a run at phase 6's own size
@@ -27,7 +27,10 @@ closing map's ceiling), which is what a run at phase 6's own size
 6's size and seed, whose views this script makes bit for bit) phase-flips
 the views and reconstructs them with the reference at the poses of
 another run's assignment (the port's, from phase 6), and does nothing
-else.
+else. --min-ctf lists the --minCTF values that every --useCTF
+reconstruction runs at (the reference's default, 0.01, when not given):
+the views, the phase flip and the matching are made once, and each value's
+maps are reported under "minCTF <value>".
 
 Prints one JSON line of the quality numbers phase 6 checks.
 """
@@ -54,7 +57,11 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--no-matching", action="store_true")
     ap.add_argument("--assignment", default="")
+    ap.add_argument("--min-ctf", default="0.01",
+                    help="comma-separated --minCTF values of the --useCTF "
+                         "reconstructions")
     args = ap.parse_args()
+    min_ctfs = [float(v) for v in args.min_ctf.split(",")]
     N = args.n
     from xmipp3_tpu.core.image import Image, save_image
     from xmipp3_tpu.core.metadata import MetaData
@@ -108,7 +115,8 @@ def main() -> int:
         def run(name, argv):
             t0 = time.perf_counter()
             assert get_program(name).run_with_args(argv + ["-v", "0"]) == 0
-            out.setdefault("seconds", {})[name + " " + argv[-1]] = \
+            out.setdefault("seconds", {})[name + " " + " ".join(argv[2:4])
+                                          + " " + argv[-1]] = \
                 time.perf_counter() - t0
 
         def quality(vol):
@@ -135,27 +143,31 @@ def main() -> int:
                  **{k: r[k] for k in keys}}
                 for r in (got.getRow(i) for i in got)).write(
                 str(d / "assigned.xmd"))
-            run("reconstruct_fourier", ["-i", f"{d}/assigned.xmd", "-o",
-                                        f"{d}/a.vol", "--mesh", "none",
-                                        "--useCTF", "--phaseFlipped"]
-                + sampling)
-            out["reference_map_of_the_assignment"] = quality(d / "a.vol")
+            for m in min_ctfs:
+                run("reconstruct_fourier", ["-i", f"{d}/assigned.xmd", "-o",
+                                            f"{d}/a.vol", "--mesh", "none",
+                                            "--useCTF", "--phaseFlipped",
+                                            "--minCTF", str(m)] + sampling)
+                out[f"minCTF {m}"] = {
+                    "reference_map_of_the_assignment": quality(d / "a.vol")}
             print(json.dumps(out))
             return 0
-        run("reconstruct_fourier", ["-i", f"{d}/true.xmd", "-o",
-                                    f"{d}/t.vol", "--mesh", "none",
-                                    "--useCTF"] + sampling)
-        out["true_usectf"] = quality(d / "t.vol")
         run("reconstruct_fourier", ["-i", f"{d}/true.xmd", "-o",
                                     f"{d}/t0.vol", "--mesh", "none"])
         out["true_no_usectf"] = quality(d / "t0.vol")
         run("ctf_phase_flip", ["-i", f"{d}/noisy.xmd", "-o",
                                f"{d}/flipped.mrcs", "--save_metadata_stack",
                                f"{d}/flipped.xmd"])
-        run("reconstruct_fourier", ["-i", f"{d}/flip_true.xmd", "-o",
-                                    f"{d}/ft.vol", "--mesh", "none",
-                                    "--useCTF", "--phaseFlipped"] + sampling)
-        out["flipped_true_poses"] = quality(d / "ft.vol")
+        for m in min_ctfs:
+            mc = ["--minCTF", str(m)] + sampling
+            run("reconstruct_fourier", ["-i", f"{d}/true.xmd", "-o",
+                                        f"{d}/t.vol", "--mesh", "none",
+                                        "--useCTF"] + mc)
+            run("reconstruct_fourier", ["-i", f"{d}/flip_true.xmd", "-o",
+                                        f"{d}/ft.vol", "--mesh", "none",
+                                        "--useCTF", "--phaseFlipped"] + mc)
+            out[f"minCTF {m}"] = {"true_usectf": quality(d / "t.vol"),
+                                  "flipped_true_poses": quality(d / "ft.vol")}
         if args.no_matching:
             print(json.dumps(out))
             return 0
@@ -167,15 +179,6 @@ def main() -> int:
             f"{d}/gallery", "--max_shift", str(cs.MATCH_SHIFT), "--batch",
             str(cs.MATCH_BATCH), "--mesh", "none", "--phase_flipped",
             "--ctf", models[cs.CTF_GROUPS // 2]])
-        run("reconstruct_fourier", ["-i", f"{d}/assigned.xmd", "-o",
-                                    f"{d}/cycle.vol", "--mesh", "none",
-                                    "--useCTF", "--phaseFlipped",
-                                    "--prepare_fsc", f"{d}/half"] + sampling)
-        prog = get_program("resolution_fsc")
-        assert prog.run_with_args(["-i", f"{d}/half_2_recons.vol", "--ref",
-                                   f"{d}/half_1_recons.vol", "-s",
-                                   str(cs.CTF_TS), "-o", f"{d}/h.frc",
-                                   "-v", "0"]) == 0
         md = MetaData(f"{d}/assigned.xmd")
         rows = [md.getRow(i) for i in md]
         col = lambda k: np.array([float(r[k]) for r in rows])
@@ -186,12 +189,25 @@ def main() -> int:
                                                  col("angleTilt")], 1))
         d_got = np.where((col("flip") > 0)[:, None], -d_got, d_got)
         ang = np.degrees(np.arccos(np.clip((d_true * d_got).sum(1), -1, 1)))
-        out["cycle"] = dict(quality(d / "cycle.vol"), **{
+        out["matching"] = {
             "within_7.5_deg": float((ang <= 1.5 * cs.GALLERY_RATE).mean()),
             "median_angle_deg": float(np.median(ang)),
             "median_shift_err_px": float(np.median(np.hypot(
-                col("shiftX") - sx[order], col("shiftY") - sy[order]))),
-            "halves_resolution_0.143_A": prog.resolution})
+                col("shiftX") - sx[order], col("shiftY") - sy[order])))}
+        for m in min_ctfs:
+            run("reconstruct_fourier", ["-i", f"{d}/assigned.xmd", "-o",
+                                        f"{d}/cycle.vol", "--mesh", "none",
+                                        "--useCTF", "--phaseFlipped",
+                                        "--minCTF", str(m), "--prepare_fsc",
+                                        f"{d}/half"] + sampling)
+            prog = get_program("resolution_fsc")
+            assert prog.run_with_args(["-i", f"{d}/half_2_recons.vol",
+                                       "--ref", f"{d}/half_1_recons.vol",
+                                       "-s", str(cs.CTF_TS), "-o",
+                                       f"{d}/h.frc", "-v", "0"]) == 0
+            out[f"minCTF {m}"]["cycle"] = dict(
+                quality(d / "cycle.vol"),
+                **{"halves_resolution_0.143_A": prog.resolution})
         run("ctf_correct_wiener2d", ["-i", f"{d}/wiener_in.xmd", "-o",
                                      f"{d}/w.mrcs", "--pad", "2"])
         w = np.squeeze(Image(f"{d}/w.mrcs").data)

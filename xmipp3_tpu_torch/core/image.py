@@ -1,4 +1,6 @@
-"""Image I/O: MRC/MRCS, Spider (.spi/.stk/.vol/.xmp), RAW+INF codecs.
+"""Image I/O: MRC/MRCS, Spider (.spi/.stk/.vol/.xmp), RAW+INF and TIFF
+codecs, and the dispatch to the other formats' codecs (Imagic, EM, SER,
+DM3/DM4, PIF, HDF5, JPEG/PNG) in core/image_formats.py.
 
 Equivalent of xmippCore's Image<T> (SURVEY.md §1.1: header-only reads, stack
 slice addressing "n@stack", format zoo enumerated in the reference's
@@ -29,20 +31,6 @@ _DTYPE_TO_MRC_MODE = {
     np.dtype(np.int8): 0, np.dtype(np.int16): 1, np.dtype(np.float32): 2,
     np.dtype(np.uint16): 6, np.dtype(np.float16): 12, np.dtype(np.uint8): 0,
 }
-
-
-# Formats whose codecs (the reference package's core/image_formats.py) wait
-# for a later slice of the port: reading or writing them raises.
-_LATER_CODECS = ("imagic", "em", "ser", "dm", "hdf5", "pil", "pif")
-_LATER_WRITE_EXTS = ("img", "hed", "em", "ems", "ser", "h5", "hdf5", "hdf",
-                     "jpg", "jpeg", "png", "pif")
-
-
-def _not_yet_ported(fmt: str) -> None:
-    raise XmippError(ErrCode.NOT_IMPLEMENTED,
-                     f"image format {fmt!r} is not yet ported to "
-                     "xmipp3_tpu_torch (ROADMAP.md, port queue: "
-                     "image_formats and native-reader paths of core/image.py)")
 
 
 @dataclass
@@ -756,8 +744,27 @@ class Image:
             self.header, self.data = read_raw(path, header_only)
         elif codec == "tiff":
             self.header, self.data = read_tiff(path, header_only)
-        elif codec in _LATER_CODECS:
-            _not_yet_ported(codec)
+        elif codec == "imagic":
+            from xmipp3_tpu_torch.core.image_formats import read_imagic
+            self.header, self.data = read_imagic(path, header_only, idx)
+        elif codec == "em":
+            from xmipp3_tpu_torch.core.image_formats import read_em
+            self.header, self.data = read_em(path, header_only)
+        elif codec == "ser":
+            from xmipp3_tpu_torch.core.image_formats import read_ser
+            self.header, self.data = read_ser(path, header_only)
+        elif codec == "dm":
+            from xmipp3_tpu_torch.core.image_formats import read_dm
+            self.header, self.data = read_dm(path, header_only)
+        elif codec == "hdf5":
+            from xmipp3_tpu_torch.core.image_formats import read_hdf5
+            self.header, self.data = read_hdf5(path, header_only)
+        elif codec == "pil":
+            from xmipp3_tpu_torch.core.image_formats import read_pil
+            self.header, self.data = read_pil(path, header_only)
+        elif codec == "pif":
+            from xmipp3_tpu_torch.core.image_formats import read_pif
+            self.header, self.data = read_pif(path, header_only, idx)
         else:
             try:
                 self.header, self.data = read_spider(path, header_only, idx)
@@ -806,8 +813,24 @@ class Image:
                                  ("mrc", "map", "vol", "rec"))))
         elif fmt in _SPIDER_EXTS:
             write_spider(fn.path, self.data)
-        elif fmt in _LATER_WRITE_EXTS:
-            _not_yet_ported(fmt)
+        elif fmt in ("img", "hed"):
+            from xmipp3_tpu_torch.core.image_formats import write_imagic
+            write_imagic(fn.path, self.data)
+        elif fmt in ("em", "ems"):
+            from xmipp3_tpu_torch.core.image_formats import write_em
+            write_em(fn.path, self.data)
+        elif fmt == "ser":
+            from xmipp3_tpu_torch.core.image_formats import write_ser
+            write_ser(fn.path, self.data)
+        elif fmt in ("h5", "hdf5", "hdf"):
+            from xmipp3_tpu_torch.core.image_formats import write_hdf5
+            write_hdf5(fn.path, self.data)
+        elif fmt in ("jpg", "jpeg", "png"):
+            from xmipp3_tpu_torch.core.image_formats import write_pil
+            write_pil(fn.path, self.data)
+        elif fmt == "pif":
+            from xmipp3_tpu_torch.core.image_formats import write_pif
+            write_pif(fn.path, self.data)
         elif fmt in ("tif", "tiff"):
             write_tiff(fn.path, self.data)
         elif fmt in ("raw", "inf"):

@@ -41,10 +41,6 @@ _MD_EXTS = {"xmd", "sel", "doc", "star", "ctfparam"}
 _STACK_EXTS = ("mrcs", "stk", "mrc", "img", "hed", "em", "ser", "h5",
                "hdf5", "hdf", "vol", "spi", "xmp", "st", "ali")
 
-_LATER_XMIPP_GEO = ("--geo_convention xmipp (read_apply_geo, B-spline "
-                    "order 3) is not yet ported to xmipp3_tpu_torch "
-                    "(ROADMAP.md, port queue item 5: the rest of ops/geo.py)")
-
 
 def is_metadata_file(fn) -> bool:
     return as_filename(fn).ext in _MD_EXTS
@@ -132,7 +128,7 @@ class XmippMetadataProgram(XmippProgram):
         self.addParamsLine(" [--geo_convention <c=native>] : Geometry-row interpretation when applying on read")
         self.addParamsLine("    where <c>")
         self.addParamsLine("      native : this framework's pose contract (M_x^f R(-psi) T(s))")
-        self.addParamsLine("      xmipp  : reference readApplyGeo semantics (not yet ported: raises)")
+        self.addParamsLine("      xmipp  : reference readApplyGeo semantics, for metadata written by the reference/Scipion (ops.geo.read_apply_geo)")
         self.addParamsLine(" [--mode <mode=overwrite>] : Output file write mode")
         self.addParamsLine("    where <mode>")
         self.addParamsLine("      overwrite   : Replace output")
@@ -196,17 +192,22 @@ class XmippMetadataProgram(XmippProgram):
         return arr
 
     def apply_geometry_batch(self, arr, rows):
-        """The rows' geometry, native convention, applied to a numpy batch
-        (bilinear, on the CPU: it runs in the loader thread)."""
+        """The rows' geometry applied to a numpy batch, on the CPU (it runs
+        in the loader thread): the native convention bilinearly, or with
+        --geo_convention xmipp the reference readApplyGeo (B-spline)."""
         from xmipp3_tpu_torch.ops.geo import (apply_affine_2d,
                                               apply_md_geometry,
-                                              metadata_alignment_matrices)
+                                              metadata_alignment_matrices,
+                                              read_apply_geo)
         psi = np.array([r.get("anglePsi", 0.0) for r in rows], np.float32)
         sx = np.array([r.get("shiftX", 0.0) for r in rows], np.float32)
         sy = np.array([r.get("shiftY", 0.0) for r in rows], np.float32)
         flip = np.array([bool(r.get("flip", 0)) for r in rows])
         scale = np.array([float(r.get("scale", 1.0) or 1.0) for r in rows],
                          np.float32)
+        if self.geo_convention == "xmipp":
+            return read_apply_geo(arr, psi, sx, sy, flip, scale, order=3,
+                                  device="cpu").numpy()
         if np.any(np.abs(scale - 1.0) > 1e-6):
             A = metadata_alignment_matrices(psi, sx, sy, flip, scale,
                                             device="cpu")
@@ -248,8 +249,6 @@ class XmippMetadataProgram(XmippProgram):
 
     def run(self):
         self.device = resolve_device(self.device_arg)
-        if self.do_apply_geo and self.geo_convention == "xmipp":
-            raise NotImplementedError(_LATER_XMIPP_GEO)
         self.setup_input()
         self._skip_done_rows()
         self.preProcess()

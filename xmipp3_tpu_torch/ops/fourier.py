@@ -1,6 +1,7 @@
 """Frequency grids, batched 2-D transforms and Fourier shifts (the subset
 of the reference package's ops/fourier.py that reconstruction, gallery
-projection and projection matching need), in torch float32/complex64."""
+projection, projection matching and the Fourier filters need), in torch
+float32/complex64."""
 from __future__ import annotations
 
 import math
@@ -22,6 +23,15 @@ def freq_grid_2d(h: int, w: int):
 def radial_freq_2d(h: int, w: int):
     fy, fx = freq_grid_2d(h, w)
     return np.sqrt(fy * fy + fx * fx).astype(np.float32)
+
+
+def freq_grid_3d(d: int, h: int, w: int):
+    """(fz, fy, fx) normalized frequencies for the rfftn layout, numpy
+    float32, broadcastable to (d, h, w//2+1)."""
+    fz = np.fft.fftfreq(d).astype(np.float32)[:, None, None]
+    fy = np.fft.fftfreq(h).astype(np.float32)[None, :, None]
+    fx = np.fft.rfftfreq(w).astype(np.float32)[None, None, :]
+    return fz, fy, fx
 
 
 def rfft2(imgs, device=None):

@@ -19,6 +19,10 @@ _REGISTRY: dict[str, str] = {
     "resolution_fsc": _P + "resolution_fsc",
     "ctf_phase_flip": _P + "ctf_correct:ProgCTFPhaseFlip",
     "ctf_correct_wiener2d": _P + "ctf_correct:ProgCTFCorrectWiener2D",
+    "transform_filter": _P + "transform_filter",
+    "transform_normalize": _P + "transform_normalize",
+    "transform_geometry": _P + "transform_geometry",
+    "image_align": _P + "image_align",
     # the reference's alias (programs/registry.py:216)
     "ctf_correct_phase": _P + "ctf_correct:ProgCTFPhaseFlip",
 }

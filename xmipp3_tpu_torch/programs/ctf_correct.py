@@ -11,7 +11,7 @@ in one pass (ops.ctf.generate_2d_rows) where the reference evaluates them
 one image at a time.
 
 Not yet ported: ctf_group, ctf_sort_psds and ctf_enhance_psd (they need the
-PSD and Fourier-filter modules; ROADMAP.md, port queue).
+PSD module; ROADMAP.md, port queue).
 """
 from __future__ import annotations
 
