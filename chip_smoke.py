@@ -115,7 +115,29 @@ Phases; any failure exits non-zero before the result line is printed:
    registered to it. An `align2d {...}` line gives each program's wall,
    images/s, phases, untimed rest and peak device memory, and the quality.
    No kernel runs in it. Its files are removed when it ends.
-8. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+8. BASELINE config 2 through the CLI at a 4k frame's size: micrograph A
+   (4096 x 4096 at 1.34 A/px, 300 kV, Cs 2.7 mm, Q0 0.07; defocus 18,000 /
+   16,000 A at 35 degrees) and micrograph B (8 x 8 blocks of 512 x 512,
+   each with the defocus of a tilted plane at its centre, mean 15,000 A,
+   +1,500 A across x and -800 A across y, A's astigmatism), each complex
+   white noise times the CTF with its envelope plus the background model
+   of the reference's synthetic PSDs, made with numpy from --seed ->
+   ctf_estimate_from_micrograph on A (micrograph mode), on B --mode
+   regions (16 interior regions at --skipBorders 2), on A --mode particles
+   (300 positions from --seed); ctf_estimate_from_psd and
+   ctf_estimate_from_psd_fast on A's .psd; psd_estimate on A;
+   ctf_enhance_psd on A's .psd; ctf_sort_psds on A's outputs; ctf_group
+   --wiener on phase 6's 20 micrograph CTFs. Checks: A's PSD within 1e-4 *
+   max of a float64 numpy periodogram of the same tiles; A's defocusU and
+   defocusV within 2 % of the plant and its azimuth within 5 degrees (so
+   for from_psd), the 1-D fit within 5 % of the mean defocus; each region
+   within EST_REGION_TOL of its block, the plane at B's centre within
+   EST_PLANE_TOL, each particle within EST_PARTICLE_TOL of A's defocus
+   (limits planned with tools/plan_ctf_estimate.py); every other output
+   finite and of its shape. A `ctfest {...}` line gives each program's
+   wall, phases, untimed rest, compass seconds and rounds, fitness and
+   peak device memory, and the quality. No kernel runs in it.
+9. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
 from beside itself (from any working directory), builds every kernel from
@@ -1608,6 +1630,357 @@ def align_2d(seed, root: Path):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: BASELINE config 2 through the CLI — CTF estimation from
+# micrographs and PSDs
+# ---------------------------------------------------------------------------
+
+EST_SIZE = 4096          # the frame of a 4k detector (Falcon II, EMPIAR-10028)
+EST_TS = 1.34            # A/px
+EST_KV, EST_CS, EST_Q0 = 300.0, 2.7, 0.07
+EST_A = (18000.0, 16000.0, 35.0)       # micrograph A: defocusU, V, azimuth
+EST_B_MEAN = 15000.0                   # micrograph B: the plane's mean (A)
+EST_B_SLOPE = (1500.0, -800.0)         # its change across the frame, x and y
+EST_BLOCK = 512                        # B's blocks: the regions' grid
+EST_PARTICLES = 300
+# the envelope's convergence cone and the background of the reference's
+# synthetic PSDs (tests/test_ctf_full_estimation.py:17-31)
+EST_ALPHA = 2e-4
+EST_BG = dict(base=0.1, sqrt_K=3.0, sqU=12.0, sqV=14.0, sqrt_angle=20.0,
+              gK=1.5, sigmaU=8000.0, sigmaV=9000.0, cU=0.02, cV=0.022,
+              g_angle=10.0)
+EST_PSD_TOL = 1e-4      # the port's PSD (float32) against numpy (float64)
+EST_DEFOCUS_TOL = 0.02  # A and from_psd: the reference's own limits,
+EST_ANGLE_TOL = 5.0     # tests/test_ctf_full_estimation.py:34-43
+EST_1D_TOL = 0.05       # the 1-D fit on the mean defocus
+# planned with tools/plan_ctf_estimate.py --particles 300 (the reference
+# on a CPU, a 2048^2 frame: the regions' worst 0.0166, the plane at the
+# centre 0.0003, the particles' worst 0.0297 of the plant)
+EST_REGION_TOL = 0.04   # each region's defocusU/V against its block's
+EST_PLANE_TOL = 0.01    # the plane at B's centre against the plant's
+EST_PARTICLE_TOL = 0.06  # each particle's defocusU/V against A's
+
+
+def est_spectra(n: int, Ts: float, dfu: float, dfv: float, az_deg: float):
+    """(CTF times its envelope, background power) of one micrograph on the
+    rfft2 grid of an n x n image, float64 numpy, written out here as
+    plant_ctf is: the envelope of the reference's synthetic CTF (no
+    chromatic term) is the cone's, E = exp(-pi^2 alpha^2 (Cs lambda^2 u^3
+    + df(theta) u)^2); the background is base + gK exp(-sigma(theta)
+    (u - c(theta))^2) + sqrtK exp(-sq(theta) sqrt(u)), each (theta)
+    parameter elliptical between its U and V values."""
+    fy = np.fft.fftfreq(n)[:, None] / Ts
+    fx = np.fft.rfftfreq(n)[None, :] / Ts
+    u = np.sqrt(fx * fx + fy * fy)
+    theta = np.arctan2(fy, fx)
+    v = EST_KV * 1e3
+    lam = 12.2643247 / np.sqrt(v * (1 + 0.978466e-6 * v))
+    df = -(dfu + dfv) / 2 - (dfu - dfv) / 2 * np.cos(
+        2 * (theta - np.deg2rad(az_deg)))
+    env = np.exp(-(np.pi * EST_ALPHA) ** 2
+                 * (EST_CS * 1e7 * lam ** 2 * u ** 3 + df * u) ** 2)
+    ctf = plant_ctf(n, Ts, dfu, dfv, az_deg, EST_KV, EST_CS, EST_Q0) * env
+
+    def ellip(a, b, ang):
+        c2 = np.cos(2 * (theta - np.deg2rad(ang)))
+        return np.sqrt(a * a * (1 + c2) / 2 + b * b * (1 - c2) / 2)
+
+    g = EST_BG
+    bg = (g["base"] + g["gK"] * np.exp(
+        -ellip(g["sigmaU"], g["sigmaV"], g["g_angle"])
+        * (u - ellip(g["cU"], g["cV"], g["g_angle"])) ** 2)
+        + g["sqrt_K"] * np.exp(-ellip(g["sqU"], g["sqV"], g["sqrt_angle"])
+                               * np.sqrt(u)))
+    return ctf, bg
+
+
+def est_plant(n: int, Ts: float, dfu: float, dfv: float, az_deg: float,
+              rng) -> np.ndarray:
+    """An n x n micrograph: complex white noise times the CTF (envelope
+    included) plus the background's power, in Fourier space, transformed
+    back (float32)."""
+    ctf, bg = est_spectra(n, Ts, dfu, dfv, az_deg)
+    z = lambda: rng.standard_normal(ctf.shape) \
+        + 1j * rng.standard_normal(ctf.shape)
+    spec = z() * ctf + z() * np.sqrt(bg)
+    return (np.fft.irfft2(spec, s=(n, n)) * n).astype(np.float32)
+
+
+def est_block_defocus(i: int, j: int, size: int = EST_SIZE):
+    """(defocusU, defocusV) of micrograph B's block (row i, column j): the
+    tilted plane's value at the block's centre, with A's astigmatism. The
+    plane's slopes are those of the full frame at any size."""
+    yc, xc = (i + 0.5) * EST_BLOCK, (j + 0.5) * EST_BLOCK
+    d = (EST_B_MEAN + EST_B_SLOPE[0] * (xc - size / 2) / EST_SIZE
+         + EST_B_SLOPE[1] * (yc - size / 2) / EST_SIZE)
+    half = (EST_A[0] - EST_A[1]) / 2
+    return d + half, d - half
+
+
+def est_data(size: int, particles: int, seed: int):
+    """Micrographs A (one defocus) and B (blocks on a tilted plane) of
+    size x size, and particle positions (x, y), all from the seed."""
+    rng = np.random.default_rng(seed)
+    A = est_plant(size, EST_TS, *EST_A, rng)
+    nb = size // EST_BLOCK
+    B = np.empty((size, size), np.float32)
+    for i in range(nb):
+        for j in range(nb):
+            u, v = est_block_defocus(i, j, size)
+            B[i * EST_BLOCK:(i + 1) * EST_BLOCK,
+              j * EST_BLOCK:(j + 1) * EST_BLOCK] = est_plant(
+                EST_BLOCK, EST_TS, u, v, EST_A[2], rng)
+    pos = rng.integers(0, size, (particles, 2))
+    return A, B, pos
+
+
+def est_window(n: int, overlap_frac: float = 0.5) -> np.ndarray:
+    """The programs' raised-cosine piece window, in float64 numpy."""
+    ramp = int(n * overlap_frac / 2)
+    w = np.ones(n)
+    t = 0.5 * (1 - np.cos(np.pi * (np.arange(ramp) + 0.5) / ramp))
+    w[:ramp], w[-ramp:] = t, t[::-1]
+    return w
+
+
+def est_psd_numpy(mic: np.ndarray, piece: int = EST_BLOCK,
+                  overlap: float = 0.5) -> np.ndarray:
+    """The micrograph mode's PSD in float64 numpy: the mean over the
+    overlapped tiles of |FFT(tile * window)|^2 / piece^2 on the full
+    plane, centred."""
+    step = int(piece * (1 - overlap))
+    pos = list(range(0, mic.shape[0] - piece + 1, step))
+    if pos[-1] != mic.shape[0] - piece:
+        pos.append(mic.shape[0] - piece)
+    w = est_window(piece)
+    w2 = w[:, None] * w[None, :]
+    acc = np.zeros((piece, piece))
+    for y0 in pos:
+        for x0 in pos:
+            t = mic[y0:y0 + piece, x0:x0 + piece].astype(np.float64)
+            acc += np.abs(np.fft.fft2(t * w2)) ** 2
+    return np.fft.fftshift(acc / (len(pos) ** 2 * piece * piece))
+
+
+def est_angle_err(a: float, b: float) -> float:
+    d = abs(a - b) % 180.0
+    return min(d, 180.0 - d)
+
+
+def ctf_estimation(seed, root: Path):
+    """Phase 8 in root: BASELINE config 2 at a 4k frame's size."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.models import ctf_estimation as ce
+    from xmipp3_tpu_torch.programs import get_program
+    root.mkdir(parents=True)
+    f = lambda name: str(root / name)
+    t0 = time.perf_counter()
+    A, B, pos = est_data(EST_SIZE, EST_PARTICLES, seed)
+    made = time.perf_counter() - t0
+    save_image(f("A.mrc"), A)
+    save_image(f("B.mrc"), B)
+    MetaData.fromRows({"xcoor": int(x), "ycoor": int(y)} for x, y in pos) \
+        .write(f("pos.xmd"))
+    MetaData.fromRows(
+        {"ctfDefocusU": float(u), "ctfDefocusV": float(v),
+         "ctfDefocusAngle": float(az), "ctfSamplingRate": CTF_TS,
+         "ctfVoltage": CTF_KV, "ctfSphericalAberration": CTF_CS,
+         "ctfQ0": CTF_Q0} for u, v, az in zip(*ctf_recipe())) \
+        .write(f("ctfdat.xmd"))
+    log(f"phase 8: micrographs A and B of {EST_SIZE}^2 at {EST_TS} A/px made "
+        f"in {made:.2f} s with numpy and written in "
+        f"{time.perf_counter() - t0 - made:.2f} s; {EST_PARTICLES} particle "
+        "positions")
+    fit = ["--sampling_rate", str(EST_TS), "--kV", str(EST_KV), "--Cs",
+           str(EST_CS), "--Q0", str(EST_Q0)]
+
+    def sort_input():
+        MetaData.fromRows([{"micrograph": f("A.mrc"), "psd": f("A.psd"),
+                            "ctfModel": f("A.ctfparam")}]).write(
+            f("sort.xmd"))
+
+    steps = (
+        ("micrograph", "ctf_estimate_from_micrograph",
+         ["--micrograph", f("A.mrc"), "--oroot", f("A")] + fit, None),
+        ("regions", "ctf_estimate_from_micrograph",
+         ["--micrograph", f("B.mrc"), "--oroot", f("B"), "--mode",
+          "regions"] + fit, None),
+        ("particles", "ctf_estimate_from_micrograph",
+         ["--micrograph", f("A.mrc"), "--oroot", f("P"), "--mode",
+          "particles", f("pos.xmd")] + fit, None),
+        ("from_psd", "ctf_estimate_from_psd",
+         ["--psd", f("A.psd"), "-o", f("A_fp.ctfparam")] + fit, None),
+        ("from_psd_fast", "ctf_estimate_from_psd_fast",
+         ["--psd", f("A.psd"), "-o", f("A_fast.ctfparam")] + fit, None),
+        ("psd_estimate", "psd_estimate",
+         ["-i", f("A.mrc"), "-o", f("A_pe.xmp")], None),
+        ("enhance", "ctf_enhance_psd",
+         ["-i", f("A.psd"), "-o", f("A_enh.xmp")], None),
+        ("sort", "ctf_sort_psds", ["-i", f("sort.xmd"), "-o",
+                                   f("sorted.xmd")], sort_input),
+        ("group", "ctf_group", ["--ctfdat", f("ctfdat.xmd"), "--oroot",
+                                f("grp"), "--wiener"], None))
+    report, failed = {}, []
+
+    def limit(ok, msg):
+        """A quality limit: every one is read and reported before the
+        phase fails on any."""
+        if not ok:
+            failed.append(msg)
+
+    timing.enable_timing(True)
+    try:
+        for label, name, args, before in steps:
+            if before is not None:
+                before()
+            launch_counts(reset=True)
+            timing.take_timing()
+            ce.compass_stats.update(calls=0, rounds=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prog = get_program(name)
+            t0 = time.perf_counter()
+            rc = prog.run_with_args(args + ["--device", DEVICE, "-v", "0"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"phase 8 {label} ({name}): rc {rc}")
+            phases = {k: v[0] for k, v in timing.take_timing().items()}
+            compass = phases.pop("compass rounds", 0.0)
+            report[label] = {
+                "program": name, "wall_s": wall, "phases_s": phases,
+                "rest_s": wall - sum(phases.values()),
+                "compass_s": compass,
+                "compass_rounds": ce.compass_stats["rounds"],
+                "compass_calls": ce.compass_stats["calls"],
+                "fitness": getattr(prog, "fitness", None),
+                "launches": {k: v for k, v in launch_counts().items() if v},
+                "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+            r = report[label]
+            log(f"  {label} ({name}): {wall:.3f} s, peak "
+                f"{r['peak_device_GB']:.2f} GB, compass {compass:.3f} s in "
+                f"{r['compass_rounds']} rounds ({r['compass_calls']} "
+                f"searches), fitness {r['fitness']}, phases "
+                + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+                + f", rest {r['rest_s']:.3f}")
+            check(not r["launches"], f"phase 8 {label}: launched "
+                  f"{r['launches']}")
+        quality = {}
+        load = lambda name: np.squeeze(Image(f(name)).data)
+        row = lambda name: (lambda md: md.getRow(md.firstObject()))(
+            MetaData(f(name)))
+        rel = lambda got, want: abs(got - want) / abs(want)
+
+        # A's PSD against numpy
+        psd = load("A.psd")
+        want = est_psd_numpy(A)
+        err = float(np.abs(psd - want).max() / np.abs(want).max())
+        quality["psd_vs_numpy"] = err
+        log(f"  A's PSD vs a numpy periodogram of the same tiles: max |port "
+            f"- numpy| / max = {err:.3e}")
+        limit(err <= EST_PSD_TOL, f"phase 8: A's PSD differs from numpy by "
+              f"{err:.3e} > {EST_PSD_TOL} of the max")
+
+        # A's fits: micrograph mode, from_psd, the 1-D fit
+        for key, fn in (("micrograph", "A.ctfparam"),
+                        ("from_psd", "A_fp.ctfparam")):
+            r = row(fn)
+            eu = rel(r["ctfDefocusU"], EST_A[0])
+            ev = rel(r["ctfDefocusV"], EST_A[1])
+            ea = est_angle_err(r["ctfDefocusAngle"], EST_A[2])
+            quality[key] = {"defocusU": r["ctfDefocusU"],
+                            "defocusV": r["ctfDefocusV"],
+                            "angle": r["ctfDefocusAngle"], "err_U": eu,
+                            "err_V": ev, "err_angle_deg": ea}
+            log(f"  {key}: defocusU {r['ctfDefocusU']:.1f} ({eu:.4f}), "
+                f"defocusV {r['ctfDefocusV']:.1f} ({ev:.4f}), angle "
+                f"{r['ctfDefocusAngle']:.2f} ({ea:.2f} deg)")
+            limit(max(eu, ev) <= EST_DEFOCUS_TOL and ea <= EST_ANGLE_TOL,
+                  f"phase 8 {key}: defocus off by {eu:.4f} / {ev:.4f} "
+                  f"(limit {EST_DEFOCUS_TOL}), angle by {ea:.2f} deg")
+        r = row("A_fast.ctfparam")
+        e1 = rel(0.5 * (r["ctfDefocusU"] + r["ctfDefocusV"]),
+                 0.5 * (EST_A[0] + EST_A[1]))
+        quality["from_psd_fast"] = {"defocus": r["ctfDefocusU"], "err": e1}
+        log(f"  from_psd_fast: defocus {r['ctfDefocusU']:.1f} ({e1:.4f} of "
+            "the mean)")
+        limit(e1 <= EST_1D_TOL, f"phase 8: the 1-D fit is off by {e1:.4f}")
+
+        # B's regions and the plane at its centre
+        md = MetaData(f("B_regions.xmd"))
+        errs = []
+        for i in md:
+            g = md.getRow(i)
+            u, v = est_block_defocus(int(g["ycoor"]) // EST_BLOCK,
+                                     int(g["xcoor"]) // EST_BLOCK)
+            errs.append(max(rel(g["ctfDefocusU"], u),
+                            rel(g["ctfDefocusV"], v)))
+        r = row("B.ctfparam")
+        half = (EST_A[0] - EST_A[1]) / 2
+        ep = max(rel(r["ctfDefocusU"], EST_B_MEAN + half),
+                 rel(r["ctfDefocusV"], EST_B_MEAN - half))
+        quality["regions"] = {"count": len(errs), "max_err": max(errs),
+                              "median_err": float(np.median(errs)),
+                              "plane_U": r["ctfDefocusU"],
+                              "plane_V": r["ctfDefocusV"], "plane_err": ep}
+        log(f"  regions: {len(errs)}, worst {max(errs):.4f}, median "
+            f"{np.median(errs):.4f} of the block's defocus; the plane at "
+            f"B's centre {r['ctfDefocusU']:.1f} / {r['ctfDefocusV']:.1f} "
+            f"({ep:.4f})")
+        limit(len(errs) == 16, f"phase 8: {len(errs)} regions, not 16")
+        limit(max(errs) <= EST_REGION_TOL, f"phase 8: a region is off by "
+              f"{max(errs):.4f} > {EST_REGION_TOL}")
+        limit(ep <= EST_PLANE_TOL, f"phase 8: the plane at B's centre is off "
+              f"by {ep:.4f} > {EST_PLANE_TOL}")
+
+        # the particles
+        md = MetaData(f("P_particles.xmd"))
+        errs = []
+        for i in md:
+            r = row(md.getRow(i)["ctfModel"])
+            errs.append(max(rel(r["ctfDefocusU"], EST_A[0]),
+                            rel(r["ctfDefocusV"], EST_A[1])))
+        quality["particles"] = {"count": len(errs), "max_err": max(errs),
+                                "median_err": float(np.median(errs)),
+                                "p95_err": float(np.percentile(errs, 95))}
+        log(f"  particles: {len(errs)}, worst {max(errs):.4f}, 95th "
+            f"percentile {np.percentile(errs, 95):.4f}, median "
+            f"{np.median(errs):.4f} of A's defocus")
+        limit(len(errs) == EST_PARTICLES, f"phase 8: {len(errs)} particles")
+        limit(max(errs) <= EST_PARTICLE_TOL, f"phase 8: a particle is off "
+              f"by {max(errs):.4f} > {EST_PARTICLE_TOL}")
+
+        # the PSD programs' outputs
+        for name, shape in (("A_pe.xmp", (384, 384)),
+                            ("A_enh.xmp", (EST_BLOCK, EST_BLOCK)),
+                            ("grp_ctf.mrcs", None), ("grp_wien.mrcs", None)):
+            img = load(name)
+            limit(np.isfinite(img).all() and (shape is None
+                                               or img.shape == shape),
+                  f"phase 8: {name} of shape {img.shape}, finite "
+                  f"{np.isfinite(img).all()}")
+        crits = {k: v for k, v in row("sorted.xmd").items()
+                 if k.startswith("ctfCrit")}
+        quality["sort_criteria"] = len(crits)
+        limit(len(crits) >= 15 and all(np.isfinite(list(crits.values()))),
+              f"phase 8: ctf_sort_psds wrote {len(crits)} criteria")
+        groups = {r["defGroup"] for r in
+                  (MetaData(f("grp.xmd")).getRow(i)
+                   for i in MetaData(f("grp.xmd")))}
+        quality["groups"] = len(groups)
+        limit(len(groups) >= 2, f"phase 8: ctf_group made {len(groups)} "
+              "groups of 20 CTFs")
+        report["quality"] = quality
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+        shutil.rmtree(root, ignore_errors=True)
+    log("ctfest " + json.dumps(report))
+    check(not failed, "phase 8: " + "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -1662,6 +2035,9 @@ def main(argv=None) -> int:
         log("phase 7: 2-D filter, normalise, align and geometry (BASELINE "
             "config 1)")
         align_2d(args.seed, root / "align2d")
+        log("phase 8: CTF estimation from micrographs and PSDs (BASELINE "
+            "config 2)")
+        ctf_estimation(args.seed, root / "ctfest")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -202,6 +202,31 @@ def tensor_at_offset(a, offset: int, device="cpu"):
     return out
 
 
+# the CTF of the reference package's synthetic PSDs
+# (tests/test_ctf_full_estimation.py:17-31)
+SYNTH_CTF = dict(voltage=300, Cs=2.7, Q0=0.07, K=1.0, espr=1.0, alpha=2e-4,
+                 base_line=0.1, sqrt_K=3.0, sqU=12.0, sqV=14.0,
+                 sqrt_angle=20.0, gaussian_K=1.5, sigmaU=8000.0,
+                 sigmaV=9000.0, cU=0.02, cV=0.022, gaussian_angle=10.0)
+
+
+def synthetic_psd(n=192, Ts=1.5, defU=17500.0, defV=14500.0, ang=40.0,
+                  seed=0):
+    """The reference package's synthetic PSD recipe (noise + CTF^2 times a
+    chi-square(20)/20 speckle), evaluated with the port's CTF on the CPU:
+    (rfft-layout float32 PSD, the true CTFDescription)."""
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription
+    true = CTFDescription(sampling_rate=Ts, defocusU=defU, defocusV=defV,
+                          azimuthal_angle=ang, **SYNTH_CTF)
+    fy = np.fft.fftfreq(n).astype(np.float32)[:, None] / Ts
+    fx = np.fft.rfftfreq(n).astype(np.float32)[None, :] / Ts
+    ctf2 = true.pure_at(fx, fy, device="cpu").numpy() ** 2
+    noise = true.noise_at(fx, fy, device="cpu").numpy()
+    rng = np.random.default_rng(seed)
+    mult = rng.chisquare(20, ctf2.shape).astype(np.float32) / 20
+    return ((noise + ctf2) * mult).astype(np.float32), true
+
+
 def require_cuda():
     """Skip the calling test when no card is visible (decided at run time,
     never at import)."""
@@ -218,17 +243,24 @@ from xmipp3_tpu_torch.programs import list_programs
 for name in list_programs():
     get_program(name)
 from xmipp3_tpu_torch.core import image_formats, metadata_program, sampling
-from xmipp3_tpu_torch.ops import (align, cross, ctf, denoise, dft_mm, features,
-                                  fourier, fourier_filter, fsc, geo, mask,
-                                  match, normalize, polar, project,
-                                  reconstruct, scatter, scatter_kb,
-                                  scatter_tri, shear_rotate, shift,
-                                  spatial_filters)
-from xmipp3_tpu_torch.programs import (ctf_correct, image_align,
+from xmipp3_tpu_torch.ops import (align, arma, cross, ctf, denoise, dft_mm,
+                                  features, fourier, fourier_filter, fsc,
+                                  geo, mask, match, normalize, polar,
+                                  project, psd, reconstruct, resize, scatter,
+                                  scatter_kb, scatter_tri, shear_rotate,
+                                  shift, spatial_filters)
+from xmipp3_tpu_torch.programs import (ctf_correct, ctf_estimate,
+                                       image_align, resolution_dir,
                                        resolution_fsc, transform_filter,
                                        transform_geometry,
                                        transform_normalize)
-from xmipp3_tpu_torch.parallel import cli, match, mesh, reconstruct
+from xmipp3_tpu_torch.models import ctf_estimation
+from xmipp3_tpu_torch.parallel import cli, engines, match, mesh, reconstruct
+for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
+             "ctf_estimate_from_psd_fast", "ctf_group", "ctf_sort_psds",
+             "ctf_enhance_psd", "ctf_estimate_psd_with_arma",
+             "psd_estimate"):
+    get_program(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"
              or m.startswith("xmipp3_tpu."))

@@ -1,7 +1,9 @@
 """On a card only: each CUDA kernel of the port against its plain version,
 and the whole reconstruction (plain and --useCTF), phase flipping, the
-matching program and the 2-D path (the order-3 B-spline warp, alignment
-and the Fourier filter) on the card against the same on the CPU.
+matching program, the 2-D path (the order-3 B-spline warp, alignment
+and the Fourier filter) and CTF estimation (the fitness, a whole staged
+fit, the periodogram against numpy, and compass rounds that never wait
+for the host) on the card against the same on the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -18,7 +20,7 @@ import torch
 from test_torch_common import (K1_CASES, KB_EDGE_P, KB_SLABS, SCATTER_CASES,
                                TRI_EDGE_P, kb_edge_samples, kb_slab_samples,
                                phantom_batch, rel_err, require_cuda,
-                               scatter_case, tensor_at_offset,
+                               scatter_case, synthetic_psd, tensor_at_offset,
                                tri_edge_samples)
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.ops import reconstruct as trec
@@ -704,3 +706,85 @@ def test_fourier_mask_on_the_card_matches_the_cpu():
     assert got.is_cuda
     assert rel_err(got, apply_fourier_mask_2d(imgs, mask,
                                               device="cpu")) <= 1e-5
+
+
+def _ctf_point():
+    """A realistic CTF parameter vector and 64 candidates around it."""
+    from xmipp3_tpu_torch.models import ctf_estimation as ce
+    p = np.zeros(ce.NPARAMS, np.float32)
+    p[[ce.DEFU, ce.DEFV, ce.ANGLE, ce.LOGK]] = [17500, 14500, 40, 0.1]
+    p[[ce.ESPR, ce.ALPHA, ce.DELTAF, ce.DELTAR]] = [1.0, 2e-4, 30.0, 2.0]
+    p[ce.BASE:ce.SQANG + 1] = [0.1, 3.0, 12.0, 14.0, 20.0]
+    p[ce.G1K:ce.G1CV + 1] = [1.5, 8000, 9000, 10, 0.02, 0.022]
+    rng = np.random.default_rng(9)
+    return p, (p[None] * (1 + 0.02 * rng.standard_normal(
+        (64, ce.NPARAMS)))).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_ctf_fitness_on_the_card_matches_the_cpu():
+    require_cuda()
+    from xmipp3_tpu_torch.models import ctf_estimation as ce
+    psd, _ = synthetic_psd(192, 1.5)
+    _, P = _ctf_point()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        est = ce.CTFEstimator(psd, 1.5, device=dev)
+        out[dev] = [est._cost_batch(P, use_enh=e) for e in (False, True)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ctf_estimate_on_the_card_matches_the_cpu():
+    require_cuda()
+    from xmipp3_tpu_torch.models import ctf_estimation as ce
+    psd, true = synthetic_psd(192, 1.5)
+    got = ce.CTFEstimator(psd, 1.5, device="cuda").estimate()
+    want = ce.CTFEstimator(psd, 1.5, device="cpu").estimate()
+    for attr in ("defocusU", "defocusV"):
+        assert abs(getattr(got, attr) - getattr(want, attr)) <= \
+            5e-3 * getattr(want, attr)
+        assert abs(getattr(got, attr) - getattr(true, attr)) <= \
+            0.02 * getattr(true, attr)
+
+
+@pytest.mark.cuda
+def test_ctf_compass_rounds_never_sync_on_the_card():
+    """torch.cuda's sync debug mode raises on any call that waits for the
+    card inside the compass rounds."""
+    require_cuda()
+    from xmipp3_tpu_torch.models import ctf_estimation as ce
+    psd, _ = synthetic_psd(192, 1.5)
+    est = ce.CTFEstimator(psd, 1.5, device="cuda")
+    data = est._data(use_enh=True)
+    _, P = _ctf_point()
+    p = torch.as_tensor(P[:8], device="cuda")
+    free = tuple(ce.STAGE_SETS["all"])
+    steps = torch.as_tensor(ce.CTFEstimator._STEPS[list(free)],
+                            device="cuda").expand(8, len(free)).clone()
+    E, plan = ce._directions(free, "cuda"), ce._plan(free, "cuda")
+    best = data.costs(p[:, None])[:, 0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, best = ce._compass_rounds(p, steps, best, E, data.costs, plan,
+                                     ((ce.SQV, ce.SQU),), 12)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert p.is_cuda and torch.isfinite(best).all()
+
+
+@pytest.mark.cuda
+def test_periodogram_on_the_card_matches_numpy():
+    require_cuda()
+    from xmipp3_tpu_torch.ops import psd as tpsd
+    mic = np.random.default_rng(10).standard_normal((700, 650)) \
+        .astype(np.float32)
+    got = tpsd.estimate_psd(mic, 256, 0.5, device="cuda")
+    assert got.is_cuda
+    tiles = tpsd.extract_tiles(mic, 256, 0.5).astype(np.float64)
+    tiles -= tiles.mean(axis=(-2, -1), keepdims=True)
+    tiles *= tpsd.tile_window(256).astype(np.float64)
+    want = (np.abs(np.fft.rfft2(tiles)) ** 2 / 256 ** 2).mean(0)
+    assert rel_err(got, want) <= 1e-4

@@ -1,7 +1,7 @@
-"""Frequency grids, batched 2-D transforms and Fourier shifts (the subset
-of the reference package's ops/fourier.py that reconstruction, gallery
-projection, projection matching and the Fourier filters need), in torch
-float32/complex64."""
+"""Frequency grids, batched 2-D transforms, Fourier shifts and radial
+averages (the subset of the reference package's ops/fourier.py that
+reconstruction, gallery projection, projection matching, the Fourier
+filters and PSD/CTF estimation need), in torch float32/complex64."""
 from __future__ import annotations
 
 import math
@@ -77,3 +77,22 @@ def fourier_shift_2d(imgs, sx, sy, device=None):
     spec = shift_spec_2d(torch.fft.rfft2(imgs), sx, sy, H, W)
     out = torch.fft.irfft2(spec, s=(H, W))
     return out[0] if single else out
+
+
+def radial_average_half(power, nbins: int):
+    """Radially average an rfft-layout 2-D array into nbins rings of width
+    0.5/nbins cycles/px, on the tensor's device: power (..., H, W//2+1) ->
+    (..., nbins). The ring sums are one index_add_ over the flat plane."""
+    power = as_tensor(power)
+    H = power.shape[-2]
+    W = 2 * (power.shape[-1] - 1)
+    r = radial_freq_2d(H, W)
+    bins = np.clip((r / 0.5 * nbins).astype(np.int32), 0, nbins - 1).ravel()
+    idx = torch.as_tensor(bins, dtype=torch.int64, device=power.device)
+    flat = power.reshape(-1, bins.size)
+    sums = torch.zeros(flat.shape[0], nbins, dtype=torch.float32,
+                       device=power.device).index_add_(1, idx, flat)
+    counts = torch.as_tensor(np.bincount(bins, minlength=nbins),
+                             dtype=torch.float32, device=power.device)
+    out = sums / torch.clamp(counts, min=1.0)
+    return out.reshape(power.shape[:-2] + (nbins,))

@@ -23,6 +23,17 @@ _REGISTRY: dict[str, str] = {
     "transform_normalize": _P + "transform_normalize",
     "transform_geometry": _P + "transform_geometry",
     "image_align": _P + "image_align",
+    "ctf_estimate_from_micrograph":
+        _P + "ctf_estimate:ProgCTFEstimateFromMicrograph",
+    "ctf_estimate_from_psd": _P + "ctf_estimate:ProgCTFEstimateFromPSD",
+    "ctf_estimate_from_psd_fast":
+        _P + "ctf_estimate:ProgCTFEstimateFromPSDFast",
+    "ctf_group": _P + "ctf_correct:ProgCTFGroup",
+    "ctf_sort_psds": _P + "ctf_correct:ProgCTFSortPSDs",
+    "ctf_enhance_psd": _P + "ctf_correct:ProgCTFEnhancePSD",
+    "ctf_estimate_psd_with_arma":
+        _P + "resolution_dir:ProgCTFEstimatePSDWithARMA",
+    "psd_estimate": _P + "resolution_dir:ProgPSDEstimate",
     # the reference's alias (programs/registry.py:216)
     "ctf_correct_phase": _P + "ctf_correct:ProgCTFPhaseFlip",
 }
