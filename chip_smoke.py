@@ -137,15 +137,40 @@ Phases; any failure exits non-zero before the result line is printed:
    finite and of its shape. A `ctfest {...}` line gives each program's
    wall, phases, untimed rest, compass seconds and rounds, fitness and
    peak device memory, and the quality. No kernel runs in it.
-9. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+9. BASELINE config 5 through the CLI: phantom_movie -size 4096 4096 40
+   (the program's default 4k frame, with ice, dose and barrel distortion
+   at its defaults, from --seed) -> movie_alignment_correlation with its
+   defaults (local alignment on 7 x 7 patches, --patchesAvg 3, --oavg,
+   --oavgInitial) -> the same with --skipLocalAlignment --dose_per_frame 1
+   --oaligned -> the same with --mesh dp over 2 gloo ranks on the card ->
+   movie_filter_dose; a second phantom movie (16 frames at a dose of 30)
+   with per-column and per-row gain defects planted in numpy ->
+   movie_estimate_gain --frameStep 4. Then two 256^3 half maps at 1 A/px
+   (white noise in a sphere, zones low-passed to 3, 5 and 8 A, noise per
+   half; numpy) -> resolution_monogenic_signal --vol --vol2 --mask,
+   resolution_monotomo on their central 64 planes, resolution_fso on an
+   isotropic and an anisotropic pair, resolution_localfilter,
+   volume_correct_bfactor, volume_structure_factor and
+   resolution_directional. Checks: the global positions against the
+   _gt.xmd truth (median and worst), the aligned average's power in the
+   scene's band over the initial one's, the two global runs' positions
+   equal, the mesh field within 1e-3 px of the serial one, the dose filter
+   within 1e-4 * max of numpy, the gain estimate's correlation with the
+   planted inverse gain, MonoRes's median per zone against its plant, the
+   FSO's spread for each pair, the directional map finer in the inner
+   zone than in the outer; every output finite and of its shape (limits
+   planned with tools/plan_movie_monores.py). A `movie {...}` line gives
+   each program's wall, phases, untimed rest and peak device memory, and
+   the quality. No kernel runs in it.
+10. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
 from beside itself (from any working directory), builds every kernel from
 the checkout's sources and writes its data under chip_smoke_data/ in the
 checkout, which it removes at the end. Without a card, or without the
 package beside it, it exits 2 and prints no result. (`chip_smoke.py
---mesh-rank <program> <args>` is phase 5's rank: it runs one program and
-prints its launch counts and phase seconds.)
+--mesh-rank <program> <args>` is a rank of phases 5 and 9: it runs one
+program and prints its launch counts, phase seconds and peak memory.)
 """
 from __future__ import annotations
 
@@ -898,22 +923,27 @@ MESH_RUNS = (  # (program, mode, ranks)
 
 
 def mesh_rank(argv) -> int:
-    """One rank of phase 5: run the program of argv with every launch count
-    at 0 and phase timing on, then print a line RANK {rc, wall_s, launches,
-    phases_s}."""
+    """One rank of phases 5 and 9: run the program of argv with every
+    launch count at 0 and phase timing on, then print a line RANK {rc,
+    wall_s, launches, phases_s, peak_device_GB} with the program's local
+    shift field (`field`) where it keeps one."""
     import torch
     from xmipp3_tpu_torch.core import timing
-    from xmipp3_tpu_torch.programs import main as xmipp
+    from xmipp3_tpu_torch.programs import get_program
     timing.enable_timing(True)
     launch_counts(reset=True)
     t0 = time.perf_counter()
-    rc = xmipp(["xmipp", *argv])
+    program = get_program(argv[0])
+    program.read(["xmipp_" + argv[0], *argv[1:]])
+    rc = program.tryRun()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    print("RANK " + json.dumps({
-        "rc": rc, "wall_s": wall, "launches": launch_counts(),
-        "phases_s": {k: v[0] for k, v in timing.take_timing().items()}}),
-        flush=True)
+    rep = {"rc": rc, "wall_s": wall, "launches": launch_counts(),
+           "phases_s": {k: v[0] for k, v in timing.take_timing().items()},
+           "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+    if getattr(program, "field", None) is not None:
+        rep["field"] = np.asarray(program.field).tolist()
+    print("RANK " + json.dumps(rep), flush=True)
     return rc
 
 
@@ -1981,6 +2011,427 @@ def ctf_estimation(seed, root: Path):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: BASELINE config 5 - movie alignment (the FlexAlign path) and
+# MonoRes, through the CLI
+# ---------------------------------------------------------------------------
+
+MOVIE_SIZE, MOVIE_FRAMES = 4096, 40   # phantom_movie's own default: a 4k
+                                      # detector, 40 frames
+# the gain movie: phantom_movie at a dose of 30 e/px a frame (at the
+# default 1 e/px the frames are small integers whose ties leave the
+# rank-histogram estimate no signal: tools/plan_movie_monores.py), 16
+# frames, every MOVIE_GAIN_STEP-th used
+MOVIE_GAIN_DOSE, MOVIE_GAIN_FRAMES, MOVIE_GAIN_STEP = 30, 16, 4
+MOVIE_GAIN_AMP = (0.1, 0.05)          # planted gain: column and row spread
+MOVIE_BAND = (0.01, 0.1)              # cycles/px that the scene fills
+MONO_N, MONO_TS = 256, 1.0            # the half maps: 256^3 at 1 A/px
+# (inner radius, outer radius) in px at MONO_N and the planted resolution
+# in A at MONO_TS; at another size the radii scale with n and the
+# resolutions with the sampling (the same digital frequencies)
+MONO_ZONES = ((0.0, 40.0, 3.0), (40.0, 70.0, 5.0), (70.0, 100.0, 8.0))
+MONO_NOISE = 0.3                      # each half's noise / the signal's
+MONO_ANISO = (0.3, 0.1)               # FSO's pairs: one white signal low-
+                                      # passed at 0.3 cycles/px, or inside
+                                      # the ellipsoid of (kx,ky) and kz
+                                      # semi-axes 0.3 and 0.1
+MONO_TOMO_SLAB = 64                   # z planes of the tomogram-shaped pair
+MOVIE_MESH_TOL = 1e-3                 # px: mesh field vs serial, and the
+                                      # global positions of two runs
+DOSE_TOL = 1e-4                       # the dose filter against numpy
+# limits: about twice what tools/plan_movie_monores.py reads of the
+# reference package on the CPU with the same recipe at 1024^2 x 40 frames
+# and 128^3 (my CPU run, PERF.md section 6): positions 0.0085 (median) and
+# 0.0342 (worst) samples of the 512 correlation grid, 8 px a sample here;
+# the band-power ratio 1.082, the gain's correlation 0.925, the zones'
+# medians 1.219 / 1.000 / 0.989 of their plants (each limit no tighter than
+# one band of the 256^3 sweep, zone_tolerances), the FSO spreads 0.0156
+# (two shells) and 0.172 cycles/px
+MOVIE_POS_MEDIAN_PX = 0.137
+MOVIE_POS_WORST_PX = 0.547
+MOVIE_BAND_RATIO = 1.04
+MOVIE_GAIN_CORR = 0.85
+MONO_ZONE_TOL = (0.44, 0.076, 0.121)
+FSO_SPAN_ISO_MAX = 0.0313
+FSO_SPAN_ANISO_MIN = 0.086
+
+
+def movie_gain(h: int, w: int, seed: int) -> np.ndarray:
+    """The planted gain (Observed = Ideal * Gain): a gain per column times
+    a gain per row, 1 + MOVIE_GAIN_AMP * N(0, 1), the column and row
+    defects that the rank-histogram estimate compares neighbouring
+    columns and rows for (a gain that varies slowly across the frame is
+    the same in neighbouring columns and so invisible to it)."""
+    ac, ar = MOVIE_GAIN_AMP
+    rng = np.random.default_rng(seed)
+    col = 1 + ac * rng.standard_normal(w)
+    row = 1 + ar * rng.standard_normal(h)
+    return (row[:, None] * col[None, :]).astype(np.float32)
+
+
+def band_power(img, band=MOVIE_BAND) -> float:
+    """Power of an image in a ring of frequencies (cycles/px), float64."""
+    img = np.asarray(img, np.float64)
+    f = np.sqrt(np.fft.fftfreq(img.shape[0])[:, None] ** 2
+                + np.fft.rfftfreq(img.shape[1])[None, :] ** 2)
+    sel = (f >= band[0]) & (f <= band[1])
+    return float((np.abs(np.fft.rfft2(img - img.mean())) ** 2)[sel].sum())
+
+
+def position_errors(est, truth):
+    """(median, worst) |estimated - true| frame position in px, both in
+    the gauge of mean position 0, over frames and axes."""
+    truth = np.asarray(truth, np.float64)
+    err = np.abs(np.asarray(est) - (truth - truth.mean(axis=0)))
+    return float(np.median(err)), float(err.max())
+
+
+def _lowpass_3d(spec, keep, n: int):
+    """The n^3 volume of the rfftn spectrum `spec` inside `keep`."""
+    return np.fft.irfftn(spec * keep, s=(n, n, n), axes=(0, 1, 2))
+
+
+def mono_halves(n: int, seed: int):
+    """Two half maps of n^3 voxels at MONO_TS * MONO_N / n A/px: white
+    noise inside a sphere, each zone of MONO_ZONES low-passed (ideal
+    filter) to its planted resolution, plus independent noise of
+    MONO_NOISE per half; with the sphere (the mask), the zones' masks and
+    the sampling. numpy, from `seed`."""
+    Ts = MONO_TS * MONO_N / n
+    rng = np.random.default_rng(seed)
+    z, y, x = (np.arange(n) - n // 2 for _ in range(3))
+    rad = np.sqrt(z[:, None, None] ** 2 + y[None, :, None] ** 2
+                  + x[None, None, :] ** 2)
+    f = np.sqrt(np.fft.fftfreq(n)[:, None, None] ** 2
+                + np.fft.fftfreq(n)[None, :, None] ** 2
+                + np.fft.rfftfreq(n)[None, None, :] ** 2)
+    white = np.fft.rfftn(rng.standard_normal((n, n, n)))
+    signal = np.zeros((n, n, n))
+    zones = []
+    for r0, r1, res in MONO_ZONES:
+        zone = (rad >= r0 * n / MONO_N) & (rad < r1 * n / MONO_N)
+        signal[zone] = _lowpass_3d(white, f <= MONO_TS / res, n)[zone]
+        zones.append(zone)
+    mask = rad < MONO_ZONES[-1][1] * n / MONO_N
+    halves = [(signal + MONO_NOISE * rng.standard_normal(signal.shape))
+              .astype(np.float32) for _ in range(2)]
+    return halves, mask, zones, Ts
+
+
+def fso_pairs(n: int, seed: int):
+    """FSO's isotropic and anisotropic pairs of n^3 half maps: white noise
+    inside MONO_ZONES' outer sphere, low-passed inside the sphere of
+    radius MONO_ANISO[0] cycles/px or inside the ellipsoid (kx^2 + ky^2)/a^2
+    + kz^2/c^2 <= 1 of MONO_ANISO, each half with independent noise of
+    MONO_NOISE. numpy, from `seed`."""
+    a, c = MONO_ANISO
+    rng = np.random.default_rng(seed + 1)
+    z, y, x = (np.arange(n) - n // 2 for _ in range(3))
+    rad = np.sqrt(z[:, None, None] ** 2 + y[None, :, None] ** 2
+                  + x[None, None, :] ** 2)
+    white = np.fft.rfftn(rng.standard_normal((n, n, n)) * (
+        rad < MONO_ZONES[-1][1] * n / MONO_N))
+    fz = np.fft.fftfreq(n)[:, None, None]
+    fy = np.fft.fftfreq(n)[None, :, None]
+    fx = np.fft.rfftfreq(n)[None, None, :]
+    pairs = {}
+    for key, keep in (("iso", fx ** 2 + fy ** 2 + fz ** 2 <= a ** 2),
+                      ("aniso", (fx ** 2 + fy ** 2) / a ** 2
+                       + fz ** 2 / c ** 2 <= 1)):
+        signal = _lowpass_3d(white, keep, n)
+        pairs[key] = [(signal + MONO_NOISE * rng.standard_normal(
+            signal.shape)).astype(np.float32) for _ in range(2)]
+    return pairs
+
+
+def fso_span(fso) -> float:
+    """The width in cycles/px of the shells whose FSO lies strictly between
+    0.1 and 0.9: how far the directional resolutions spread."""
+    fso = np.asarray(fso)
+    return float(((fso > 0.1) & (fso < 0.9)).sum() * 0.5 / len(fso))
+
+
+def zone_tolerances():
+    """Per zone, the relative width of one MonoRes band at its planted
+    frequency in phase 9's sweep (the default: 30 bands from 3 / MONO_N to
+    0.45 cycles/px): the least difference the map can show."""
+    f_lo, f_hi = 3.0 / MONO_N, min(1 / 2.2, 0.45)
+    step = (f_hi - f_lo) / 29
+    return [step / (MONO_TS / res) for _, _, res in MONO_ZONES]
+
+
+def zone_medians(res_map, zones, Ts):
+    """Per zone, the median local resolution (A) and its ratio to the
+    planted one at sampling Ts."""
+    out = []
+    for zone, (_, _, res) in zip(zones, MONO_ZONES):
+        planted = res * Ts / MONO_TS
+        med = float(np.median(res_map[zone]))
+        out.append({"planted_A": planted, "median_A": med,
+                    "ratio": med / planted})
+    return out
+
+
+def dose_numpy(frame, n: int, dose: float, Ts: float) -> np.ndarray:
+    """Frame n (0-based) of a movie weighted by the Grant & Grigorieff
+    critical-exposure fit at 300 kV, in float64 numpy: the plain version
+    of movie_filter_dose."""
+    H, W = frame.shape
+    k = np.maximum(np.sqrt(np.fft.fftfreq(H)[:, None] ** 2
+                           + np.fft.rfftfreq(W)[None, :] ** 2) / Ts, 1e-6)
+    q = np.exp(-dose * (n + 1) / (2.0 * (0.24499 * k ** -1.6649 + 2.8141)))
+    return np.fft.irfft2(np.fft.rfft2(np.asarray(frame, np.float64)) * q,
+                         s=(H, W))
+
+
+def movie_monores(seed, root: Path):
+    """Phase 9 in root: BASELINE config 5 - the movie path at a 4k
+    detector's size and the MonoRes programs on 256^3 half maps."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.programs import get_program
+    root.mkdir(parents=True)
+    f = lambda name: str(root / name)
+    load = lambda name: np.squeeze(Image(f(name)).data)
+    report, quality, failed = {}, {}, []
+
+    def limit(ok, msg):
+        """A quality limit: every one is read and reported before the
+        phase fails on any."""
+        if not ok:
+            failed.append(msg)
+
+    def run(label, name, args):
+        torch.cuda.empty_cache()
+        launch_counts(reset=True)
+        timing.take_timing()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prog = get_program(name)
+        t0 = time.perf_counter()
+        rc = prog.run_with_args([str(a) for a in args]
+                                + ["--device", DEVICE, "-v", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"phase 9 {label} ({name}): rc {rc}")
+        phases = {k: v[0] for k, v in timing.take_timing().items()}
+        r = report[label] = {
+            "program": name, "wall_s": wall, "phases_s": phases,
+            "rest_s": wall - sum(phases.values()),
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {label} ({name}): {wall:.3f} s, peak "
+            f"{r['peak_device_GB']:.2f} GB, phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+            + f", rest {r['rest_s']:.3f}")
+        check(not r["launches"], f"phase 9 {label}: launched "
+              f"{r['launches']}")
+        return prog
+
+    def shifts(name):
+        md = MetaData(f(name))
+        return np.stack([md.getColumn("shiftX"), md.getColumn("shiftY")], 1)
+
+    S, F = MOVIE_SIZE, MOVIE_FRAMES
+    start = time.perf_counter()
+    timing.enable_timing(True)
+    try:
+        log(f"phase 9: phantom_movie -size {S} {S} {F} --seed {seed} (ice, "
+            "dose and barrel distortion at their defaults)")
+        run("phantom", "phantom_movie", ["-o", f("movie.mrcs"), "-size", S,
+                                         S, F, "--seed", seed])
+        # the movie path: defaults (7 x 7 patches, --patchesAvg 3)
+        prog = run("align", "movie_alignment_correlation",
+                   ["-i", f("movie.mrcs"), "-o", f("shifts.xmd"), "--oavg",
+                    f("avg.mrc"), "--oavgInitial", f("avg0.mrc")])
+        field = np.asarray(prog.field)
+        med, worst = position_errors(shifts("shifts.xmd"),
+                                     shifts("movie_gt.xmd"))
+        ratio = band_power(load("avg.mrc")) / band_power(load("avg0.mrc"))
+        quality["align"] = {"pos_median_px": med, "pos_worst_px": worst,
+                            "band_power_ratio": ratio,
+                            "field_max_px": float(np.abs(field).max())}
+        log(f"  global positions vs the truth: median {med:.4f} px, worst "
+            f"{worst:.4f} px; aligned / initial average's power in "
+            f"{MOVIE_BAND} cycles/px {ratio:.4f}; local field up to "
+            f"{np.abs(field).max():.3f} px")
+        limit(med <= MOVIE_POS_MEDIAN_PX and worst <= MOVIE_POS_WORST_PX,
+              f"phase 9: positions off by {med:.4f} / {worst:.4f} px "
+              f"(limits {MOVIE_POS_MEDIAN_PX} / {MOVIE_POS_WORST_PX})")
+        limit(ratio >= MOVIE_BAND_RATIO, f"phase 9: the aligned average's "
+              f"band power is {ratio:.4f} x the initial's < "
+              f"{MOVIE_BAND_RATIO}")
+        # the global-plus-dose path and the kept stack
+        run("align_global_dose", "movie_alignment_correlation",
+            ["-i", f("movie.mrcs"), "-o", f("shifts_g.xmd"), "--oavg",
+             f("avg_dose.mrc"), "--skipLocalAlignment", "--dose_per_frame",
+             "1", "--oaligned", f("aligned.mrcs")])
+        same = float(np.abs(shifts("shifts_g.xmd")
+                            - shifts("shifts.xmd")).max())
+        kept = Image.read_stack(f("aligned.mrcs"))
+        quality["align_global_dose"] = {"max_pos_diff_px": same}
+        limit(same <= MOVIE_MESH_TOL and kept.shape == (F, S, S)
+              and np.isfinite(kept).all() and np.isfinite(
+                  load("avg_dose.mrc")).all(),
+              f"phase 9: the global run's positions differ by {same:.2e} px "
+              f"or its stack {kept.shape} is not finite")
+        del kept
+        os.remove(f("aligned.mrcs"))
+        # the mesh path: the patch axis over two gloo ranks on the card
+        mesh_dir = root / "mesh"
+        mesh_dir.mkdir()
+        wall, reps = run_ranks("movie_alignment_correlation",
+                               ["-i", f("movie.mrcs"), "-o", f("mesh.xmd"),
+                                "--oavg", f("avg_mesh.mrc"), "--mesh", "dp"],
+                               2, mesh_dir)
+        err = max(float(np.abs(np.asarray(rep["field"]) - field).max())
+                  for rep in reps)
+        report["mesh"] = {"wall_s": wall, "per_rank": [
+            {k: v for k, v in rep.items() if k != "field"} for rep in reps]}
+        quality["mesh"] = {"field_max_diff_px": err}
+        log(f"  movie_alignment_correlation --mesh dp over 2 ranks: "
+            f"{wall:.3f} s, field within {err:.2e} px of the serial one; "
+            + "; ".join(f"rank {r} {rep['wall_s']:.3f} s, peak "
+                        f"{rep['peak_device_GB']:.2f} GB" for r, rep in
+                        enumerate(reps)))
+        limit(err <= MOVIE_MESH_TOL, f"phase 9: the mesh field differs from "
+              f"the serial one by {err:.2e} px > {MOVIE_MESH_TOL}")
+        # dose weighting against numpy
+        run("filter_dose", "movie_filter_dose",
+            ["-i", f("movie.mrcs"), "-o", f("dosef.mrcs"), "--dosePerFrame",
+             "1", "--sampling", "1"])
+        raw, got = Image.read_stack(f("movie.mrcs")), \
+            Image.read_stack(f("dosef.mrcs"))
+        derr = 0.0
+        for n in (0, F - 1):
+            want = dose_numpy(raw[n], n, 1.0, 1.0)
+            derr = max(derr, float(np.abs(got[n] - want).max()
+                                   / np.abs(want).max()))
+        quality["filter_dose_vs_numpy"] = derr
+        log(f"  movie_filter_dose frames 0 and {F - 1} vs numpy: "
+            f"{derr:.3e} of the max")
+        limit(derr <= DOSE_TOL, f"phase 9: the dose filter differs from "
+              f"numpy by {derr:.3e}")
+        del raw, got
+        for name in ("movie.mrcs", "dosef.mrcs"):
+            os.remove(f(name))
+        # the gain: column and row defects planted on a higher-dose movie
+        run("phantom_gain", "phantom_movie",
+            ["-o", f("gm.mrcs"), "-size", S, S, MOVIE_GAIN_FRAMES, "--seed",
+             seed, "--dose", MOVIE_GAIN_DOSE])
+        gain = movie_gain(S, S, seed)
+        save_image(f("gained.mrcs"), Image.read_stack(f("gm.mrcs"))
+                   * gain[None])
+        prog = run("gain", "movie_estimate_gain",
+                   ["-i", f("gained.mrcs"), "--oroot", f("g"),
+                    "--frameStep", MOVIE_GAIN_STEP])
+        corr = float(np.corrcoef(prog.gain.ravel(),
+                                 (1.0 / gain).ravel())[0, 1])
+        quality["gain_corr"] = corr
+        log(f"  the estimated inverse gain correlates {corr:.4f} with the "
+            "planted one")
+        limit(corr >= MOVIE_GAIN_CORR, f"phase 9: the gain correlates "
+              f"{corr:.4f} < {MOVIE_GAIN_CORR}")
+        for name in ("gm.mrcs", "gained.mrcs"):
+            os.remove(f(name))
+
+        # the volume side
+        t0 = time.perf_counter()
+        halves, mask, zones, Ts = mono_halves(MONO_N, seed)
+        pairs = fso_pairs(MONO_N, seed)
+        mean = 0.5 * (halves[0] + halves[1])
+        k = MONO_TOMO_SLAB // 2
+        sl = slice(MONO_N // 2 - k, MONO_N // 2 + k)
+        for name, v in (("h1", halves[0]), ("h2", halves[1]), ("mean", mean),
+                        ("i1", pairs["iso"][0]), ("i2", pairs["iso"][1]),
+                        ("a1", pairs["aniso"][0]), ("a2", pairs["aniso"][1]),
+                        ("mask", mask.astype(np.float32)),
+                        ("t1", halves[0][sl]), ("t2", halves[1][sl]),
+                        ("tmask", mask[sl].astype(np.float32))):
+            save_image(f(f"{name}.vol"), v)
+        log(f"  half maps of {MONO_N}^3 at {Ts} A/px with zones planted at "
+            f"{[z[2] for z in MONO_ZONES]} A made with numpy in "
+            f"{time.perf_counter() - t0:.2f} s")
+        run("monores", "resolution_monogenic_signal",
+            ["--vol", f("h1.vol"), "--vol2", f("h2.vol"), "--mask",
+             f("mask.vol"), "-o", f("mr.vol"), "--sampling_rate", Ts])
+        mr = load("mr.vol")
+        zq = zone_medians(mr, zones, Ts)
+        quality["monores_zones"] = zq
+        log("  MonoRes median per zone: " + ", ".join(
+            f"{z['median_A']:.3f} A (planted {z['planted_A']}, ratio "
+            f"{z['ratio']:.4f})" for z in zq))
+        limit(all(abs(z["ratio"] - 1) <= t for z, t in zip(zq,
+                                                            MONO_ZONE_TOL)),
+              f"phase 9: a zone's median resolution is off its plant by "
+              f"more than {MONO_ZONE_TOL}: {zq}")
+        prog = run("monotomo", "resolution_monotomo",
+                   ["--vol", f("t1.vol"), "--vol2", f("t2.vol"), "--mask",
+                    f("tmask.vol"), "-o", f("mt.vol"), "--sampling_rate",
+                    Ts])
+        mt = load("mt.vol")
+        quality["monotomo_median_A"] = prog.median_resolution
+        limit(mt.shape == (MONO_TOMO_SLAB, MONO_N, MONO_N)
+              and np.isfinite(mt).all() and 2 * Ts <= prog.median_resolution
+              <= 30, f"phase 9: monotomo's map {mt.shape}, median "
+              f"{prog.median_resolution}")
+        spans = {}
+        for key, pair in (("iso", ("i1", "i2")), ("aniso", ("a1", "a2"))):
+            prog = run(f"fso_{key}", "resolution_fso",
+                       ["--half1", f(pair[0] + ".vol"), "--half2",
+                        f(pair[1] + ".vol"), "-o", f(f"fso_{key}.xmd"),
+                        "--sampling", Ts])
+            spans[key] = fso_span(prog.fso)
+        quality["fso_span"] = spans
+        log(f"  FSO between 0.1 and 0.9 over {spans['iso']:.4f} cycles/px "
+            f"for the isotropic pair, {spans['aniso']:.4f} for the "
+            "anisotropic one")
+        limit(spans["iso"] <= FSO_SPAN_ISO_MAX
+              and spans["aniso"] >= FSO_SPAN_ANISO_MIN,
+              f"phase 9: FSO spans {spans} (limits iso <= "
+              f"{FSO_SPAN_ISO_MAX}, aniso >= {FSO_SPAN_ANISO_MIN})")
+        run("localfilter", "resolution_localfilter",
+            ["--vol", f("mean.vol"), "--resvol", f("mr.vol"), "-o",
+             f("lf.vol"), "--sampling", Ts])
+        prog = run("bfactor", "volume_correct_bfactor",
+                   ["-i", f("mean.vol"), "-o", f("bf.vol"), "--sampling", Ts,
+                    "--auto"])
+        quality["bfactor_A2"] = prog.B
+        run("structure_factor", "volume_structure_factor",
+            ["-i", f("mean.vol"), "-o", f("sf.xmd"), "--sampling", Ts])
+        sf = MetaData(f("sf.xmd")).getColumn("logStructureFactor")
+        for name in ("lf.vol", "bf.vol"):
+            v = load(name)
+            limit(v.shape == mean.shape and np.isfinite(v).all(),
+                  f"phase 9: {name} of shape {v.shape}, finite "
+                  f"{np.isfinite(v).all()}")
+        limit(len(sf) == MONO_N // 2 and np.isfinite(sf).all(),
+              f"phase 9: {len(sf)} structure-factor shells")
+        run("directional", "resolution_directional",
+            ["--vol", f("mean.vol"), "--mask", f("mask.vol"), "--oroot",
+             f("md"), "--sampling_rate", Ts])
+        md = load("md_monores.vol")
+        inner, outer = float(md[zones[0]].mean()), \
+            float(md[zones[-1]].mean())
+        quality["directional"] = {"inner_mean_A": inner,
+                                  "outer_mean_A": outer}
+        log(f"  resolution_directional: mean resolution {inner:.3f} A in "
+            f"the inner zone, {outer:.3f} A in the outer")
+        limit(np.isfinite(md).all() and inner < outer,
+              f"phase 9: directional inner {inner} vs outer {outer}")
+        report["quality"] = quality
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+        shutil.rmtree(root, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - start
+    log(f"  phase 9 took {report['phase_s']:.2f} s")
+    log("movie " + json.dumps(report))
+    check(not failed, "; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -2038,6 +2489,8 @@ def main(argv=None) -> int:
         log("phase 8: CTF estimation from micrographs and PSDs (BASELINE "
             "config 2)")
         ctf_estimation(args.seed, root / "ctfest")
+        log("phase 9: movie alignment and MonoRes (BASELINE config 5)")
+        movie_monores(args.seed, root / "movie")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

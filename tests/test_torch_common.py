@@ -245,22 +245,31 @@ for name in list_programs():
 from xmipp3_tpu_torch.core import image_formats, metadata_program, sampling
 from xmipp3_tpu_torch.ops import (align, arma, cross, ctf, denoise, dft_mm,
                                   features, fourier, fourier_filter, fsc,
-                                  geo, mask, match, normalize, polar,
-                                  project, psd, reconstruct, resize, scatter,
-                                  scatter_kb, scatter_tri, shear_rotate,
-                                  shift, spatial_filters)
+                                  geo, mask, match, monogenic, movie,
+                                  normalize, polar, project, psd,
+                                  reconstruct, resize, scatter, scatter_kb,
+                                  scatter_tri, shear_rotate, shift,
+                                  spatial_filters)
 from xmipp3_tpu_torch.programs import (ctf_correct, ctf_estimate,
-                                       image_align, resolution_dir,
-                                       resolution_fsc, transform_filter,
-                                       transform_geometry,
+                                       final_batch, image_align,
+                                       movie_alignment, resolution_dir,
+                                       resolution_fsc, resolution_misc,
+                                       transform_filter, transform_geometry,
                                        transform_normalize)
 from xmipp3_tpu_torch.models import ctf_estimation
-from xmipp3_tpu_torch.parallel import cli, engines, match, mesh, reconstruct
+from xmipp3_tpu_torch.parallel import (cli, engines, match, mesh, movie,
+                                       reconstruct)
 for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "ctf_estimate_from_psd_fast", "ctf_group", "ctf_sort_psds",
              "ctf_enhance_psd", "ctf_estimate_psd_with_arma",
-             "psd_estimate"):
-    get_program(name)
+             "psd_estimate", "movie_alignment_correlation",
+             "cuda_movie_alignment_correlation", "movie_filter_dose",
+             "movie_estimate_gain", "phantom_movie",
+             "resolution_monogenic_signal", "resolution_monotomo",
+             "resolution_fso", "resolution_localfilter",
+             "volume_correct_bfactor", "volume_structure_factor",
+             "resolution_directional"):
+    assert get_program(name) is not None, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"
              or m.startswith("xmipp3_tpu."))
@@ -423,9 +432,11 @@ def _rank_main(spec_path: str, rank: int) -> None:
     from xmipp3_tpu_torch.core.metadata import MetaData
     from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
     from xmipp3_tpu_torch.parallel import match as pm
+    from xmipp3_tpu_torch.parallel import movie as pmov
     from xmipp3_tpu_torch.parallel import reconstruct as pr
     from xmipp3_tpu_torch.parallel.cli import maybe_init_distributed
     from xmipp3_tpu_torch.programs import get_program
+    from xmipp3_tpu_torch.programs import movie_alignment as ma_prog
     from xmipp3_tpu_torch.programs import reconstruct_fourier as rf_prog
     torch.set_num_threads(1)
     spec = json.loads(Path(spec_path).read_text())
@@ -443,6 +454,7 @@ def _rank_main(spec_path: str, rank: int) -> None:
         return wrapper
 
     rf_prog.save_image = counted(rf_prog.save_image)
+    ma_prog.save_image = counted(ma_prog.save_image)
     MetaData.write = counted(MetaData.write)
     report = {"rank": rank, "jobs": {}}
     for job in spec["jobs"]:
@@ -464,7 +476,8 @@ def _rank_main(spec_path: str, rank: int) -> None:
                 assert maybe_init_distributed(flags)
                 try:
                     got["backend"] = dist.get_backend()
-                    fn = getattr(pr, job["fn"], None) or getattr(pm, job["fn"])
+                    fn = next(getattr(m, job["fn"]) for m in (pr, pm, pmov)
+                              if hasattr(m, job["fn"]))
                     out = fn(_rank_mesh(job["mesh"], device),
                              *(inputs[k] for k in job["args"]),
                              **{k: inputs[v] for k, v in
@@ -472,6 +485,8 @@ def _rank_main(spec_path: str, rank: int) -> None:
                              **job.get("kwargs", {}))
                     if isinstance(out, torch.Tensor):
                         out = {"vol": out}
+                    elif isinstance(out, tuple):
+                        out = {f"out{i}": v for i, v in enumerate(out)}
                     np.savez(Path(spec_path).parent /
                              f"out_{job['name']}_r{rank}.npz",
                              **{k: v.cpu().numpy() if torch.is_tensor(v)

@@ -1,9 +1,11 @@
 """On a card only: each CUDA kernel of the port against its plain version,
 and the whole reconstruction (plain and --useCTF), phase flipping, the
 matching program, the 2-D path (the order-3 B-spline warp, alignment
-and the Fourier filter) and CTF estimation (the fitness, a whole staged
+and the Fourier filter), CTF estimation (the fitness, a whole staged
 fit, the periodogram against numpy, and compass rounds that never wait
-for the host) on the card against the same on the CPU.
+for the host) and the movie and MonoRes path (phantom frames, global and
+local alignment with the warp, the float64 gain estimate, MonoRes and
+FSO) on the card against the same on the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -788,3 +790,111 @@ def test_periodogram_on_the_card_matches_numpy():
     tiles *= tpsd.tile_window(256).astype(np.float64)
     want = (np.abs(np.fft.rfft2(tiles)) ** 2 / 256 ** 2).mean(0)
     assert rel_err(got, want) <= 1e-4
+
+
+def _drift_movie(F=6, n=256, seed=12):
+    """A band-limited random scene drifting 1.3 px right and 0.7 px up a
+    frame, plus noise (numpy)."""
+    rng = np.random.default_rng(seed)
+    f = np.sqrt(np.fft.fftfreq(n)[:, None] ** 2
+                + np.fft.rfftfreq(n)[None, :] ** 2)
+    spec = np.fft.rfft2(rng.standard_normal((n, n))) * (f <= 0.2)
+    ky = np.fft.fftfreq(n)[:, None]
+    kx = np.fft.rfftfreq(n)[None, :]
+    frames = [np.fft.irfft2(spec * np.exp(-2j * np.pi * (kx * 1.3 * t
+                                                         - ky * 0.7 * t)),
+                            s=(n, n)) * 10
+              + 0.5 * rng.standard_normal((n, n)) for t in range(F)]
+    return np.stack(frames).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("avg", [1, 3])
+def test_movie_alignment_on_the_card_matches_the_cpu(avg):
+    require_cuda()
+    from xmipp3_tpu_torch.ops import movie as tm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames = _drift_movie()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pos = tm.global_align(frames, 10, device=dev)
+        out[dev] = (pos, *tm.local_align(frames, pos, patches=(3, 3),
+                                         patch_size=96, max_shift_px=4,
+                                         patches_avg=avg, device=dev))
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= 0.02
+    assert np.abs(out["cuda"][1] - out["cpu"][1]).max() <= 0.02
+    # the warp on one field (0.02 px of field moves a sharp scene's sum by
+    # more than 1e-4 of its max), away from the frame's border: there one
+    # tile covers a pixel and its window's 1e-3 floor divides the FFTs'
+    # roundoff back out (7.5e-4 of the max on the H100)
+    pos, field, cys, cxs = out["cpu"]
+    warp = {dev: tm.warp_sum_frames_tiled(frames, field + pos[None, None],
+                                          cys, cxs, tile=64, device=dev)
+            for dev in ("cpu", "cuda")}
+    assert warp["cuda"].is_cuda
+    inner = (slice(32, -32), slice(32, -32))
+    assert rel_err(warp["cuda"][inner], warp["cpu"][inner]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gain_estimate_on_the_card_matches_the_cpu():
+    require_cuda()
+    from xmipp3_tpu_torch.ops import movie as tm
+    rng = np.random.default_rng(6)
+    g = (1 + 0.1 * rng.standard_normal(96))[None, :] * \
+        (1 + 0.05 * rng.standard_normal(80))[:, None]
+    frames = rng.poisson(30.0 * g, (4, 80, 96)).astype(np.float32)
+    got = tm.estimate_gain_histogram(frames, n_iter=2, device="cuda")
+    want = tm.estimate_gain_histogram(frames, n_iter=2, device="cpu")
+    assert rel_err(got, want) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_phantom_movie_on_the_card_matches_the_cpu(tmp_path):
+    require_cuda()
+    from xmipp3_tpu_torch.core.image import Image
+    from xmipp3_tpu_torch.programs import get_program
+    for dev in ("cpu", "cuda"):
+        assert get_program("phantom_movie").run_with_args(
+            ["-o", str(tmp_path / f"{dev}.mrcs"), "-size", "192", "160", "5",
+             "--skipDose", "--seed", "3", "--device", dev, "-v", "0"]) == 0
+    got, want = (Image.read_stack(str(tmp_path / f"{d}.mrcs"))
+                 for d in ("cuda", "cpu"))
+    assert rel_err(got, want) <= 1e-5
+
+
+def _zone_halves(n=48, seed=4):
+    """Two half maps of a white signal low-passed to 0.3 inside a sphere
+    of radius n/3 and to 0.15 outside it, with independent noise."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.mgrid[:n, :n, :n] - n // 2
+    inner = z * z + y * y + x * x < (n / 3) ** 2
+    f = np.sqrt(np.fft.fftfreq(n)[:, None, None] ** 2
+                + np.fft.fftfreq(n)[None, :, None] ** 2
+                + np.fft.rfftfreq(n)[None, None, :] ** 2)
+    spec = np.fft.rfftn(rng.standard_normal((n, n, n)))
+    lo = lambda c: np.fft.irfftn(spec * (f <= c), s=(n, n, n),
+                                 axes=(0, 1, 2))
+    signal = np.where(inner, lo(0.3), lo(0.15))
+    return [(signal + 0.3 * rng.standard_normal(signal.shape)).astype(
+        np.float32) for _ in range(2)], inner
+
+
+@pytest.mark.cuda
+def test_monores_and_fso_on_the_card_match_the_cpu():
+    require_cuda()
+    from xmipp3_tpu_torch.ops import monogenic as tmono
+    (h1, h2), inner = _zone_halves()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        res, freqs, frac = tmono.local_resolution_monores(
+            0.5 * (h1 + h2), inner, 1.0, noise_vol=0.5 * (h1 - h2),
+            device=dev)
+        out[dev] = (res.cpu().numpy(), frac,
+                    tmono.fso_directional(h1, h2, 1.0, device=dev)[1])
+    got, want = out["cuda"], out["cpu"]
+    same = np.isclose(got[0][inner], want[0][inner], rtol=1e-6)
+    assert same.mean() >= 0.999
+    assert np.abs(got[1] - want[1]).max() <= 1e-3
+    np.testing.assert_array_equal(got[2], want[2])
+

@@ -18,6 +18,11 @@ reference's on the CPU, and backproject_chunk's kz-slab mode.
   dp|tp|slab|slab2d|auto (volumes 1e-4, assignment rows as in
   test_torch_cli_match.py). Every rank returns the same result, only rank
   0 writes files, and no rank imports jax or the reference package.
+- local_align_mesh on 2 ranks (the patch axis sharded): its field equals
+  the port's serial local_align to 1e-3 px and the reference's
+  local_align_mesh on 2 virtual devices to 0.02 px, on every rank; and
+  movie_alignment_correlation --mesh dp on 2 ranks writes (rank 0 only)
+  the shifts and average of the port's serial run (1e-4).
 - On one rank (no process group): --mesh auto is the serial path, and
   dp|tp|slab|slab2d raise the reference's RuntimeError.
 
@@ -38,11 +43,13 @@ from xmipp3_tpu.ops import reconstruct as jrec
 from xmipp3_tpu.parallel import match as jpm
 from xmipp3_tpu.parallel import reconstruct as jpr
 from xmipp3_tpu.parallel.mesh import data_mesh as jax_data_mesh
+from xmipp3_tpu.parallel.movie import local_align_mesh as jax_local_align_mesh
 from xmipp3_tpu.programs import get_program as jax_program
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.core.image import Image, save_image
 from xmipp3_tpu_torch.core.metadata import MetaData
 from xmipp3_tpu_torch.core.sampling import directions_from_angles
+from xmipp3_tpu_torch.ops import movie as tmovie
 from xmipp3_tpu_torch.ops import reconstruct as trec
 from xmipp3_tpu_torch.ops.geo import apply_alignment_2d
 from xmipp3_tpu_torch.parallel.cli import resolve_mesh
@@ -217,8 +224,34 @@ CTF_FLAGS = ["--useCTF", "--sampling", "4", "--minCTF", "0.3"]
 MATCH_MODES = {"dp": 2, "tp": 2, "slab": 2, "slab2d": 4, "auto": 2}
 
 
+# local_align_mesh on 2 ranks: (patches, patch size, max shift, avg)
+MOVIE_KW = {"patches": [3, 3], "patch_size": 96, "max_shift_px": 4,
+            "patches_avg": 3}
+MOVIE_FLAGS = ["--patches", "3", "3", "--minLocalRes", "96", "--maxShift",
+               "10", "--sampling", "1"]
+
+
+def _movie_dataset(d):
+    """tests/test_mesh_cli.py:138's movie: crops of one random field moved
+    by (-i, +i) px a frame; its global positions; written as a stack."""
+    rng = np.random.default_rng(0)
+    F, H, W = 6, 256, 256
+    base = rng.standard_normal((H + 16, W + 16)).astype(np.float32)
+    frames = np.stack([base[4 + i: 4 + i + H, 8 - i: 8 - i + W]
+                       for i in range(F)])
+    save_image(str(d / "movie.mrcs"), frames)
+    return frames, tmovie.global_align(frames, 10, device="cpu")
+
+
 def _cli_jobs(d, ranks):
     jobs = []
+    if ranks == 2:
+        jobs.append({"name": "movie_dp", "program":
+                     "movie_alignment_correlation", "argv": [
+                         "-i", str(d / "movie.mrcs"), "-o",
+                         str(d / "movie_dp.xmd"), "--oavg",
+                         str(d / "movie_dp.mrc"), "--mesh", "dp",
+                         *MOVIE_FLAGS]})
     for mode, n in REC_MODES.items():
         if n == ranks:
             ctf = mode.endswith("_ctf")
@@ -273,14 +306,30 @@ def meshes(tmp_path_factory):
     inputs = {k: b[k] for k in ("imgs", "rot", "tilt", "psi", "sx", "sy",
                                 "w", "flip", "imgs_f", "sx_f")}
     inputs.update(refs=refs, mimgs=mimgs, allowed=allowed)
+    inputs["movie"], inputs["movie_pos"] = _movie_dataset(d)
     spawns = {}
     for n in (2, 4):
         jobs = [dict(job, name=name, fn=job.get("fn", name))
                 for name, (k, job) in FUNCS.items() if k == n]
+        if n == 2:
+            jobs.append({"name": "local_align_mesh", "fn":
+                         "local_align_mesh", "mesh": "data",
+                         "args": ["movie", "movie_pos"],
+                         "kwargs": MOVIE_KW})
         (d / f"w{n}").mkdir()
         spawns[n] = Ranks(n, jobs + _cli_jobs(d, n), d / f"w{n}", inputs)
 
     ref = {"funcs": _reference_funcs(inputs)}
+    kw = dict(MOVIE_KW, patches=tuple(MOVIE_KW["patches"]))
+    ref["local_align_mesh"] = jax_local_align_mesh(
+        jax_data_mesh(2), inputs["movie"], inputs["movie_pos"], **kw)
+    ref["local_align"] = tmovie.local_align(
+        inputs["movie"], inputs["movie_pos"], device="cpu", **kw)
+    out = d / "movie_serial.xmd"
+    assert get_program("movie_alignment_correlation").run_with_args(
+        ["-i", str(d / "movie.mrcs"), "-o", str(out), "--oavg",
+         str(d / "movie_serial.mrc"), "--device", "cpu", "-v", "0",
+         *MOVIE_FLAGS]) == 0
     rec_args = ["-i", str(d / "parts.xmd"), "--interp", "tri", "--weight",
                 "-v", "0"]
     for mode in ("dp", "slab", "slab2d"):
@@ -428,6 +477,33 @@ def test_matching_cli_mesh_matches_the_reference(meshes, mode):
     want = meshes["ref"]["match_" + ("tp" if mode == "tp" else "dp")]
     _hold_rows(_rows(meshes["dir"] / f"match_{mode}.xmd"), want,
                meshes["gallery"])
+
+
+def test_local_align_mesh_matches_serial_and_reference(meshes):
+    serial, cys, cxs = meshes["ref"]["local_align"]
+    want = meshes["ref"]["local_align_mesh"]
+    got = _port_out(meshes, "local_align_mesh", 2)
+    assert np.array_equal(got["out1"], cys) and \
+        np.array_equal(got["out2"], cxs)
+    assert got["out0"].shape == serial.shape == (3, 3, 6, 2)
+    assert np.abs(got["out0"] - serial).max() <= 1e-3
+    assert np.abs(got["out0"] - want[0]).max() <= 0.02
+    np.testing.assert_array_equal(
+        _port_out(meshes, "local_align_mesh", 2, 1)["out0"], got["out0"])
+
+
+def test_movie_cli_mesh_dp_matches_the_serial_run(meshes):
+    _cli_report(meshes, "movie_dp", 2)
+    d = meshes["dir"]
+    for stem in ("dp", "serial"):
+        assert (d / f"movie_{stem}.mrc").exists()
+    sh = [np.stack([MetaData(str(d / f"movie_{s}.xmd")).getColumn(c)
+                    for c in ("shiftX", "shiftY")], 1)
+          for s in ("dp", "serial")]
+    np.testing.assert_array_equal(sh[0], sh[1])
+    assert rel_err(np.squeeze(Image(str(d / "movie_dp.mrc")).data),
+                   np.squeeze(Image(str(d / "movie_serial.mrc")).data)) \
+        <= 1e-4
 
 
 # -- one rank, no process group ----------------------------------------------

@@ -34,8 +34,24 @@ _REGISTRY: dict[str, str] = {
     "ctf_estimate_psd_with_arma":
         _P + "resolution_dir:ProgCTFEstimatePSDWithARMA",
     "psd_estimate": _P + "resolution_dir:ProgPSDEstimate",
-    # the reference's alias (programs/registry.py:216)
+    "resolution_directional": _P + "resolution_dir:ProgResolutionDirectional",
+    "movie_alignment_correlation":
+        _P + "movie_alignment:ProgMovieAlignmentCorrelation",
+    "movie_filter_dose": _P + "movie_alignment:ProgMovieFilterDose",
+    "movie_estimate_gain": _P + "movie_alignment:ProgMovieEstimateGain",
+    "phantom_movie": _P + "final_batch:ProgPhantomMovie",
+    "resolution_monogenic_signal": _P + "resolution_misc:ProgMonoRes",
+    "resolution_monotomo": _P + "resolution_misc:ProgMonoTomo",
+    "resolution_fso": _P + "resolution_misc:ProgFSO",
+    "resolution_localfilter":
+        _P + "resolution_misc:ProgResolutionLocalFilter",
+    "volume_correct_bfactor": _P + "resolution_misc:ProgVolumeCorrectBfactor",
+    "volume_structure_factor":
+        _P + "resolution_misc:ProgVolumeStructureFactor",
+    # the reference's aliases (programs/registry.py:216, :346)
     "ctf_correct_phase": _P + "ctf_correct:ProgCTFPhaseFlip",
+    "cuda_movie_alignment_correlation":
+        _P + "movie_alignment:ProgMovieAlignmentCorrelation",
 }
 
 
