@@ -162,14 +162,40 @@ Phases; any failure exits non-zero before the result line is printed:
    planned with tools/plan_movie_monores.py). A `movie {...}` line gives
    each program's wall, phases, untimed rest and peak device memory, and
    the quality. No kernel runs in it.
-10. A line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+10. BASELINE config 4's CL2D half through the CLI at N=128: 10,000 views
+   of 16 directions of phase 4's 5-degree gallery chosen far apart
+   (farthest-point sampling, a direction and its antipode one view), 625
+   each, of the 8-blob phantom, each with psi uniform, shifts in +-4 px,
+   half mirrored, and noise of 1 sigma of the class images (numpy recipe,
+   rendered on the card); the planted registration is written as
+   image_align writes one, and it must undo the plant. classify_CL2D
+   --nref 16 --nref0 4 --iter 10, serially and with --mesh dp over 2 gloo
+   ranks; classify_CL2D_core_analysis --computeCore 3 2 and
+   --computeStableCore 1; ml_align2d --nref 16 --mirror --iter 10,
+   serially and with --mesh dp; mlf_align2d the same on the views through
+   4 planted CTFs at 2 A/px; classify_kerdensom --xdim 7 --ydim 7 on each
+   view's rotational spectrum; angular_accuracy_pca --ref the phantom on
+   the planted poses with 5 % of the rows moved by 15 degrees. Checks,
+   with limits planned by tools/plan_classify.py: purity and directions
+   won (CL2D, ML2D, MLF2D), the mesh runs against the serial ones, every
+   core a subset of its classes and as pure, a stable core, the LL rising
+   without a dip, the class averages against their clean image, the
+   SOM's node purity, the moved rows' AUC, K4 launched in the CL2D and ML
+   runs; every output finite and of its shape. K4 is held against its
+   plain version at ML2D's shape (1024, 61, 32, 257, no mirror) and timed
+   beside the plain version and the complex einsum. A `classify {...}`
+   line gives each program's wall, phases, untimed rest and peak device
+   memory, and the quality.
+11. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+   with phase 10's ML2D launches) and, last, {"ok": true, "device":
+   {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
 from beside itself (from any working directory), builds every kernel from
 the checkout's sources and writes its data under chip_smoke_data/ in the
 checkout, which it removes at the end. Without a card, or without the
 package beside it, it exits 2 and prints no result. (`chip_smoke.py
---mesh-rank <program> <args>` is a rank of phases 5 and 9: it runs one
+--mesh-rank <program> <args>` is a rank of phases 5, 9 and 10: it runs one
 program and prints its launch counts, phase seconds and peak memory.)
 """
 from __future__ import annotations
@@ -923,7 +949,7 @@ MESH_RUNS = (  # (program, mode, ranks)
 
 
 def mesh_rank(argv) -> int:
-    """One rank of phases 5 and 9: run the program of argv with every
+    """One rank of phases 5, 9 and 10: run the program of argv with every
     launch count at 0 and phase timing on, then print a line RANK {rc,
     wall_s, launches, phases_s, peak_device_GB} with the program's local
     shift field (`field`) where it keeps one."""
@@ -2218,7 +2244,9 @@ def movie_monores(seed, root: Path):
         phases = {k: v[0] for k, v in timing.take_timing().items()}
         r = report[label] = {
             "program": name, "wall_s": wall, "phases_s": phases,
-            "rest_s": wall - sum(phases.values()),
+            # scan and refine are timed inside match_to_gallery's calls
+            "rest_s": wall - sum(v for k, v in phases.items()
+                                 if k not in ("scan", "refine")),
             "launches": {k: v for k, v in launch_counts().items() if v},
             "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
         log(f"  {label} ({name}): {wall:.3f} s, peak "
@@ -2433,6 +2461,647 @@ def movie_monores(seed, root: Path):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 10: BASELINE config 4's CL2D half - 2-D classification through the
+# CLI: CL2D (serial and --mesh dp), its core analysis, ML2D (serial and
+# --mesh dp), MLF2D with CTFs, KerDenSOM and angular_accuracy_pca
+# ---------------------------------------------------------------------------
+
+CLS_DIRS = 16                 # directions of phase 4's gallery, far apart
+CLS_SHIFT = 4.0               # shifts uniform in +-4 px per axis at N=128
+# noise sigma over the mean std of the 16 clean class images (SNR 1)
+CLS_NOISE = 1.0
+CLS_NREF, CLS_NREF0, CLS_ITER = 16, 4, 10
+CLS_SOM = (7, 7)
+# KerDenSOM: standardised spectra, regularisation 10 -> 1 (at the program's
+# 1000 -> 100 the map's code vectors collapse onto each other here)
+CLS_SOM_FLAGS = ("--norm", "--reg0", 10, "--regF", 1)
+CLS_HARMONICS = 64            # the rotational spectrum's length
+CLS_CTF_GROUPS = 4
+CLS_MOVED, CLS_MOVE_DEG = 0.05, 15.0   # angular_accuracy_pca's moved rows
+ML2D_SHAPE = (1024, 61, 32, 257)       # K4 in ML2D's E-step: B, nr, R, k
+# limits: twice the shortfall that tools/plan_classify.py read of the
+# reference package on the same recipe (2,000 views, the ML programs on
+# 1,000; PERF.md §6): CL2D purity 0.6505 and 13 directions won,
+# its --mesh dp run's classes those of the serial run for 1.0 of the
+# views, ML2D 0.928 / 15, MLF2D 0.771 / 13, the class averages' median
+# correlation 0.9919 / 0.8591, the moved rows' AUC 0.99924; KerDenSOM's
+# node purity 0.433, held to half (twice its distance to 1 is below 0)
+CLS_CL2D_PURITY = 0.30
+CLS_CL2D_WON = 10
+CLS_MESH_SAME = 1.0           # CL2D mesh run: views in the serial class
+CLS_ML2D_PURITY = 0.54
+CLS_ML2D_WON = 10
+CLS_AVG_CORR = 0.71           # class averages against their clean image
+CLS_MESH_REF_TOL, CLS_MESH_FRAC_TOL = 1e-3, 1e-4
+CLS_SOM_PURITY = 0.21
+CLS_AUC = 0.998
+
+
+def classify_recipe(n: int, views: int, seed: int):
+    """Phase 10's data, drawn with numpy from the seed: the CLS_DIRS
+    directions of the 5-degree gallery chosen by farthest-point sampling
+    (a direction and its antipode count as one view), each view's
+    direction label (views / CLS_DIRS each, in random order), its 2-D
+    transform G (content moved by G: x-mirror of half the views, psi
+    uniform on [0, 360), shifts uniform in +-CLS_SHIFT * n / N px) and the
+    Generator for the noise."""
+    from xmipp3_tpu_torch.core.sampling import (Sampling,
+                                                directions_from_angles)
+    from xmipp3_tpu_torch.ops.geo import alignment_matrices_2d
+    angles = Sampling(GALLERY_RATE).angles
+    d = directions_from_angles(angles)
+    chosen = [0]
+    near = np.abs(d @ d[0])
+    for _ in range(CLS_DIRS - 1):
+        k = int(np.argmin(near))
+        chosen.append(k)
+        near = np.maximum(near, np.abs(d @ d[k]))
+    rng = np.random.default_rng(seed + 10)
+    label = rng.permutation(np.repeat(np.arange(CLS_DIRS),
+                                      -(-views // CLS_DIRS))[:views])
+    psi = rng.uniform(0, 360, views)
+    sx, sy = rng.uniform(-CLS_SHIFT, CLS_SHIFT, (2, views)) * n / N
+    mirror = rng.uniform(size=views) < 0.5
+    G = alignment_matrices_2d(psi.astype(np.float32), sx.astype(np.float32),
+                              sy.astype(np.float32), device="cpu").numpy()
+    G = G.astype(np.float64) @ np.where(mirror[:, None, None],
+                                        np.diag([-1.0, 1.0, 1.0]), np.eye(3))
+    return dict(angles=angles[chosen], label=label, G=G, mirror=mirror,
+                rng=rng)
+
+
+def registration_rows(G, mirror):
+    """The registration that undoes each plant, as image_align writes it:
+    (psi, shiftX, shiftY) with ops.geo's metadata matrix
+    M_x^flip R(-psi) T(s) = G^-1."""
+    Minv = np.linalg.inv(G)
+    R = np.where(mirror[:, None, None], np.diag([-1.0, 1.0, 1.0]),
+                 np.eye(3)) @ Minv                       # R(-psi) T(s)
+    psi = np.degrees(np.arctan2(R[:, 1, 0], R[:, 0, 0]))
+    s = np.linalg.solve(R[:, :2, :2], R[:, :2, 2:3])[..., 0]
+    return psi, s[:, 0], s[:, 1]
+
+
+def classify_views(n: int, views: int, seed: int, device, batch: int = 1000):
+    """(class images (CLS_DIRS, n, n), clean views (V, n, n), noise (V, n,
+    n), recipe) as float32 numpy: each class image the analytic projection
+    of BLOBS8 (centres scaled by n / N) along its direction, each view that
+    projection moved by its G, evaluated on `device` a batch at a time;
+    the noise is Gaussian of CLS_NOISE times the class images' mean std,
+    drawn with numpy."""
+    import torch
+    from xmipp3_tpu_torch.core.geometry import euler_matrix
+    rec = classify_recipe(n, views, seed)
+    A = np.asarray(euler_matrix(rec["angles"][:, 0], rec["angles"][:, 1],
+                                np.zeros(CLS_DIRS)), np.float64)
+    c = np.array([[cx, cy, cz] for cz, cy, cx, _, _ in BLOBS8]) * n / N
+    px, py = A[:, 0] @ c.T, A[:, 1] @ c.T                  # (dirs, blobs)
+    s = torch.as_tensor([b[3] for b in BLOBS8], dtype=torch.float64,
+                        device=device)
+    amp = torch.as_tensor([b[4] * b[3] * np.sqrt(2 * np.pi) for b in BLOBS8],
+                          dtype=torch.float64, device=device)
+    g = torch.arange(n, dtype=torch.float64, device=device) - n // 2
+    y, x = g[:, None], g[None, :]
+
+    def render(Gb, lab):
+        Gb = torch.as_tensor(Gb, device=device)
+        bx = torch.as_tensor(px[lab], device=device)       # (b, blobs)
+        by = torch.as_tensor(py[lab], device=device)
+        qx = Gb[:, 0, 0, None] * bx + Gb[:, 0, 1, None] * by + Gb[:, 0, 2, None]
+        qy = Gb[:, 1, 0, None] * bx + Gb[:, 1, 1, None] * by + Gb[:, 1, 2, None]
+        out = torch.zeros((len(Gb), n, n), dtype=torch.float64, device=device)
+        for j in range(len(BLOBS8)):
+            out += amp[j] * torch.exp(
+                -((x - qx[:, j, None, None]) ** 2
+                  + (y - qy[:, j, None, None]) ** 2) / (2 * s[j] ** 2))
+        return out.to(torch.float32).cpu().numpy()
+
+    classes = render(np.tile(np.eye(3), (CLS_DIRS, 1, 1)),
+                     np.arange(CLS_DIRS))
+    clean = np.concatenate([render(rec["G"][lo:lo + batch],
+                                   rec["label"][lo:lo + batch])
+                            for lo in range(0, views, batch)])
+    sigma = CLS_NOISE * float(classes.std(axis=(1, 2)).mean())
+    noise = sigma * rec["rng"].standard_normal(clean.shape, dtype=np.float32)
+    return classes, clean, noise, rec
+
+
+def rotational_spectra(imgs, device, batch: int = 2000):
+    """Each image's rotational spectrum: the log of the ring power per
+    angular harmonic 1..CLS_HARMONICS of its ring FFTs (rings 2..n/2-2 on
+    the default polar grid), summed over the rings; psi- and
+    mirror-invariant. (V, CLS_HARMONICS) float32 numpy."""
+    import torch
+    from xmipp3_tpu_torch.ops.polar import cartesian_to_polar, ring_ffts
+    n = imgs.shape[-1]
+    out = []
+    for lo in range(0, len(imgs), batch):
+        f = ring_ffts(cartesian_to_polar(torch.as_tensor(
+            imgs[lo:lo + batch], device=device), 2, n // 2 - 2))
+        p = (f[..., 1:CLS_HARMONICS + 1].abs() ** 2).sum(dim=1)
+        out.append(torch.log(p + 1e-12).cpu().numpy())
+    return np.concatenate(out).astype(np.float32)
+
+
+def class_purity(assign, label):
+    """(the share of views whose class's majority direction is their own,
+    the number of directions that are some class's majority)."""
+    assign, label = np.asarray(assign), np.asarray(label)
+    right, won = 0, set()
+    for k in np.unique(assign):
+        lab = label[assign == k]
+        vals, counts = np.unique(lab, return_counts=True)
+        right += counts.max()
+        won.add(int(vals[np.argmax(counts)]))
+    return right / len(label), len(won)
+
+
+def same_classes(a, b):
+    """The share of views that two classifications put in the same class,
+    each class of `a` paired with one of `b` so that the most views agree
+    (class numbers are arbitrary: a split can give them in another
+    order)."""
+    from scipy.optimize import linear_sum_assignment
+    a, b = np.asarray(a), np.asarray(b)
+    ka, kb = np.unique(a, return_inverse=True), np.unique(b,
+                                                          return_inverse=True)
+    overlap = np.zeros((len(ka[0]), len(kb[0])))
+    np.add.at(overlap, (ka[1], kb[1]), 1)
+    rows, cols = linear_sum_assignment(-overlap)
+    return float(overlap[rows, cols].sum() / len(a))
+
+
+def auc_lower(score, moved):
+    """The probability that a moved row scores below an unmoved one (ties
+    count half): the AUC of `score` as a detector of the moved rows."""
+    score, moved = np.asarray(score, np.float64), np.asarray(moved, bool)
+    order = np.argsort(np.concatenate([score[moved], score[~moved]]),
+                       kind="mergesort")
+    ranks = np.empty(len(order))
+    ranks[order] = np.arange(1, len(order) + 1)
+    allv = np.concatenate([score[moved], score[~moved]])
+    # average ranks over ties
+    for v in np.unique(allv):
+        tie = allv == v
+        if tie.sum() > 1:
+            ranks[tie] = ranks[tie].mean()
+    m, u = int(moved.sum()), int((~moved).sum())
+    r_moved = ranks[:m].sum()
+    return 1.0 - (r_moved - m * (m + 1) / 2) / (m * u)
+
+
+def moved_poses(angles, label, seed: int):
+    """(rot, tilt, moved) of each view's direction with CLS_MOVED of the
+    rows moved by CLS_MOVE_DEG in rot or in tilt (chosen with numpy)."""
+    rng = np.random.default_rng(seed + 11)
+    rot = angles[label, 0].copy()
+    tilt = angles[label, 1].copy()
+    moved = rng.uniform(size=len(label)) < CLS_MOVED
+    in_rot = rng.uniform(size=len(label)) < 0.5
+    rot[moved & in_rot] += CLS_MOVE_DEG
+    tilt[moved & ~in_rot] += CLS_MOVE_DEG
+    return rot, tilt, moved
+
+
+def ml2d_operands(views, classes, device):
+    """K4's operands in ML2D's E-step at ML2D_SHAPE: the ring FFTs (61
+    rings, 512 angles, k = 257) of the first 1024 views and of the 16 class
+    images and their x-mirrors, and the ring weights r / A."""
+    import torch
+    from xmipp3_tpu_torch.models.ml2d import _ring_spectra, _weights
+    from xmipp3_tpu_torch.ops.geo import centered_flip
+    B, nr, R, K = ML2D_SHAPE
+    n = views.shape[-1]
+    cls = torch.as_tensor(classes, device=device)
+    fr = _ring_spectra(torch.cat([cls, centered_flip(cls, -1)]), 2, n // 2 - 2)
+    fi = _ring_spectra(torch.as_tensor(views[:B], device=device), 2,
+                       n // 2 - 2)
+    w, _ = _weights(fr, 2, torch.ones(nr, device=device))
+    check(fi.shape == (B, nr, K) and fr.shape == (R, nr, K),
+          f"ML2D's ring FFTs {tuple(fi.shape)}, {tuple(fr.shape)}")
+    return fi, fr, w
+
+
+def cross_at_ml2d_shape(fi, fr, w):
+    """K4 against its plain version at ML2D's shape (odd k, no mirror
+    output), timed beside the plain version and one complex einsum."""
+    import torch
+    from xmipp3_tpu_torch.ops import cross
+    B, nr, K = fi.shape
+    R = fr.shape[0]
+    log(f"phase 10: cross_spectrum at ML2D's shape B={B}, nr={nr}, R={R}, "
+        f"k={K}, no mirror")
+    got = cross.cross_spectrum(fi, fr, w)
+    want = cross.cross_spectrum_plain(fi, fr, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    log(f"  cross_spectrum: max|kernel-plain| = {err:.3e}, / max|plain| = "
+        f"{rel:.3e}")
+    check(np.isfinite(rel) and rel <= TOL_CROSS,
+          f"cross_spectrum at ML2D's shape: kernel disagrees with its plain "
+          f"version ({rel:.3e} > {TOL_CROSS})")
+    del got, want
+    ms = time_ms(lambda: cross.cross_spectrum(fi, fr, w), reps=20)
+    plain_ms = time_ms(lambda: cross.cross_spectrum_plain(fi, fr, w),
+                       reps=5, warmup=1)
+    wi = w[None, :, None]
+    library_ms = time_ms(lambda: torch.einsum("brk,Rrk->bRk", fi * wi,
+                                              fr.conj()), reps=10)
+    nbytes = 8 * (B + R) * nr * K + 4 * nr + 8 * B * R * K
+    nops = 8 * B * nr * R * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS * 1e3
+    log(f"  cross_spectrum: {ms:.4f} ms (plain {plain_ms:.4f} ms, complex "
+        f"einsum {library_ms:.4f} ms); bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.3f} GFLOP "
+        f"-> {t_ops:.4f} ms)")
+    src, replaces = KERNELS["cross_spectrum"]
+    return {"name": "cross_spectrum_ml2d", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": [B, nr, R, K]}
+
+
+def average_corr(refs, classes, majority, device):
+    """Each class average's correlation with its majority direction's clean
+    image after the best in-plane alignment (match_to_gallery against that
+    one image, mirrors checked)."""
+    import torch
+    from xmipp3_tpu_torch.ops.match import match_to_gallery
+    out = []
+    for k, ref in enumerate(refs):
+        res = match_to_gallery(torch.as_tensor(classes[majority[k]][None],
+                                               device=device),
+                               torch.as_tensor(ref[None], device=device),
+                               max_shift=8)
+        out.append(float(res["corr"][0]))
+    return out
+
+
+def majorities(assign, label, n_cls):
+    out = np.zeros(n_cls, int)
+    for k in range(n_cls):
+        lab = label[assign == k]
+        out[k] = np.bincount(lab, minlength=CLS_DIRS).argmax() if len(lab) \
+            else 0
+    return out
+
+
+def write_classify_data(root: Path, n: int, views: int, seed: int, device):
+    """Phase 10's files in root: views.mrcs/.xmd (image, itemId),
+    ctf_views.mrcs/.xmd (the clean views through CLS_CTF_GROUPS planted
+    CTFs at CTF_TS, then the same noise; inline ctf* labels), poses.xmd
+    (the planted registration, the direction's rot/tilt with CLS_MOVED of
+    them moved), spectra.xmd (classificationData: rotational spectra),
+    phantom.vol. Returns dict(classes, label, moved, pin, back_corr): pin
+    is max |M G - I| of the written registration M, back_corr the least
+    correlation of 64 noise-free views registered by their rows with their
+    class image."""
+    import torch
+    from xmipp3_tpu_torch.core.image import save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.ops.geo import (apply_md_geometry,
+                                          metadata_alignment_matrices)
+    f = lambda name: str(root / name)
+    classes, clean, noise, rec = classify_views(n, views, seed, device)
+    label, G, mirror = rec["label"], rec["G"], rec["mirror"]
+    psi, sx, sy = registration_rows(G, mirror)
+    M = metadata_alignment_matrices(psi.astype(np.float32),
+                                    sx.astype(np.float32),
+                                    sy.astype(np.float32), mirror,
+                                    device="cpu").numpy().astype(np.float64)
+    back = apply_md_geometry(torch.as_tensor(clean[:64], device=device),
+                             psi[:64], sx[:64], sy[:64],
+                             mirror[:64]).cpu().numpy()
+    out = dict(classes=classes, label=label,
+               pin=float(np.abs(M @ G - np.eye(3)).max()),
+               back_corr=min(stack_corr(b, classes[k])
+                             for b, k in zip(back, label[:64])))
+    save_image(f("views.mrcs"), clean + noise)
+    MetaData.fromRows({"image": f"{i + 1}@{f('views.mrcs')}", "itemId": i + 1}
+                      for i in range(views)).write(f("views.xmd"))
+    save_image(f("phantom.vol"), phantom(n, [
+        (cz * n / N, cy * n / N, cx * n / N, s, a)
+        for cz, cy, cx, s, a in BLOBS8]))
+    rot, tilt, out["moved"] = moved_poses(rec["angles"], label, seed)
+    MetaData.fromRows(
+        {"image": f"{i + 1}@{f('views.mrcs')}", "itemId": i + 1,
+         "angleRot": float(rot[i]), "angleTilt": float(tilt[i]),
+         "anglePsi": float(psi[i]), "shiftX": float(sx[i]),
+         "shiftY": float(sy[i]), "flip": int(mirror[i])}
+        for i in range(views)).write(f("poses.xmd"))
+    per = -(-views // CLS_CTF_GROUPS)
+    ctf_views = np.empty_like(clean)
+    rows = []
+    for g, (u, v, az) in enumerate(zip(*ctf_recipe(CLS_CTF_GROUPS))):
+        sl = slice(g * per, (g + 1) * per)
+        ctf_views[sl] = np.fft.irfft2(np.fft.rfft2(clean[sl]) * plant_ctf(
+            n, CTF_TS, u, v, az), s=(n, n)) + noise[sl]
+        rows += [{"ctfDefocusU": float(u), "ctfDefocusV": float(v),
+                  "ctfDefocusAngle": float(az), "ctfVoltage": CTF_KV,
+                  "ctfSphericalAberration": CTF_CS, "ctfQ0": CTF_Q0,
+                  "ctfSamplingRate": CTF_TS}
+                 for _ in range(len(ctf_views[sl]))]
+    save_image(f("ctf_views.mrcs"), ctf_views.astype(np.float32))
+    MetaData.fromRows(dict(rows[i], image=f"{i + 1}@{f('ctf_views.mrcs')}",
+                           itemId=i + 1)
+                      for i in range(views)).write(f("ctf_views.xmd"))
+    del ctf_views
+    spectra = rotational_spectra(clean + noise, device)
+    MetaData.fromRows({"itemId": i + 1, "classificationData": list(v)}
+                      for i, v in enumerate(spectra)).write(f("spectra.xmd"))
+    return out
+
+
+def core_quality(cl2d_dir: Path, root: str, label, levels: int):
+    """Per level of a CL2D hierarchy written with the rows of views.xmd:
+    whether every class block's core is a subset of the block, the share
+    of the views in the cores, the classes' and the cores' purity; and the
+    stable core's size at the last level (0 without the file)."""
+    from xmipp3_tpu_torch.core.star import read_star
+
+    def members(fn):
+        """{class block: the views in it} of a level file."""
+        return {b.name: set(b.df["itemId"].astype(int) - 1)
+                if "itemId" in b.df else set()
+                for b in read_star(fn) if b.name.endswith("_images")}
+
+    cores = []
+    for lev in range(levels):
+        d = cl2d_dir / f"level_{lev:02d}"
+        cls = members(str(d / f"{root}_classes.xmd"))
+        core_of = members(str(d / f"{root}_classes_core.xmd"))
+        blocks = list(cls)
+        a_cls, a_core, subset = [], [], True
+        for b in blocks:
+            core = core_of.get(b, set())
+            subset &= core <= cls[b]
+            members_b = cls[b]
+            a_cls += [(i, b) for i in members_b]
+            a_core += [(i, b) for i in core]
+        pur = lambda a: class_purity([b for _, b in a],
+                                     label[[i for i, _ in a]])[0] \
+            if a else 0.0
+        cores.append({"level": lev, "classes": len(blocks),
+                      "core_share": len(a_core) / len(label),
+                      "purity": pur(a_cls), "core_purity": pur(a_core),
+                      "subset": subset})
+    fs = cl2d_dir / f"level_{levels - 1:02d}" / \
+        f"{root}_classes_stable_core.xmd"
+    stable = sum(len(v) for v in members(str(fs)).values()) \
+        if fs.is_file() else 0
+    return cores, stable
+
+
+def classify_2d(seed, root: Path):
+    """Phase 10 in root: BASELINE config 4's CL2D half at N=128. Returns
+    K4's entry at ML2D's shape and the K4 launches of the serial ML2D
+    run."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.image import Image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.programs import get_program
+    root.mkdir(parents=True)
+    f = lambda name: str(root / name)
+    report, quality, failed = {}, {}, []
+
+    def limit(ok, msg):
+        """A quality limit: every one is read and reported before the
+        phase fails on any."""
+        if not ok:
+            failed.append(msg)
+
+    def run(label, name, args):
+        torch.cuda.empty_cache()
+        launch_counts(reset=True)
+        timing.take_timing()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prog = get_program(name)
+        t0 = time.perf_counter()
+        rc = prog.run_with_args([str(a) for a in args]
+                                + ["--device", DEVICE, "-v", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"phase 10 {label} ({name}): rc {rc}")
+        phases = {k: v[0] for k, v in timing.take_timing().items()}
+        r = report[label] = {
+            "program": name, "wall_s": wall, "phases_s": phases,
+            # scan and refine are timed inside match_to_gallery's calls
+            "rest_s": wall - sum(v for k, v in phases.items()
+                                 if k not in ("scan", "refine")),
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {label} ({name}): {wall:.3f} s, peak "
+            f"{r['peak_device_GB']:.2f} GB, launches {r['launches']}, phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+            + f", rest {r['rest_s']:.3f}")
+        return prog
+
+    def mesh_run(label, name, args):
+        work = root / f"mesh_{label}"
+        work.mkdir()
+        wall, reps = run_ranks(name, [str(a) for a in args]
+                               + ["--mesh", "dp"], 2, work)
+        report[label] = {"program": name, "ranks": 2, "wall_s": wall,
+                         "per_rank": reps}
+        log(f"  {label} ({name} --mesh dp, 2 ranks): {wall:.3f} s; " + "; ".join(
+            f"rank {r} {rep['wall_s']:.3f} s, launches "
+            f"{ {k: v for k, v in rep['launches'].items() if v} }"
+            for r, rep in enumerate(reps)))
+        for r, rep in enumerate(reps):
+            check(rep["launches"]["cross_spectrum"] > 0, f"phase 10 {label}: "
+                  f"rank {r} never launched cross_spectrum")
+
+    def column(fn, key):
+        md = MetaData(fn)
+        rows = sorted((md.getRow(i) for i in md), key=lambda r: r["itemId"])
+        check(len(rows) == VIEWS, f"phase 10 {fn}: {len(rows)} rows")
+        return np.array([r[key] for r in rows])
+
+    def refs_of(fn, count):
+        refs = Image.read_stack(fn)
+        check(refs.shape == (count, N, N) and np.isfinite(refs).all(),
+              f"phase 10 {fn}: references of shape {refs.shape}, finite "
+              f"{np.isfinite(refs).all()}")
+        return refs
+
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    data = write_classify_data(root, N, VIEWS, seed, DEVICE)
+    label, moved, classes = data["label"], data["moved"], data["classes"]
+    log(f"phase 10: {VIEWS} views of {CLS_DIRS} far-apart directions of "
+        f"BLOBS8 at N={N} (psi, +-{CLS_SHIFT} px, half mirrored, noise "
+        f"{CLS_NOISE} sigma) made and written in "
+        f"{time.perf_counter() - t0:.2f} s (views, CTF views, poses with "
+        f"{int(moved.sum())} rows moved by {CLS_MOVE_DEG} deg, "
+        f"{CLS_HARMONICS}-harmonic rotational spectra); the written pose "
+        f"undoes the plant to {data['pin']:.2e}, and maps noise-free views "
+        f"onto their class image (corr >= {data['back_corr']:.4f})")
+    check(data["pin"] <= 1e-4 and data["back_corr"] >= 0.99, "phase 10: "
+          f"the written registration does not undo the plant "
+          f"({data['pin']:.2e}, corr {data['back_corr']:.4f})")
+    views = Image.read_stack(f("views.mrcs"))[:ML2D_SHAPE[0]]
+
+    kernel = cross_at_ml2d_shape(*ml2d_operands(views, classes, DEVICE))
+    k4_ml2d = 0
+    timing.enable_timing(True)
+    try:
+        # CL2D, serial and over 2 ranks
+        cl2d_args = ["-i", f("views.xmd"), "--odir", f("cl2d"), "--oroot",
+                     "cl", "--nref", CLS_NREF, "--nref0", CLS_NREF0, "--iter",
+                     CLS_ITER]
+        (root / "cl2d").mkdir()
+        run("cl2d", "classify_CL2D", cl2d_args)
+        check(report["cl2d"]["launches"].get("cross_spectrum", 0) > 0,
+              "phase 10: classify_CL2D never launched cross_spectrum")
+        refs_of(f("cl2d/cl_references.stk"), CLS_NREF)
+        assign = column(f("cl2d/cl_images.xmd"), "ref") - 1
+        pur, won = class_purity(assign, label)
+        quality["cl2d"] = {"purity": pur, "directions_won": won}
+        log(f"  CL2D: purity {pur:.4f}, {won} of {CLS_DIRS} directions won")
+        limit(pur >= CLS_CL2D_PURITY and won >= CLS_CL2D_WON,
+              f"phase 10 CL2D: purity {pur:.4f} (limit {CLS_CL2D_PURITY}), "
+              f"{won} directions won (limit {CLS_CL2D_WON})")
+        (root / "cl2d_mesh").mkdir()
+        mesh_run("cl2d_mesh", "classify_CL2D",
+                 [a if a != f("cl2d") else f("cl2d_mesh") for a in cl2d_args])
+        mesh_assign = column(f("cl2d_mesh/cl_images.xmd"), "ref") - 1
+        same = same_classes(mesh_assign, assign)
+        m_pur, m_won = class_purity(mesh_assign, label)
+        quality["cl2d"].update(mesh_same_class=same, mesh_purity=m_pur,
+                               mesh_directions_won=m_won)
+        log(f"  CL2D --mesh dp: {same:.4f} of the views in the serial "
+            f"run's class (classes paired); purity {m_pur:.4f}, {m_won} "
+            "directions won")
+        limit(same >= CLS_MESH_SAME and m_pur >= CLS_CL2D_PURITY,
+              f"phase 10 CL2D mesh: {same:.4f} of the views keep the "
+              f"serial class (limit {CLS_MESH_SAME}), purity {m_pur:.4f}")
+
+        # the core analysis of CL2D's hierarchy
+        run("core", "classify_CL2D_core_analysis",
+            ["--dir", f("cl2d"), "--root", "cl", "--computeCore", 3, 2])
+        run("stable_core", "classify_CL2D_core_analysis",
+            ["--dir", f("cl2d"), "--root", "cl", "--computeStableCore", 1])
+        cores, stable = core_quality(root / "cl2d", "cl", label, 3)
+        for c in cores:
+            limit(c["subset"] and c["core_purity"] >= c["purity"],
+                  f"phase 10 core of level {c['level']}: subset "
+                  f"{c['subset']}, purity {c['core_purity']:.4f} against "
+                  f"the classes' {c['purity']:.4f}")
+        quality["core"] = {"levels": cores, "stable_core_views": stable}
+        log("  cores: " + "; ".join(
+            f"level {c['level']} ({c['classes']} classes) keeps "
+            f"{c['core_share']:.4f}, purity {c['purity']:.4f} -> "
+            f"{c['core_purity']:.4f}" for c in cores)
+            + f"; stable core of level 2: {stable} views")
+        limit(stable > 0, "phase 10: the stable core of level 2 is empty")
+
+        # ML2D and MLF2D, serial and ML2D over 2 ranks
+        for lab, name, inp in (("ml2d", "ml_align2d", "views.xmd"),
+                               ("mlf2d", "mlf_align2d", "ctf_views.xmd")):
+            extra = ["--sampling_rate", CTF_TS] if name == "mlf_align2d" \
+                else []
+            args = ["-i", f(inp), "--nref", CLS_NREF, "--mirror", "--iter",
+                    CLS_ITER, "--oroot", f(lab), *extra]
+            prog = run(lab, name, args)
+            k4 = report[lab]["launches"].get("cross_spectrum", 0)
+            check(k4 > 0, f"phase 10: {name} never launched cross_spectrum")
+            if lab == "ml2d":
+                k4_ml2d = k4
+            res = prog.result
+            ll = np.asarray(res["loglike"])
+            dips = int((np.diff(ll) < -1e-3 * np.abs(ll[:-1])).sum())
+            refs = refs_of(f(f"{lab}_references.stk"), CLS_NREF)
+            assign = column(f(f"{lab}_images.xmd"), "ref") - 1
+            pur, won = class_purity(assign, label)
+            corr = average_corr(refs, classes,
+                                majorities(assign, label, CLS_NREF), DEVICE)
+            q = quality[lab] = {"loglike": ll.tolist(), "dips": dips,
+                                "purity": pur, "directions_won": won,
+                                "avg_corr_min": min(corr),
+                                "avg_corr_median": float(np.median(corr)),
+                                "iterations": len(ll)}
+            log(f"  {name}: LL {ll[0]:.2f} -> {ll[-1]:.2f} in {len(ll)} "
+                f"iterations ({dips} dips), purity {pur:.4f}, {won} "
+                f"directions won, class averages vs their clean image: "
+                f"median {q['avg_corr_median']:.4f}, min {min(corr):.4f}")
+            limit(ll[-1] > ll[0] and dips == 0, f"phase 10 {name}: LL "
+                  f"{ll.round(3).tolist()}")
+            limit(pur >= CLS_ML2D_PURITY and won >= CLS_ML2D_WON,
+                  f"phase 10 {name}: purity {pur:.4f} (limit "
+                  f"{CLS_ML2D_PURITY}), {won} directions won (limit "
+                  f"{CLS_ML2D_WON})")
+            limit(float(np.median(corr)) >= CLS_AVG_CORR, f"phase 10 {name}: "
+                  f"median class-average correlation {np.median(corr):.4f} "
+                  f"(limit {CLS_AVG_CORR})")
+            if lab == "ml2d":
+                mesh_run("ml2d_mesh", name,
+                         [a if a != f(lab) else f("ml2d_mesh")
+                          for a in args])
+                mr = refs_of(f("ml2d_mesh_references.stk"), CLS_NREF)
+                ref_err = float(np.abs(mr - refs).max() / np.abs(refs).max())
+                fw = [MetaData(f(r + "_classes.xmd")).getColumn("weight")
+                      for r in ("ml2d", "ml2d_mesh")]
+                frac_err = float(np.abs(fw[0] - fw[1]).max())
+                q.update(mesh_ref_err=ref_err, mesh_frac_err=frac_err)
+                log(f"  ml_align2d --mesh dp: references within "
+                    f"{ref_err:.2e} of the max, fractions within "
+                    f"{frac_err:.2e} of the serial run's")
+                limit(ref_err <= CLS_MESH_REF_TOL and
+                      frac_err <= CLS_MESH_FRAC_TOL, f"phase 10 ML2D mesh: "
+                      f"references {ref_err:.2e}, fractions {frac_err:.2e}")
+
+        # KerDenSOM on the rotational spectra
+        prog = run("kerdensom", "classify_kerdensom",
+                   ["-i", f("spectra.xmd"), "--oroot", f("som"), "--xdim",
+                    CLS_SOM[1], "--ydim", CLS_SOM[0], *CLS_SOM_FLAGS])
+        code = np.load(f("som_codebook.npy"))
+        check(code.shape == (CLS_SOM[0] * CLS_SOM[1], CLS_HARMONICS)
+              and np.isfinite(code).all(), f"phase 10: code book of shape "
+              f"{code.shape}")
+        pur, won = class_purity(column(f("som_images.xmd"), "ref"), label)
+        quality["kerdensom"] = {"node_purity": pur, "directions_won": won}
+        log(f"  KerDenSOM {CLS_SOM[0]} x {CLS_SOM[1]}: node purity "
+            f"{pur:.4f}, {won} directions won")
+        limit(pur >= CLS_SOM_PURITY, f"phase 10 KerDenSOM: node purity "
+              f"{pur:.4f} (limit {CLS_SOM_PURITY})")
+
+        # angular_accuracy_pca on the planted poses, 5 % moved
+        run("accuracy_pca", "angular_accuracy_pca",
+            ["-i", f("poses.xmd"), "--ref", f("phantom.vol"), "-o",
+             f("accuracy.xmd")])
+        score = column(f("accuracy.xmd"), "scoreByPcaResidual")
+        check(np.isfinite(score).all(), "phase 10: scores not finite")
+        auc = auc_lower(score, moved)
+        quality["accuracy_pca"] = {"auc": auc,
+                                   "moved_median": float(np.median(
+                                       score[moved])),
+                                   "kept_median": float(np.median(
+                                       score[~moved]))}
+        log(f"  angular_accuracy_pca: AUC {auc:.4f} of the score against "
+            f"the {int(moved.sum())} moved rows (medians "
+            f"{np.median(score[moved]):.4f} moved, "
+            f"{np.median(score[~moved]):.4f} kept)")
+        limit(auc >= CLS_AUC, f"phase 10 angular_accuracy_pca: AUC {auc:.4f} "
+              f"(limit {CLS_AUC})")
+        report["quality"] = quality
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    report["phase_s"] = time.perf_counter() - start
+    log(f"  phase 10 took {report['phase_s']:.2f} s")
+    log("classify " + json.dumps(report))
+    check(not failed, "phase 10: " + "; ".join(failed))
+    kernel["launches"] = k4_ml2d
+    return kernel
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--mesh-rank"]:
@@ -2491,6 +3160,8 @@ def main(argv=None) -> int:
         ctf_estimation(args.seed, root / "ctfest")
         log("phase 9: movie alignment and MonoRes (BASELINE config 5)")
         movie_monores(args.seed, root / "movie")
+        log("phase 10: 2-D classification (BASELINE config 4's CL2D half)")
+        ml2d_kernel = classify_2d(args.seed, root / "classify")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2498,6 +3169,7 @@ def main(argv=None) -> int:
         shutil.rmtree(root, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels.append(ml2d_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -238,7 +238,7 @@ _IMPORT_PROBE = """
 import sys
 import xmipp3_tpu_torch
 import xmipp3_tpu_torch.programs
-from xmipp3_tpu_torch.programs import get_program
+from xmipp3_tpu_torch.programs import ALIASES, get_program
 from xmipp3_tpu_torch.programs import list_programs
 for name in list_programs():
     get_program(name)
@@ -256,7 +256,8 @@ from xmipp3_tpu_torch.programs import (ctf_correct, ctf_estimate,
                                        resolution_fsc, resolution_misc,
                                        transform_filter, transform_geometry,
                                        transform_normalize)
-from xmipp3_tpu_torch.models import ctf_estimation
+from xmipp3_tpu_torch.models import cl2d, ctf_estimation, dimred, ml2d, som
+from xmipp3_tpu_torch.programs import classify
 from xmipp3_tpu_torch.parallel import (cli, engines, match, mesh, movie,
                                        reconstruct)
 for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
@@ -268,7 +269,10 @@ for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "resolution_monogenic_signal", "resolution_monotomo",
              "resolution_fso", "resolution_localfilter",
              "volume_correct_bfactor", "volume_structure_factor",
-             "resolution_directional"):
+             "resolution_directional", "classify_CL2D", "ml_align2d",
+             "mlf_align2d", "classify_kerdensom",
+             "classify_CL2D_core_analysis", "angular_accuracy_pca",
+             *ALIASES):
     assert get_program(name) is not None, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"

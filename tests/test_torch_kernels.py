@@ -5,7 +5,8 @@ and the Fourier filter), CTF estimation (the fitness, a whole staged
 fit, the periodogram against numpy, and compass rounds that never wait
 for the host) and the movie and MonoRes path (phantom frames, global and
 local alignment with the warp, the float64 gain estimate, MonoRes and
-FSO) on the card against the same on the CPU.
+FSO) and 2-D classification (ML2D and CL2D) on the card against the same
+on the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -236,6 +237,57 @@ def test_cross_spectrum_kernel_at_ragged_tiles(shape, mirror):
     for g, p in zip(got if mirror else [got], want if mirror else [want]):
         assert g.shape == (shape[0], shape[2], shape[3])
         assert rel_err(g, p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1024, 37])
+def test_cross_spectrum_kernel_at_ml2d_shapes(B):
+    """K4 at ML2D's E-step shape: 61 rings and k = 257 harmonics (the
+    default polar grid's 512 angles at N=128; an odd k, so the kernel's
+    8-byte staging), R = 32 (16 references and their mirrors), no mirror
+    output; a whole 1024-image chunk and a ragged one; <= 1e-5 * max."""
+    require_cuda()
+    fi, fr, w = _ring_spectra(B, 61, 32, 257, seed=9)
+    before = cross.launches
+    got = cross.cross_spectrum(fi, fr, w)
+    torch.cuda.synchronize()
+    assert cross.launches == before + 1
+    assert got.shape == (B, 32, 257)
+    assert rel_err(got, cross.cross_spectrum_plain(fi, fr, w)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ml2d_and_cl2d_on_the_card_match_the_cpu():
+    """ML2D (with --mirror) and CL2D on the card against the same on the
+    CPU at N=32: K4 launched on the card, the same classes, references
+    <= 1e-3 * max and log-likelihoods <= 1e-4 relative."""
+    require_cuda()
+    from xmipp3_tpu_torch.models.cl2d import classify_cl2d
+    from xmipp3_tpu_torch.models.ml2d import ml2d
+    rng = np.random.default_rng(3)
+    n = 32
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32) - n // 2
+    protos = [np.exp(-(x ** 2 + y ** 2) / 30),
+              np.exp(-((x - 6) ** 2 + y ** 2) / 18)
+              + np.exp(-((x + 6) ** 2 + y ** 2) / 18),
+              np.exp(-(x ** 2 / 60 + y ** 2 / 8))]
+    labels = rng.integers(0, 3, 40)
+    imgs = (np.stack([protos[c] for c in labels])
+            + 0.15 * rng.standard_normal((40, n, n))).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = cross.launches
+        m = ml2d(imgs, 3, n_iters=3, max_shift=2, mirror=True, device=dev)
+        c = classify_cl2d(imgs, 3, n_iters=3, max_shift=2, nref0=2,
+                          device=dev)
+        out[dev] = (m, c, cross.launches - before)
+    (mc, cc, k_cpu), (mg, cg, k_gpu) = out["cpu"], out["cuda"]
+    assert k_cpu == 0 and k_gpu > 0
+    assert np.array_equal(mg["assignments"], mc["assignments"])
+    assert rel_err(mg["refs"], mc["refs"]) <= 1e-3
+    assert np.allclose(mg["loglike"], mc["loglike"], rtol=1e-4)
+    assert np.array_equal(cg["assignments"], cc["assignments"])
+    assert rel_err(cg["refs"], cc["refs"]) <= 1e-3
 
 
 @pytest.mark.cuda

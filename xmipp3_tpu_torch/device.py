@@ -8,6 +8,8 @@ do with `device="cpu"` (or `--device cpu` on the command line).
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
@@ -38,3 +40,16 @@ def as_tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:
     if isinstance(x, np.ndarray) and not x.flags.writeable:
         x = x.copy()          # torch shares memory only with writable arrays
     return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+
+
+@contextmanager
+def fp32_products():
+    """Library matrix products inside the block run in full float32 (no
+    TF32): lower precision in the correlations and distances flips
+    argmax winners. The previous setting comes back on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,7 +1,7 @@
 """Image features (the subset of the reference package's ops/features.py
 that image_align --pspc needs): translational centering.
 
-Not yet ported (ROADMAP.md, port queue item 9): the classification
+Not yet ported (ROADMAP.md, port queue item 11): the classification
 feature extractors and TV denoising of the reference module.
 """
 from __future__ import annotations

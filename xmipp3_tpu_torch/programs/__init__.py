@@ -48,11 +48,40 @@ _REGISTRY: dict[str, str] = {
     "volume_correct_bfactor": _P + "resolution_misc:ProgVolumeCorrectBfactor",
     "volume_structure_factor":
         _P + "resolution_misc:ProgVolumeStructureFactor",
-    # the reference's aliases (programs/registry.py:216, :346)
-    "ctf_correct_phase": _P + "ctf_correct:ProgCTFPhaseFlip",
-    "cuda_movie_alignment_correlation":
-        _P + "movie_alignment:ProgMovieAlignmentCorrelation",
+    "classify_CL2D": _P + "classify:ProgClassifyCL2D",
+    "ml_align2d": _P + "classify:ProgMLAlign2D",
+    "mlf_align2d": _P + "classify:ProgMLFAlign2D",
+    "classify_kerdensom": _P + "classify:ProgKerdensom",
+    "classify_CL2D_core_analysis":
+        _P + "resolution_dir:ProgClassifyCL2DCoreAnalysis",
+    "angular_accuracy_pca": _P + "resolution_dir:ProgAngularAccuracyPCA",
 }
+
+# the reference's aliases of these programs (programs/registry.py:216,
+# :305, :311-350, :360): alias -> the program it runs
+ALIASES: dict[str, str] = {
+    "ctf_correct_phase": "ctf_phase_flip",
+    "cuda_movie_alignment_correlation": "movie_alignment_correlation",
+    "cuda_reconstruct_fourier": "reconstruct_fourier",
+    "reconstruct_fourier_accel": "reconstruct_fourier",
+    "mpi_reconstruct_fourier": "reconstruct_fourier",
+    "mpi_reconstruct_fourier_accel": "reconstruct_fourier",
+    "mpi_cuda_reconstruct_fourier": "reconstruct_fourier",
+    "mpi_angular_project_library": "angular_project_library",
+    "mpi_angular_projection_matching": "angular_projection_matching",
+    "mpi_ctf_correct_phase": "ctf_phase_flip",
+    "mpi_ctf_correct_wiener2d": "ctf_correct_wiener2d",
+    "mpi_ctf_sort_psds": "ctf_sort_psds",
+    "mpi_transform_filter": "transform_filter",
+    "mpi_transform_geometry": "transform_geometry",
+    "mpi_transform_normalize": "transform_normalize",
+    "mpi_classify_CL2D": "classify_CL2D",
+    "mpi_ml_align2d": "ml_align2d",
+    "mpi_mlf_align2d": "mlf_align2d",
+    "mpi_classify_CL2D_core_analysis": "classify_CL2D_core_analysis",
+    "mpi_angular_accuracy_pca": "angular_accuracy_pca",
+}
+_REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 
 
 def get_program(name: str):

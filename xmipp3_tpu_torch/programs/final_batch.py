@@ -1,6 +1,6 @@
 """xmipp_phantom_movie: the synthetic movie generator of the reference
 package's programs/final_batch.py (its other programs are still to be
-ported, ROADMAP.md port queue item 9).
+ported, ROADMAP.md port queue item 14).
 
 The scene (ice and content) is drawn with numpy from --seed exactly as the
 reference draws it, so both packages make the same reference frame; the

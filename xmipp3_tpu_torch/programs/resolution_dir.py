@@ -3,20 +3,23 @@ xmipp_resolution_directional (MonoDir: the monogenic local resolution per
 cone direction, every direction's bands batched on the card),
 xmipp_ctf_estimate_psd_with_arma (the 2-D causal ARMA spectral model, host
 float64 as in the reference) and xmipp_psd_estimate (averaged overlapping
-periodograms, the patches transformed on the card). Each runs on the card
+periodograms, the patches transformed on the card),
+xmipp_classify_CL2D_core_analysis (the PCA-outlier cores and the stable
+cores of a CL2D hierarchy) and xmipp_angular_accuracy_pca (the PCA residual
+score of each particle against its reprojection). Each runs on the card
 unless `--device cpu` is given.
-
-The module's other programs (classify_CL2D_core_analysis,
-angular_accuracy_pca) are still to be ported (ROADMAP.md, port queue
-item 8).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from xmipp3_tpu_torch.core.image import Image, save_image
+from xmipp3_tpu_torch.core.errors import ErrCode, XmippError
 from xmipp3_tpu_torch.core.metadata import MetaData
+from xmipp3_tpu_torch.core.metadata_program import load_image_rows
 from xmipp3_tpu_torch.core.program import XmippProgram
 from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import as_tensor, resolve_device
@@ -393,6 +396,251 @@ class ProgPSDEstimate(XmippProgram):
                 patch=(px, py), normalize=normalize, device=device)
         Image(np.fft.fftshift(psd) if normalize else psd).write(
             self.getParam("-o"))
+
+
+class ProgClassifyCL2DCoreAnalysis(XmippProgram):
+    """The reference's surface (mpi_classify_CL2D_core_analysis.cpp:54-94):
+    walks the CL2D hierarchy <dir>/level_%02d/<root>_classes.xmd and either
+    (--computeCore <thPCAZscore> <NPCA>) removes the PCA-Mahalanobis
+    outliers of every class block, writing <root>_classes_core.xmd per
+    level, or (--computeStableCore <tolerance>) keeps only the images whose
+    co-occurrence over every lower level is level - tolerance, writing
+    <root>_classes_stable_core.xmd. Each class's EM-PCA runs on the card;
+    the co-occurrence counts are numpy products over the class's labels."""
+    name = "xmipp_classify_CL2D_core_analysis"
+
+    def defineParams(self):
+        self.addUsageLine("Compute the class cores (PCA-outlier removal) "
+                          "or stable cores (coocurrence across levels) of "
+                          "a CL2D hierarchy.")
+        self.addParamsLine("   --root <rootname> : Rootname of the CL2D")
+        self.addParamsLine("   --dir <dir>       : Output directory of the "
+                           "CL2D")
+        self.addParamsLine("  [--computeCore <thPCAZscore=3> <NPCA=2>] : "
+                           "Threshold the Zscore of the class images' "
+                           "projections onto an NPCA-dim PCA space")
+        self.addParamsLine("  [--computeStableCore <tolerance=1>] : Keep "
+                           "images that stayed together in the whole "
+                           "hierarchy (up to <tolerance> levels)")
+
+    @staticmethod
+    def _levels(odir, root, suffix=""):
+        levels = []
+        while True:
+            fn = os.path.join(odir, f"level_{len(levels):02d}",
+                              root + "_classes" + suffix + ".xmd")
+            if not os.path.exists(fn):
+                return levels
+            levels.append(fn)
+
+    @staticmethod
+    def _class_blocks(fn):
+        """[(block name, rows)] of the class%06d_images blocks of a level
+        file, in file order; the file is parsed once."""
+        from xmipp3_tpu_torch.core.star import read_star
+        return [(b.name, list(MetaData(b.df).iterRows()))
+                for b in read_star(fn)
+                if b.name.startswith("class") and b.name.endswith("_images")]
+
+    @staticmethod
+    def _block_images(blocks):
+        """{block: its rows' images (n, H, W) float64} of the blocks with
+        more than two rows, read in one pass in stack order (the blocks
+        hold the views in class order, scattered over the stack)."""
+        from xmipp3_tpu_torch.core.filename import as_filename
+        flat = [(b, i, r) for b, rows in blocks if len(rows) > 2
+                for i, r in enumerate(rows)]
+        if not flat:
+            return {}
+        where = lambda r: (as_filename(r["image"]).path,
+                           as_filename(r["image"]).slice_index or 0)
+        flat.sort(key=lambda t: where(t[2]))
+        imgs = load_image_rows([r for _, _, r in flat])
+        out = {b: np.empty((len(rows),) + imgs.shape[1:])
+               for b, rows in blocks if len(rows) > 2}
+        for (b, i, _), img in zip(flat, imgs):
+            out[b][i] = img
+        return out
+
+    @staticmethod
+    def _write_level(fn_out, blocks):
+        """blocks: (block name, kept rows); then the classes@ block."""
+        for j, (blk, keep) in enumerate(blocks):
+            MetaData.fromRows(keep).write(fn_out, block=blk, append=j > 0)
+        MetaData.fromRows([{"ref": int(blk[5:11]), "classCount": len(keep)}
+                           for blk, keep in blocks]).write(
+            fn_out, block="classes", append=True)
+        return sum(len(keep) for _, keep in blocks)
+
+    def _compute_cores(self, odir, root, th_z, npca, device):
+        from xmipp3_tpu_torch.models.dimred import empca
+        level_files = self._levels(odir, root)
+        if not level_files:
+            raise XmippError(ErrCode.ARG_MISSING,
+                             "Cannot find any CL2D analysis in " + odir)
+        n_kept = 0
+        for fn in level_files:
+            blocks = []
+            with timed_phase("read images"):
+                level = self._class_blocks(fn)
+                images = self._block_images(level)
+            for blk, rows in level:
+                keep = rows
+                if len(rows) > 2:
+                    imgs = images[blk]
+                    n = imgs.shape[-1]
+                    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64) - n // 2
+                    mask = (yy * yy + xx * xx) <= (n / 2) ** 2
+                    d = max(min(npca, len(rows) - 1), 1)
+                    with timed_phase("pca"):
+                        Y = empca(imgs[:, mask], d=d, n_iters=10,
+                                  device=device)
+                    std = Y.std(axis=0) + 1e-12
+                    dist = np.sqrt(((Y / std) ** 2).mean(axis=1))
+                    keep = [r for r, dd in zip(rows, dist) if dd <= th_z]
+                blocks.append((blk, keep))
+            with timed_phase("write outputs"):
+                n_kept += self._write_level(
+                    fn.replace("_classes.xmd", "_classes_core.xmd"), blocks)
+        self.n_core = n_kept
+
+    def _compute_stable_cores(self, odir, root, tolerance):
+        level_files = self._levels(odir, root, suffix="_core")
+        if not level_files:            # the raw hierarchy instead
+            level_files = self._levels(odir, root)
+        memberships = []               # per level: {image -> class block}
+        level_blocks = [self._class_blocks(fn) for fn in level_files]
+        for blocks in level_blocks:
+            memberships.append({str(r["image"]): blk
+                                for blk, rows in blocks for r in rows})
+        n_kept = 0
+        for lev, fn in enumerate(level_files):
+            if lev <= tolerance:
+                continue
+            fn_out = fn.replace("_classes_core", "_classes_stable_core") \
+                if "_classes_core" in fn else \
+                fn.replace("_classes", "_classes_stable_core")
+            blocks = []
+            for blk, rows in level_blocks[lev]:
+                names = [str(r["image"]) for r in rows]
+                keep_mask = np.zeros(len(names), bool)
+                if len(names) > 1:
+                    # co-occurrence over every lower level
+                    # (mpi_classify_CL2D_core_analysis.cpp:196-271): the
+                    # pairs i < j that share a class there, counted
+                    cooc = np.zeros((len(names),) * 2, np.int32)
+                    for m in memberships[:lev]:
+                        labels = [m.get(nm) for nm in names]
+                        codes = {b: c for c, b in enumerate(
+                            sorted({b for b in labels if b is not None}))}
+                        lab = np.array([codes.get(b, -1) for b in labels])
+                        cooc += np.triu((lab[:, None] == lab[None, :])
+                                        & (lab[:, None] >= 0), 1)
+                    ii, jj = np.nonzero(cooc == lev - tolerance)
+                    keep_mask[ii] = True
+                    keep_mask[jj] = True
+                blocks.append((blk, [r for r, k in zip(rows, keep_mask)
+                                     if k]))
+            with timed_phase("write outputs"):
+                n_kept += self._write_level(fn_out, blocks)
+        self.n_core = n_kept
+
+    def run(self):
+        device = resolve_device(self.getParam("--device"))
+        odir = self.getParam("--dir")
+        root = self.getParam("--root")
+        if self.checkParam("--computeCore"):
+            self._compute_cores(odir, root,
+                                self.getDoubleParam("--computeCore", 0),
+                                self.getIntParam("--computeCore", 1),
+                                device)
+        elif self.checkParam("--computeStableCore"):
+            self._compute_stable_cores(
+                odir, root, self.getIntParam("--computeStableCore", 0))
+        else:
+            raise XmippError(ErrCode.ARG_MISSING,
+                             "give either --computeCore or "
+                             "--computeStableCore")
+
+
+class ProgAngularAccuracyPCA(XmippProgram):
+    """Per-particle accuracy score: each particle is registered by its pose,
+    its reprojection (or its --i2 neighbour) subtracted, and the residuals'
+    top-5 principal components found on the card (models/dimred.pca);
+    scoreByPcaResidual = 1 / (1 + u / median(u)), u being the norm of the
+    residual that the components leave unexplained."""
+    name = "xmipp_angular_accuracy_pca"
+
+    def defineParams(self):
+        self.addUsageLine("Per-particle angular assignment accuracy via PCA "
+                          "of the projection neighborhood residuals.")
+        self.addParamsLine("   -i <md_file>  : Particles with poses")
+        self.addParamsLine("   --ref <volume> : Reference volume")
+        self.addParamsLine("  [-o <md=\"\">]   : Output with accuracy scores")
+        self.addParamsLine("  [--i2 <md_file=\"\">] : Metadata with "
+                           "neighbour projections to use as references "
+                           "instead of reprojecting --ref")
+        self.addParamsLine("  [--dim <d=-1>] : Rescale images to this size "
+                           "if larger (-1 = no rescaling)")
+
+    def run(self):
+        from xmipp3_tpu_torch.models.dimred import pca
+        from xmipp3_tpu_torch.ops.geo import apply_md_geometry
+        from xmipp3_tpu_torch.ops.project import FourierProjector
+        from xmipp3_tpu_torch.ops.resize import (fourier_resize_2d,
+                                                 fourier_resize_3d)
+        dev = resolve_device(self.getParam("--device"))
+        md = MetaData(self.getParam("-i"))
+        md.removeDisabled()
+        rows = list(md.iterRows())
+        with timed_phase("read images"):
+            imgs = torch.as_tensor(load_image_rows(rows), device=dev)
+            vol = np.squeeze(Image(self.getParam("--ref")).data) \
+                .astype(np.float32)
+        dim = self.getIntParam("--dim")
+        if dim > 0 and imgs.shape[-1] > dim:
+            imgs = fourier_resize_2d(imgs, dim, dim)
+            vol = fourier_resize_3d(vol, dim, dim, dim,
+                                    device=dev).cpu().numpy()
+        get = lambda k: np.array([float(r.get(k, 0.0)) for r in rows],
+                                 np.float32)
+        with timed_phase("residuals", sync=imgs):
+            reg = apply_md_geometry(
+                imgs, get("anglePsi"), get("shiftX"), get("shiftY"),
+                np.array([bool(r.get("flip", 0)) for r in rows]))
+            if self.checkParam("--i2") and self.getParam("--i2"):
+                nb = MetaData(self.getParam("--i2"))
+                refs = torch.as_tensor(load_image_rows(
+                    list(nb.iterRows()))[:len(rows)], device=dev)
+                if refs.shape[-1] != imgs.shape[-1]:
+                    refs = fourier_resize_2d(refs, imgs.shape[-1],
+                                             imgs.shape[-1])
+                if len(refs) < len(rows):
+                    refs = torch.cat([refs, refs[-1:].expand(
+                        len(rows) - len(refs), -1, -1)])
+            else:
+                refs = FourierProjector(vol, device=dev).project_euler(
+                    get("angleRot"), get("angleTilt"),
+                    np.zeros(len(rows), np.float32))
+            resid = (reg - refs).reshape(len(rows), -1).to(torch.float64)
+        with timed_phase("pca", sync=resid):
+            Y, model = pca(resid, d=min(5, len(rows) - 1),
+                           return_model=True)
+            # the residual energy that the common modes do not explain
+            recon = torch.as_tensor(Y, device=dev) @ torch.as_tensor(
+                model["components"], device=dev)
+            unexplained = torch.linalg.vector_norm(
+                resid - torch.as_tensor(model["mean"], device=dev) - recon,
+                dim=1).cpu().numpy()
+        score = 1.0 / (1.0 + unexplained / max(np.median(unexplained), 1e-9))
+        out = []
+        for i, r in enumerate(rows):
+            d = dict(r)
+            d["scoreByPcaResidual"] = float(score[i])
+            out.append(d)
+        if self.checkParam("-o") and self.getParam("-o"):
+            MetaData.fromRows(out).write(self.getParam("-o"))
+        self.scores = score
 
 
 PROGRAM = None  # registered individually
