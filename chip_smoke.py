@@ -186,16 +186,56 @@ Phases; any failure exits non-zero before the result line is printed:
    beside the plain version and the complex einsum. A `classify {...}`
    line gives each program's wall, phases, untimed rest and peak device
    memory, and the quality.
-11. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
-   with phase 10's ML2D launches) and, last, {"ok": true, "device":
-   {...}}.
+11. The image and metadata utilities, ART, SIRT and WBP, align_significant
+   and reconstruct_significant through the CLI. (a) On phase 4's 10,000
+   views: transform_window to 160 and back, image_resize --fourier 64,
+   image_convert to a Spider stack and back, image_operate --plus then
+   --mult, transform_add_noise --seed 0, transform_threshold,
+   transform_mirror, transform_randomize_phases, image_statistics,
+   image_histogram and image_header; transform_downsample --step 2 on
+   phase 8's micrograph A (remade from the seed); on phase 4's 10,000
+   assignment rows: metadata_utilities (sort, query, union, fill),
+   metadata_split, metadata_histogram, angular_distance against the true
+   poses (it must agree with phase 4's own count), angular_rotate and its
+   inverse, and the EMX round trip. Checks against numpy on the host:
+   exact for the window, convert, operate, threshold, mirror and
+   histogram and every metadata program; <= 1e-4 * max for the resize,
+   the noise (the same Generator(0) draws), the randomised phases'
+   amplitudes and kept band and the downsample; the statistics <= 1e-5
+   relative to float64; the rotation and its inverse within 1e-3 degrees.
+   (b) On phase 3's 10,000 true-pose views: reconstruct_art --parallel_mode
+   pSART --block_size 1000 -n 2 (K2, 20 launches), --parallel_mode SIRT
+   -n 3 --POCS_positivity (K2, 3), reconstruct_wbp --filsam 5 and
+   --diameter 96 (K3, 1 each); each map's correlation with the phantom
+   against the limits tools/plan_reconstruct_misc.py planned, and ART's
+   residual histories never rising. K2 is held against its plain version
+   at one pSART block's samples and at a SIRT pass's (every view in one
+   launch), K3 at WBP's one launch of every view (its plain version and
+   tap count in parts of 4M samples), each to 1e-4 * max, and timed
+   beside it. (c)
+   align_significant --angDistance 10 --max_shift 4 against phase 4's
+   gallery, serially (K4, 13 trials x 20 chunks) and with --mesh dp over 2
+   gloo ranks (torchrun's environment): >= 90 % of the views within 7.5
+   degrees of their direction, the mesh weights within 1e-5 * max of the
+   serial ones. (d) reconstruct_significant --initvolumes (the 8-blob
+   phantom low-passed to a quarter of Nyquist) --angularSampling 5 --iter
+   3 --maxShift 4 on 256 low-noise views of the phantom (K3 3, K4 39
+   launches): the map's correlation with the phantom against its planned
+   limit. A `recmisc {...}` line gives each program's wall, phases, untimed
+   rest, launches and peak device memory, and the quality.
+12. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+   with phase 10's ML2D launches; K2 at a pSART block and a SIRT pass as
+   tri_scatter_art_block and tri_scatter_sirt_pass, K3 at WBP's launch as
+   kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches) and,
+   last,
+   {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
 from beside itself (from any working directory), builds every kernel from
 the checkout's sources and writes its data under chip_smoke_data/ in the
 checkout, which it removes at the end. Without a card, or without the
 package beside it, it exits 2 and prints no result. (`chip_smoke.py
---mesh-rank <program> <args>` is a rank of phases 5, 9 and 10: it runs one
+--mesh-rank <program> <args>` is a rank of phases 5, 9, 10 and 11: it runs one
 program and prints its launch counts, phase seconds and peak memory.)
 """
 from __future__ import annotations
@@ -254,6 +294,12 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call line)
                        "xmipp3_tpu/ops/pallas_cross.py:67"),
     "scatter_add_3ch_streams": ("xmipp3_tpu_torch/csrc/scatter.cu",
                                 "xmipp3_tpu/ops/pallas_scatter.py:309"),
+    "tri_scatter_art_block": ("xmipp3_tpu_torch/csrc/scatter_tri.cu",
+                              "xmipp3_tpu/ops/pallas_scatter_tri.py:234"),
+    "tri_scatter_sirt_pass": ("xmipp3_tpu_torch/csrc/scatter_tri.cu",
+                              "xmipp3_tpu/ops/pallas_scatter_tri.py:234"),
+    "kb_scatter_3ch_wbp": ("xmipp3_tpu_torch/csrc/scatter_kb.cu",
+                           "xmipp3_tpu/ops/pallas_scatter_kb.py:258"),
 }
 WIDE_BLOB = ("2.5", "0", "10")   # radius, order, alpha: 160 taps a sample
 RUNS = (("kb", (), "kb_scatter_3ch"), ("tri+kb", (), "tri_scatter"),
@@ -272,6 +318,21 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want| in float64 (arrays or tensors)."""
+    import torch
+    want = torch.as_tensor(want, device=DEVICE).to(torch.float64)
+    got = torch.as_tensor(got, device=DEVICE).to(torch.float64)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def real_corr(a, b) -> float:
+    """The real-space correlation of two arrays, in float64."""
+    a = np.asarray(a, np.float64) - np.mean(a)
+    b = np.asarray(b, np.float64) - np.mean(b)
+    return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -334,11 +395,29 @@ def cubes(device, size=P ** 3):
             for _ in range(3)]
 
 
+def tap_stats(streams, size):
+    """(live taps, touched voxels, touched 32-byte sectors) of the tap
+    streams (idx, u0, u1, u2) in `streams`, parts of one launch's updates
+    into a cube of `size` voxels (the cubes start on a sector boundary)."""
+    import torch
+    voxels = torch.zeros(size, dtype=torch.bool, device=DEVICE)
+    sectors = torch.zeros(-(-size // 8), dtype=torch.bool, device=DEVICE)
+    taps = 0
+    for idx, _, _, u2 in streams:
+        live = idx[u2 != 0]
+        taps += live.numel()
+        voxels[live] = True
+        sectors[live >> 3] = True
+    return taps, int(voxels.sum()), int(sectors.sum())
+
+
 def compare(name, kernel, plain, stream, bytes_per_sample, ops_per_tap,
-            ops_per_sample, M, library=None, size=P ** 3):
+            ops_per_sample, M, library=None, size=P ** 3, kernel_reps=20,
+            plain_reps=5):
     """Hold `kernel` against `plain` (both fn(c0, c1, c2)) on zeroed cubes
     of `size` voxels, time both, and compute the bound from the plain tap
-    stream `stream` (idx, u0, u1, u2) of this run's data."""
+    stream `stream` (idx, u0, u1, u2) of this run's data, or from the parts
+    that the callable `stream` yields where the whole does not fit."""
     import torch
     ck, cp = cubes(DEVICE, size), cubes(DEVICE, size)
     kernel(*ck)
@@ -351,21 +430,19 @@ def compare(name, kernel, plain, stream, bytes_per_sample, ops_per_tap,
     check(np.isfinite(rel) and rel <= TOL,
           f"{name}: kernel disagrees with its plain version ({rel:.3e} > "
           f"{TOL})")
-    ms = time_ms(lambda: kernel(*ck), reps=20)
-    call_us = host_us(lambda: kernel(*ck))
-    plain_ms = time_ms(lambda: plain(*cp), reps=5, warmup=1)
+    ms = time_ms(lambda: kernel(*ck), reps=kernel_reps)
+    call_us = host_us(lambda: kernel(*ck), reps=10 * kernel_reps)
+    plain_ms = time_ms(lambda: plain(*cp), reps=plain_reps,
+                       warmup=int(plain_reps > 1))
     library_ms = None if library is None else \
         time_ms(lambda: library(*cp), reps=20)
     # bound: the samples read once, every voxel the data touches read and
     # written once in three channels; the taps' float32 arithmetic
-    idx, _, _, u2 = stream
-    live = u2 != 0
-    taps = int(live.sum())
-    touched = int(torch.unique(idx[live]).numel())
+    taps, touched, sectors = tap_stats(
+        stream() if callable(stream) else [stream], size)
     nbytes = M * bytes_per_sample + touched * 3 * 4 * 2
     # the same counted in the 32-byte sectors an atomic moves in and out of
-    # L2 (the cubes start on a sector boundary)
-    sectors = int(torch.unique(idx[live] >> 3).numel())
+    # L2
     sector_bytes = M * bytes_per_sample + sectors * 3 * 32 * 2
     sector_bound_ms = sector_bytes / HBM_BYTES_PER_S * 1e3
     atomics_per_s = 3 * taps / (ms * 1e-3)   # a float2 atomic counts as two
@@ -537,8 +614,7 @@ def kb_slab_vs_plain(samples, kb, M):
         scatter_kb.kb_scatter_3ch(*map(view, stacked), *samples, **kb,
                                   zdim=zdim, z_lo=z_lo)
     torch.cuda.synchronize()
-    stack_err = max(float((a - b).abs().max()) / float(b.abs().max())
-                    for a, b in zip(stacked, full))
+    stack_err = max(max_rel(a, b) for a, b in zip(stacked, full))
     log(f"  {name}: the two slabs stacked against the full-cube kernel: "
         f"max|diff| / max|full| = {stack_err:.3e}")
     check(np.isfinite(stack_err) and stack_err <= TOL, f"{name}: stacked "
@@ -686,7 +762,8 @@ def projections(n, rot, tilt, psi, sx, sy, blobs=BLOBS):
     return imgs
 
 
-def write_dataset(root: Path, views: int, seed: int):
+def write_dataset(root: Path, views: int, seed: int, n: int = N,
+                  blobs=BLOBS):
     from xmipp3_tpu_torch.core.image import save_image
     from xmipp3_tpu_torch.core.metadata import MetaData
     rng = np.random.default_rng(seed + 1)
@@ -694,7 +771,7 @@ def write_dataset(root: Path, views: int, seed: int):
     tilt = np.degrees(np.arccos(rng.uniform(-1, 1, views)))
     psi = rng.uniform(0, 360, views)
     sx, sy = rng.uniform(-3, 3, (2, views))
-    imgs = projections(N, rot, tilt, psi, sx, sy)
+    imgs = projections(n, rot, tilt, psi, sx, sy, blobs)
     stk = root / "phantom.mrcs"
     save_image(str(stk), imgs)
     md = MetaData.fromRows(
@@ -733,9 +810,7 @@ def map_quality(path, ref):
           f"{path.name}: map of shape {rec.shape}, finite "
           f"{np.isfinite(rec).all()}")
     _, fsc = fsc_3d(rec, ref, device=DEVICE)
-    a, b = rec - rec.mean(), ref - ref.mean()
-    corr = float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
-    return rec, fsc.cpu().numpy(), corr
+    return rec, fsc.cpu().numpy(), real_corr(rec, ref)
 
 
 def end_to_end(seed, root: Path):
@@ -949,7 +1024,7 @@ MESH_RUNS = (  # (program, mode, ranks)
 
 
 def mesh_rank(argv) -> int:
-    """One rank of phases 5, 9 and 10: run the program of argv with every
+    """One rank of phases 5, 9, 10 and 11: run the program of argv with every
     launch count at 0 and phase timing on, then print a line RANK {rc,
     wall_s, launches, phases_s, peak_device_GB} with the program's local
     shift field (`field`) where it keeps one."""
@@ -979,10 +1054,13 @@ def free_port() -> int:
         return sk.getsockname()[1]
 
 
-def run_ranks(program, args, n, logs: Path):
+def run_ranks(program, args, n, logs: Path, env_rendezvous=False):
     """Start n ranks of `program args` in a gloo group on cuda:0, wait at
     most RANK_TIMEOUT_S for all, stop every one that is left, and return
-    (wall seconds, each rank's RANK report); fails on any rank's failure."""
+    (wall seconds, each rank's RANK report); fails on any rank's failure.
+    The ranks meet through --dist_coordinator/--dist_nprocs/--dist_procid,
+    or with env_rendezvous (a program without those flags) through
+    torchrun's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)."""
     port = free_port()
     procs = []
     # host threads shared out among the ranks, as torchrun does
@@ -990,14 +1068,22 @@ def run_ranks(program, args, n, logs: Path):
     t0 = time.perf_counter()
     try:
         for r in range(n):
+            if env_rendezvous:
+                rank_env = dict(env, MASTER_ADDR="127.0.0.1",
+                                MASTER_PORT=str(port), WORLD_SIZE=str(n),
+                                RANK=str(r))
+                flags = []
+            else:
+                rank_env = env
+                flags = ["--dist_coordinator", f"127.0.0.1:{port}",
+                         "--dist_nprocs", str(n), "--dist_procid", str(r)]
             with open(logs / f"rank{r}.log", "w") as out:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(ROOT / "chip_smoke.py"),
-                     "--mesh-rank", program, *args, "--dist_coordinator",
-                     f"127.0.0.1:{port}", "--dist_nprocs", str(n),
-                     "--dist_procid", str(r), "--device", DEVICE, "-v", "1"],
+                     "--mesh-rank", program, *args, *flags, "--device",
+                     DEVICE, "-v", "1"],
                     stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
-                    env=env))
+                    env=rank_env))
         for p in procs:
             left = RANK_TIMEOUT_S - (time.perf_counter() - t0)
             try:
@@ -1059,7 +1145,7 @@ def mesh_runs(root: Path, rec_md: Path, serial_vol: Path, match_args):
             if mode != "dp":
                 slab_launches += sum(rep["launches"][kname] for rep in reps)
             vol, fsc, corr = map_quality(out, ref)
-            err = float(np.abs(vol - serial).max() / np.abs(serial).max())
+            err = max_rel(vol, serial)
             half = fsc[: len(fsc) // 2]
             run.update(rel_err_vs_serial=err,
                        fsc_min_to_half_nyquist=float(half.min()), corr=corr)
@@ -1182,8 +1268,7 @@ def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
     for d, (u, v, az) in zip(descs, zip(*ctf_recipe())):
         want = plant_ctf(N, CTF_TS, u, v, az)
         got = d.generate_2d(N, N, damped=False, device=DEVICE).cpu().numpy()
-        worst = max(worst, float(np.abs(got - want).max()
-                                 / np.abs(want).max()))
+        worst = max(worst, max_rel(got, want))
     log(f"phase 6: the port's CTF against the planted one: max |port - "
         f"numpy| / max = {worst:.3e} over {CTF_GROUPS} micrographs")
     # float32 chi reaches ~78 rad at Nyquist (20,000 A at 2 A/px): its
@@ -1522,11 +1607,6 @@ def registration_errors(rows, G, mirror):
             np.hypot(E[:, 0, 2], E[:, 1, 2]))
 
 
-def stack_corr(a, b) -> float:
-    a, b = a - a.mean(), b - b.mean()
-    return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
-
-
 def align_2d(seed, root: Path):
     """Phase 7 in root: BASELINE config 1 at N=128 on VIEWS views."""
     import torch
@@ -1601,7 +1681,7 @@ def align_2d(seed, root: Path):
         check(filt.shape == views.shape and np.isfinite(filt).all(),
               f"phase 7 filter: output of shape {filt.shape}")
         want = lowpass_numpy(views[:64], ALIGN_LOWPASS)
-        err = float(np.abs(filt[:64] - want).max() / np.abs(want).max())
+        err = max_rel(filt[:64], want)
         quality["filter_vs_numpy"] = err
         log(f"  filter vs a numpy rfft low-pass (64 views): max |port - "
             f"numpy| / max = {err:.3e}")
@@ -1655,9 +1735,9 @@ def align_2d(seed, root: Path):
         aligned_avg = load("aligned.mrcs").mean(0)
         geo_avg = load("geo.mrcs").mean(0)
         free_avg = load("free_avg.mrcs")
-        quality["geo_vs_aligned_avg"] = stack_corr(geo_avg, aligned_avg)
-        quality["aligned_avg_vs_clean"] = stack_corr(aligned_avg, clean)
-        quality["geo_avg_vs_clean"] = stack_corr(geo_avg, clean)
+        quality["geo_vs_aligned_avg"] = real_corr(geo_avg, aligned_avg)
+        quality["aligned_avg_vs_clean"] = real_corr(aligned_avg, clean)
+        quality["geo_avg_vs_clean"] = real_corr(geo_avg, clean)
         _, _, _, flip, corr, _ = align_considering_mirrors(
             clean, free_avg[None], n_iters=3, max_shift=ALIGN_MAX_SHIFT,
             device=DEVICE)
@@ -1931,7 +2011,7 @@ def ctf_estimation(seed, root: Path):
         # A's PSD against numpy
         psd = load("A.psd")
         want = est_psd_numpy(A)
-        err = float(np.abs(psd - want).max() / np.abs(want).max())
+        err = max_rel(psd, want)
         quality["psd_vs_numpy"] = err
         log(f"  A's PSD vs a numpy periodogram of the same tiles: max |port "
             f"- numpy| / max = {err:.3e}")
@@ -2334,8 +2414,7 @@ def movie_monores(seed, root: Path):
         derr = 0.0
         for n in (0, F - 1):
             want = dose_numpy(raw[n], n, 1.0, 1.0)
-            derr = max(derr, float(np.abs(got[n] - want).max()
-                                   / np.abs(want).max()))
+            derr = max(derr, max_rel(got[n], want))
         quality["filter_dose_vs_numpy"] = derr
         log(f"  movie_filter_dose frames 0 and {F - 1} vs numpy: "
             f"{derr:.3e} of the max")
@@ -2779,7 +2858,7 @@ def write_classify_data(root: Path, n: int, views: int, seed: int, device):
                              mirror[:64]).cpu().numpy()
     out = dict(classes=classes, label=label,
                pin=float(np.abs(M @ G - np.eye(3)).max()),
-               back_corr=min(stack_corr(b, classes[k])
+               back_corr=min(real_corr(b, classes[k])
                              for b, k in zip(back, label[:64])))
     save_image(f("views.mrcs"), clean + noise)
     MetaData.fromRows({"image": f"{i + 1}@{f('views.mrcs')}", "itemId": i + 1}
@@ -3045,7 +3124,7 @@ def classify_2d(seed, root: Path):
                          [a if a != f(lab) else f("ml2d_mesh")
                           for a in args])
                 mr = refs_of(f("ml2d_mesh_references.stk"), CLS_NREF)
-                ref_err = float(np.abs(mr - refs).max() / np.abs(refs).max())
+                ref_err = max_rel(mr, refs)
                 fw = [MetaData(f(r + "_classes.xmd")).getColumn("weight")
                       for r in ("ml2d", "ml2d_mesh")]
                 frac_err = float(np.abs(fw[0] - fw[1]).max())
@@ -3100,6 +3179,612 @@ def classify_2d(seed, root: Path):
     check(not failed, "phase 10: " + "; ".join(failed))
     kernel["launches"] = k4_ml2d
     return kernel
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the image and metadata utilities, ART, SIRT and WBP,
+# align_significant and reconstruct_significant through the CLI
+# ---------------------------------------------------------------------------
+
+RM_ART_BLOCK, RM_ART_ITERS = 1000, 2   # pSART: 10 blocks a pass, 20 passes
+RM_SIRT_ITERS = 3
+RM_FILSAM = 5.0                        # the arbitrary filter's sampling
+RM_WBP_DIAMETER = 0.75                 # --diameter as a share of N
+RM_SIG_VIEWS = 256                     # "class averages" of the 8-blob map
+RM_SIG_NOISE = 0.05                    # their noise, a share of their sigma
+RM_SIG_SHIFT = 1.0                     # their shifts, uniform in +-1 px
+RM_SIG_LOWPASS = 0.125                 # the start volume: a quarter of Nyquist
+RM_SIG_RATE, RM_SIG_ITERS, RM_SIG_MAX_SHIFT = 5.0, 3, 4
+RM_ASIG_ANG, RM_ASIG_MAX_SHIFT = 10.0, 4
+RM_NOISE_SIGMA = 0.5                   # transform_add_noise's gaussian
+RM_PAD = 16                            # transform_window: N + 32 and back
+RM_NOISE_VIEWS = 2048                  # the noise held against numpy's draws
+RM_TOL = 1e-4          # resize, noise, phases' amplitudes, the downsample
+RM_STATS_TOL = 1e-5    # image_statistics against float64 numpy
+RM_ROTATE_DEG = 1e-3   # angular_rotate and its inverse
+RM_MESH_TOL = 1e-5     # align_significant --mesh dp weights against serial
+RM_KB_CHUNK = 1 << 22  # samples a part of K3's plain version at WBP's launch
+# Map-quality limits: twice the shortfall from a correlation of 1 that
+# tools/plan_reconstruct_misc.py read of the reference package at N=64
+# (ART and SIRT on 2,000 views: 0.99992, 0.9999976; WBP and the ramp on
+# 500: 0.8758, 0.8807; reconstruct_significant 0.9104)
+RM_ART_CORR = 0.99983
+RM_SIRT_CORR = 0.999995
+RM_WBP_CORR = 0.7516
+RM_WBP_RAMP_CORR = 0.7614
+RM_SIG_CORR = 0.8208
+
+
+def scaled_blobs(blobs, n: int):
+    """Blobs made for N=128 with their centres scaled to n (widths kept,
+    as the 48-voxel originals were scaled to 128)."""
+    k = n / 128
+    return [(cz * k, cy * k, cx * k, s, a) for cz, cy, cx, s, a in blobs]
+
+
+def lowpass_volume(vol, cutoff: float):
+    """vol with every frequency above `cutoff` (cycles/px) removed (numpy
+    rfftn, float64)."""
+    n = vol.shape[-1]
+    fz = np.fft.fftfreq(n)[:, None, None]
+    fy = np.fft.fftfreq(n)[None, :, None]
+    fx = np.fft.rfftfreq(n)[None, None, :]
+    keep = fz * fz + fy * fy + fx * fx <= cutoff * cutoff
+    return np.fft.irfftn(np.fft.rfftn(vol) * keep, s=vol.shape).astype(
+        np.float32)
+
+
+def significance_data(root: Path, n: int, views: int, seed: int):
+    """reconstruct_significant's input: `views` projections of the 8-blob
+    phantom at uniform directions, psi, shifts of +-RM_SIG_SHIFT px and
+    noise of RM_SIG_NOISE sigma (sig.mrcs, sig.xmd), and the phantom
+    low-passed to a quarter of Nyquist (init.vol); numpy, from the seed.
+    Returns the phantom."""
+    from xmipp3_tpu_torch.core.image import save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    blobs = scaled_blobs(BLOBS8, n)
+    rng = np.random.default_rng(seed + 11)
+    rot = rng.uniform(0, 360, views)
+    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, views)))
+    psi = rng.uniform(0, 360, views)
+    sx, sy = rng.uniform(-RM_SIG_SHIFT, RM_SIG_SHIFT, (2, views))
+    clean = projections(n, rot, tilt, psi, sx, sy, blobs)
+    save_image(str(root / "sig.mrcs"), clean + (RM_SIG_NOISE * clean.std())
+               * rng.standard_normal(clean.shape, dtype=np.float32))
+    MetaData.fromRows({"image": f"{i + 1}@{root / 'sig.mrcs'}",
+                       "itemId": i + 1} for i in range(views)).write(
+                           str(root / "sig.xmd"))
+    ref = phantom(n, blobs)
+    save_image(str(root / "init.vol"), lowpass_volume(ref, RM_SIG_LOWPASS))
+    return ref
+
+
+def non_increasing(hist) -> bool:
+    h = np.asarray(hist, np.float64)
+    return bool(len(h) > 0 and (np.diff(h) <= 1e-6 * h[0]).all())
+
+
+def fourier_crop_f64(imgs, oh: int, ow: int):
+    """Band-limited resize of a stack by a float64 Fourier crop (the
+    reference's recipe, ops/resize.py), written out with torch's FFTs on
+    DEVICE; a float64 tensor."""
+    import torch
+    x = torch.as_tensor(imgs, device=DEVICE).to(torch.float64)
+    H, W = x.shape[-2:]
+    dims = (-2, -1)
+    spec = torch.fft.fftshift(torch.fft.fft2(x), dim=dims)
+    y0, x0 = H // 2 - oh // 2, W // 2 - ow // 2
+    crop = spec[..., y0:y0 + oh, x0:x0 + ow]
+    out = torch.fft.ifft2(torch.fft.ifftshift(crop, dim=dims)).real
+    return out * (oh * ow) / (H * W)
+
+
+def grid_at_views(name, interp, rot, tilt, psi, seed, chunk=None,
+                  reps=20):
+    """K2 (interp "tri") or K3 ("kb") against its plain version at the
+    sample count of one launch on phase 11's path: the slice coordinates of
+    the given poses at N, P in one stream, and three value streams. With
+    `chunk` set, the plain version and the bound's tap count run over
+    parts of `chunk` samples (the whole tap expansion would not fit on the
+    card), and no single library call exists to time. `reps`: the
+    kernel's timed launches."""
+    import torch
+    from xmipp3_tpu_torch.core.geometry import euler_matrix
+    from xmipp3_tpu_torch.ops import scatter_kb, scatter_tri
+    from xmipp3_tpu_torch.ops.reconstruct import (BLOB_ALPHA, BLOB_ORDER,
+                                                  BLOB_RADIUS,
+                                                  _slice_tap_coords)
+    from xmipp3_tpu_torch.ops.scatter import scatter_add_3ch_plain
+    mats = torch.as_tensor(euler_matrix(rot, tilt, psi), dtype=torch.float32,
+                           device=DEVICE)
+    zi, yi, xi = (a.reshape(-1).contiguous()
+                  for a in _slice_tap_coords(mats, N, P, 0.5))
+    del mats
+    M = zi.numel()
+    rng = np.random.default_rng(seed + 12)
+    vals = np.stack([rng.standard_normal(M), rng.standard_normal(M),
+                     rng.uniform(0.5, 1.5, M)]).astype(np.float32)
+    samples = (zi, yi, xi, *(torch.as_tensor(v, device=DEVICE)
+                             for v in vals))
+    del vals
+    log(f"phase 11: {name} at {len(rot)} views: M = {M} samples")
+    if interp == "tri":
+        # per sample floor, fractions and 1-f (9); per live corner the
+        # weight (2), three products and three adds (6)
+        kernel = lambda *c: scatter_tri.tri_scatter(*c, *samples, P=P)
+        expand = lambda part: scatter_tri.tri_expand(*part, P)
+        costs = (24, 8, 9)
+    else:
+        # per sample floor and fractions (6); per live tap the distance
+        # (8), the degree-7 Horner polynomial (14), three products and
+        # three adds (6)
+        kb = dict(P=P, radius=BLOB_RADIUS, alpha=BLOB_ALPHA,
+                  order=BLOB_ORDER)
+        kernel = lambda *c: scatter_kb.kb_scatter_3ch(*c, *samples, **kb)
+        expand = lambda part: scatter_kb.kb_expand(*part, **kb)
+        costs = (24, 28, 6)
+    if chunk is None:
+        taps = expand(samples)
+        got = compare(
+            name, kernel, lambda *c: scatter_add_3ch_plain(*c, *expand(
+                samples)), taps, *costs, M,
+            library=lambda *c: [a.index_add_(0, taps[0], u)
+                                for a, u in zip(c, taps[1:])],
+            kernel_reps=reps)
+        del taps
+    else:
+        parts = lambda: (expand(tuple(a[s:s + chunk] for a in samples))
+                         for s in range(0, M, chunk))
+        got = compare(
+            name, kernel, lambda *c: [scatter_add_3ch_plain(*c, *t)
+                                      for t in parts()],
+            parts, *costs, M, kernel_reps=reps, plain_reps=1)
+        got["plain_chunk_samples"] = chunk
+    got["views"] = len(rot)
+    del samples
+    torch.cuda.empty_cache()
+    return got
+
+
+def utilities_and_reconstruction(seed, root: Path, e2e: Path, cycle: Path,
+                                 poses):
+    """Phase 11 in root, on phase 3's true-pose views (e2e) and phase 4's
+    noisy views, assignments and gallery (cycle, with their true poses).
+    Returns K2's entry at a pSART block and the K2 launches of the pSART
+    run."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.geometry import euler_matrix
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.sampling import directions_from_angles
+    from xmipp3_tpu_torch.programs import get_program
+    root.mkdir(parents=True)
+    f = lambda name: str(root / name)
+    report, quality, failed = {}, {}, []
+
+    def limit(ok, msg):
+        """A quality limit: every one is read and reported before the
+        phase fails on any."""
+        if not ok:
+            failed.append(msg)
+
+    def run(label, name, args):
+        torch.cuda.empty_cache()
+        launch_counts(reset=True)
+        timing.take_timing()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prog = get_program(name)
+        t0 = time.perf_counter()
+        rc = prog.run_with_args([str(a) for a in args]
+                                + ["--device", DEVICE, "-v", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"phase 11 {label} ({name}): rc {rc}")
+        phases = {k: v[0] for k, v in timing.take_timing().items()}
+        r = report[label] = {
+            "program": name, "wall_s": wall, "phases_s": phases,
+            "rest_s": wall - sum(phases.values()),
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {label} ({name}): {wall:.3f} s, peak "
+            f"{r['peak_device_GB']:.2f} GB, launches {r['launches']}, phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+            + f", rest {r['rest_s']:.3f}")
+        return prog
+
+    def stack(name):
+        return Image.read_stack(f(name))
+
+    def drop(*names):
+        for name in names:
+            Path(f(name)).unlink()
+
+    def md_rows(fn):
+        md = MetaData(str(fn))
+        return [md.getRow(i) for i in md]
+
+    parsed = {}
+
+    def column(fn, key):
+        if fn not in parsed:
+            parsed[fn] = md_rows(fn)
+        return np.array([r[key] for r in parsed[fn]])
+
+    views_md, views_stk = cycle / "views.xmd", cycle / "views.mrcs"
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    data = Image.read_stack(str(views_stk))
+    V = len(data)
+    sig_ref = significance_data(root, N, RM_SIG_VIEWS, seed)
+    log(f"phase 11: phase 4's {V} views read ({data.nbytes / 1e6:.0f} MB) and "
+        f"{RM_SIG_VIEWS} views of the 8-blob phantom made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    timing.enable_timing(True)
+    try:
+        # (a) the image programs on phase 4's views
+        big, small = N + 2 * RM_PAD, N // 2
+        run("window_pad", "transform_window",
+            ["-i", views_stk, "-o", f("wide.mrcs"), "--size", big])
+        wide = stack("wide.mrcs")
+        inner = wide[:, RM_PAD:RM_PAD + N, RM_PAD:RM_PAD + N].copy()
+        wide[:, RM_PAD:RM_PAD + N, RM_PAD:RM_PAD + N] = 0.0
+        exact = {"window_pad": wide.shape == (V, big, big)
+                 and bool(np.array_equal(inner, data)) and not wide.any()}
+        del wide, inner
+        run("window_back", "transform_window",
+            ["-i", f("wide.mrcs"), "-o", f("back.mrcs"), "--size", N])
+        exact["window_back"] = bool(np.array_equal(stack("back.mrcs"), data))
+        drop("wide.mrcs", "back.mrcs")
+        run("resize", "image_resize",
+            ["-i", views_stk, "-o", f("half.mrcs"), "--fourier", "--dim",
+             small])
+        resize_err = max_rel(stack("half.mrcs"),
+                             fourier_crop_f64(data, small, small))
+        drop("half.mrcs")
+        run("convert_stk", "image_convert",
+            ["-i", views_stk, "-o", f("v.stk")])
+        run("convert_back", "image_convert",
+            ["-i", f("v.stk"), "-o", f("back.mrcs")])
+        exact["convert_round_trip"] = bool(
+            np.array_equal(stack("back.mrcs"), data))
+        drop("v.stk", "back.mrcs")
+        run("operate_plus", "image_operate",
+            ["-i", views_stk, "-o", f("plus.mrcs"), "--plus", 1.5])
+        run("operate_mult", "image_operate",
+            ["-i", f("plus.mrcs"), "-o", f("mult.mrcs"), "--mult", 2])
+        exact["operate"] = bool(np.array_equal(
+            stack("mult.mrcs"), (data + np.float32(1.5)) * np.float32(2)))
+        drop("plus.mrcs", "mult.mrcs")
+        run("add_noise", "transform_add_noise",
+            ["-i", views_stk, "-o", f("noise.mrcs"), "--type", "gaussian",
+             RM_NOISE_SIGMA, 0, "--seed", 0])
+        got = stack("noise.mrcs")
+        # the first 8 of the program's 256-view batches, drawn from the
+        # same Generator in the same order
+        rng = np.random.default_rng(0)
+        noise_err = 0.0
+        for s in range(0, min(V, RM_NOISE_VIEWS), 256):
+            want = data[s:s + 256] + rng.normal(
+                0.0, RM_NOISE_SIGMA, data[s:s + 256].shape).astype(
+                    np.float32)
+            noise_err = max(noise_err, float(np.abs(got[s:s + 256]
+                                                    - want).max()))
+        noise_err /= float(np.abs(data).max())
+        drop("noise.mrcs")
+        run("threshold", "transform_threshold",
+            ["-i", views_stk, "-o", f("thr.mrcs"), "--select", "below", 0,
+             "--substitute", "value", 0])
+        exact["threshold"] = bool(np.array_equal(
+            stack("thr.mrcs"), np.where(data < 0, np.float32(0), data)))
+        drop("thr.mrcs")
+        run("mirror", "transform_mirror",
+            ["-i", views_stk, "-o", f("mir.mrcs"), "--flipX"])
+        exact["mirror"] = bool(np.array_equal(stack("mir.mrcs"),
+                                              data[..., ::-1]))
+        drop("mir.mrcs")
+        run("randomize_phases", "transform_randomize_phases",
+            ["-i", views_stk, "-o", f("rph.mrcs"), "--freq", 0.25, "--seed",
+             0])
+        fy = np.fft.fftfreq(N)[:, None]
+        fx = np.fft.rfftfreq(N)[None, :]
+        low = torch.as_tensor(np.sqrt(fy * fy + fx * fx) <= 0.25,
+                              device=DEVICE)
+        a, b = (torch.fft.rfft2(torch.as_tensor(x, device=DEVICE).to(
+            torch.float64)) for x in (stack("rph.mrcs"), data))
+        top = float(b.abs().max())
+        amp_err = float((a.abs() - b.abs()).abs().max()) / top
+        low_err = float((a - b).abs()[:, low].max()) / top
+        del a, b
+        drop("rph.mrcs")
+        run("statistics", "image_statistics",
+            ["-i", views_stk, "-o", f("stats.xmd")])
+        flat = torch.as_tensor(data, device=DEVICE).reshape(V, -1).to(
+            torch.float64)
+        stats_err = max(max_rel(column(f("stats.xmd"), k), want)
+                        for k, want in (("min", flat.amin(1)),
+                                        ("max", flat.amax(1)),
+                                        ("avg", flat.mean(1)),
+                                        ("stddev", flat.std(1, correction=0))))
+        del flat
+        run("histogram", "image_histogram",
+            ["-i", views_stk, "-o", f("hist.xmd"), "--steps", 100])
+        counts, _ = np.histogram(data, bins=100, range=(float(data.min()),
+                                                        float(data.max())))
+        exact["histogram"] = bool(np.array_equal(
+            column(f("hist.xmd"), "count"), counts))
+        run("header", "image_header", ["-i", views_stk])
+        mic = est_plant(EST_SIZE, EST_TS, *EST_A, np.random.default_rng(seed))
+        save_image(f("mic.mrc"), mic)
+        run("downsample", "transform_downsample",
+            ["-i", f("mic.mrc"), "-o", f("mic2.mrc"), "--step", 2])
+        down_err = max_rel(np.squeeze(Image(f("mic2.mrc")).data),
+                           fourier_crop_f64(mic, EST_SIZE // 2,
+                                            EST_SIZE // 2))
+        drop("mic.mrc", "mic2.mrc")
+        del mic, got
+        quality["images"] = {"exact": exact, "resize_err": resize_err,
+                             "noise_err": noise_err, "phase_amp_err": amp_err,
+                             "phase_low_band_err": low_err,
+                             "stats_err": stats_err, "downsample_err": down_err}
+        log(f"  image programs: exact {exact}; resize {resize_err:.2e}, noise "
+            f"{noise_err:.2e}, randomised phases' amplitudes {amp_err:.2e} "
+            f"(kept band {low_err:.2e}), statistics {stats_err:.2e}, "
+            f"downsample {down_err:.2e}")
+        limit(all(exact.values()), f"phase 11: not exact: {exact}")
+        limit(max(resize_err, noise_err, amp_err, low_err, down_err)
+              <= RM_TOL, f"phase 11: resize {resize_err:.2e}, noise "
+              f"{noise_err:.2e}, phases {amp_err:.2e} / {low_err:.2e}, "
+              f"downsample {down_err:.2e} (limit {RM_TOL})")
+        limit(stats_err <= RM_STATS_TOL, f"phase 11: statistics "
+              f"{stats_err:.2e} (limit {RM_STATS_TOL})")
+
+        # (a) the metadata programs on phase 4's 10,000 assignment rows
+        run("md_sort_id", "metadata_utilities",
+            ["-i", cycle / "assigned.xmd", "-o", f("assigned.xmd"),
+             "--operate", "sort", "itemId"])
+        md_in = f("assigned.xmd")
+        ids = column(md_in, "itemId").astype(int)
+        cc = column(md_in, "maxCC")
+        run("md_sort_cc", "metadata_utilities",
+            ["-i", md_in, "-o", f("by_cc.xmd"), "--operate", "sort", "maxCC",
+             "desc"])
+        s_cc = column(f("by_cc.xmd"), "maxCC")
+        md_ok = {"sort": bool((np.diff(s_cc) <= 0).all() and np.array_equal(
+            np.sort(column(f("by_cc.xmd"), "itemId")), np.sort(ids)))}
+        run("md_query", "metadata_utilities",
+            ["-i", md_in, "-o", f("query.xmd"), "--query", "select",
+             "maxCC > 0.5"])
+        md_ok["query"] = bool(np.array_equal(
+            column(f("query.xmd"), "itemId"), ids[cc > 0.5]))
+        run("md_union", "metadata_utilities",
+            ["-i", md_in, "-o", f("union.xmd"), "--set", "union", md_in,
+             "image"])
+        md_ok["union"] = MetaData(f("union.xmd")).size() == V
+        run("md_fill", "metadata_utilities",
+            ["-i", md_in, "-o", f("filled.xmd"), "--fill", "ctfDefocusU",
+             "lineal", 10000, 1])
+        md_ok["fill"] = bool(np.array_equal(
+            column(f("filled.xmd"), "ctfDefocusU"), 10000.0 + np.arange(V)))
+        (root / "split").mkdir()
+        run("md_split", "metadata_split",
+            ["-i", md_in, "-n", 4, "--oroot", f("split/part")])
+        parts = sorted((root / "split").iterdir())
+        md_ok["split"] = len(parts) == 4 and np.array_equal(
+            np.sort(np.concatenate([column(p, "itemId") for p in parts])),
+            np.sort(ids))
+        run("md_histogram", "metadata_histogram",
+            ["-i", md_in, "--col", "maxCC", "--steps", 50, "-o", f("mh.xmd")])
+        md_ok["histogram"] = bool(np.array_equal(
+            column(f("mh.xmd"), "count"),
+            np.histogram(cc, bins=50, range=(cc.min(), cc.max()))[0]))
+        # angular_distance between the truth and the assignments
+        order = ids - 1
+        MetaData.fromRows(
+            {"itemId": int(i + 1), "angleRot": float(poses["rot"][i]),
+             "angleTilt": float(poses["tilt"][i]),
+             "anglePsi": float(poses["psi"][i]),
+             "shiftX": float(poses["sx"][i]),
+             "shiftY": float(poses["sy"][i])} for i in order).write(
+                 f("truth.xmd"))
+        run("angular_distance", "angular_distance",
+            ["--ang1", f("truth.xmd"), "--ang2", md_in, "--oroot",
+             f("angdist"), "--check_mirrors"])
+        dist = column(f("angdist.xmd"), "angleDiff")
+        rows = md_rows(md_in)
+        d_true = directions_from_angles(np.stack(
+            [poses["rot"][order], poses["tilt"][order]], 1))
+        ang4 = np.degrees(np.arccos(np.clip(
+            (d_true * effective_directions(rows)).sum(1), -1, 1)))
+        within4 = float((ang4 <= 1.5 * GALLERY_RATE).mean())
+        within_ad = float((dist <= 1.5 * GALLERY_RATE).mean())
+        dist_err = float(np.abs(dist - np.minimum(ang4, 180 - ang4)).max())
+        # both read directions of float32 Euler matrices: near 0 degrees
+        # their 1e-7 noise moves an angle by up to 0.01 degrees
+        md_ok["angular_distance"] = dist_err <= 1e-2 and within_ad >= within4
+        # angular_rotate and its inverse
+        run("angular_rotate", "angular_rotate",
+            ["-i", md_in, "-o", f("rot.xmd"), "--rotate", 10, 20, 30])
+        run("angular_rotate_back", "angular_rotate",
+            ["-i", f("rot.xmd"), "-o", f("back.xmd"), "--rotate", -30, -20,
+             -10])
+        mats = [np.asarray(euler_matrix(*[column(fn, k) for k in (
+            "angleRot", "angleTilt", "anglePsi")]), np.float64)
+            for fn in (md_in, f("back.xmd"))]
+        rel = np.einsum("nji,njk->nik", *mats) - np.eye(3)
+        rot_err = float(np.degrees(np.linalg.norm(rel, axis=(1, 2))
+                                   / np.sqrt(2)).max())
+        # the EMX round trip
+        run("emx_export", "metadata_convert_emx",
+            ["-i", f("filled.xmd"), "-o", f("x.emx")])
+        run("emx_import", "metadata_convert_emx",
+            ["-i", f("x.emx"), "-o", f("emx.xmd")])
+        back = md_rows(f("emx.xmd"))
+        name = lambda v: (lambda a: (int(a[0]), a[1]))(str(v).split("@", 1))
+        md_ok["emx"] = bool(
+            [name(r["image"]) for r in back]
+            == [name(r["image"]) for r in rows]
+            and np.array_equal([r["ctfDefocusU"] for r in back],
+                               10000.0 + np.arange(V)))
+        quality["metadata"] = {"ok": md_ok, "within_7.5_phase4": within4,
+                               "within_7.5_angular_distance": within_ad,
+                               "angular_distance_err_deg": dist_err,
+                               "rotate_inverse_err_deg": rot_err}
+        log(f"  metadata programs: {md_ok}; views within "
+            f"{1.5 * GALLERY_RATE} deg: phase 4 {within4:.4f}, "
+            f"angular_distance {within_ad:.4f} (per row within "
+            f"{dist_err:.2e} deg of the mirror-folded phase-4 angle); "
+            f"angular_rotate and its inverse within {rot_err:.2e} deg")
+        limit(all(md_ok.values()), f"phase 11: metadata {md_ok}")
+        limit(rot_err <= RM_ROTATE_DEG, f"phase 11: angular_rotate and its "
+              f"inverse differ by {rot_err:.2e} deg")
+
+        # (b) ART, SIRT and WBP on phase 3's true-pose views
+        rec_md = e2e / "phantom.xmd"
+        ref = phantom(N)
+        md3 = MetaData(str(rec_md))
+        poses3 = [np.asarray(md3.getColumn(k), np.float32)
+                  for k in ("angleRot", "angleTilt", "anglePsi")]
+        # K2 at a pSART block and at a SIRT pass (every view in one launch),
+        # K3 at WBP's one launch of every view
+        kernels = [
+            grid_at_views("tri_scatter_art_block", "tri",
+                          *(a[:RM_ART_BLOCK] for a in poses3), seed),
+            grid_at_views("tri_scatter_sirt_pass", "tri", *poses3, seed,
+                          reps=5),
+            grid_at_views("kb_scatter_3ch_wbp", "kb", *poses3, seed,
+                          chunk=RM_KB_CHUNK, reps=3)]
+        recs = {}
+        for label, args, limit_corr, kname, launches in (
+                ("art_psart", ["--parallel_mode", "pSART", "--block_size",
+                               RM_ART_BLOCK, "-n", RM_ART_ITERS],
+                 RM_ART_CORR, "tri_scatter",
+                 RM_ART_ITERS * -(-VIEWS // RM_ART_BLOCK)),
+                ("art_sirt", ["--parallel_mode", "SIRT", "-n", RM_SIRT_ITERS,
+                              "--POCS_positivity"], RM_SIRT_CORR,
+                 "tri_scatter", RM_SIRT_ITERS),
+                ("wbp", ["--filsam", RM_FILSAM], RM_WBP_CORR,
+                 "kb_scatter_3ch", 1),
+                ("wbp_ramp", ["--diameter", int(RM_WBP_DIAMETER * N)],
+                 RM_WBP_RAMP_CORR, "kb_scatter_3ch", 1)):
+            name = "reconstruct_art" if label.startswith("art") \
+                else "reconstruct_wbp"
+            prog = run(label, name, ["-i", rec_md, "-o", f(f"{label}.vol"),
+                                     *args])
+            vol = np.squeeze(Image(f(f"{label}.vol")).data)
+            check(vol.shape == (N, N, N) and np.isfinite(vol).all(),
+                  f"phase 11 {label}: volume of shape {vol.shape}")
+            k = report[label]["launches"].get(kname, 0)
+            check(k == launches, f"phase 11 {label}: {kname} launched {k} "
+                  f"times, expected {launches}")
+            corr = real_corr(vol, ref)
+            q = recs[label] = {"corr": corr, kname: k}
+            hist = getattr(prog, "residual_history", None)
+            if hist is not None:
+                q["residual_history"] = list(hist)
+                limit(non_increasing(hist), f"phase 11 {label}: residuals "
+                      f"{hist}")
+            log(f"  {label}: correlation with the phantom {corr:.4f}"
+                + ("" if hist is None else ", residual rms "
+                   + " -> ".join(f"{v:.5f}" for v in hist)))
+            limit(corr >= limit_corr, f"phase 11 {label}: correlation "
+                  f"{corr:.4f} (limit {limit_corr})")
+        quality["reconstruction"] = recs
+
+        # (c) align_significant on phase 4's views and its 5-degree gallery
+        asig_args = ["-i", views_md, "-r", cycle / "gallery.doc", "-o",
+                     f("asig.xmd"), "--angDistance", RM_ASIG_ANG,
+                     "--max_shift", RM_ASIG_MAX_SHIFT]
+        run("align_significant", "align_significant", asig_args)
+        k4 = report["align_significant"]["launches"].get("cross_spectrum", 0)
+        batches = -(-V // MATCH_BATCH)
+        check(k4 == 13 * batches, f"phase 11 align_significant: "
+              f"cross_spectrum launched {k4} times, expected {13 * batches}")
+        arows = md_rows(f("asig.xmd"))
+        check(len(arows) == V, f"phase 11 align_significant: {len(arows)} "
+              "rows")
+        a_ids = np.array([int(r["itemId"]) for r in arows]) - 1
+        d_true = directions_from_angles(np.stack(
+            [poses["rot"][a_ids], poses["tilt"][a_ids]], 1))
+        a_ang = np.degrees(np.arccos(np.clip(
+            (d_true * effective_directions(arows)).sum(1), -1, 1)))
+        a_within = float((a_ang <= 1.5 * GALLERY_RATE).mean())
+        work = root / "asig_mesh"
+        work.mkdir()
+        mesh_args = [str(a) for a in asig_args]
+        mesh_args[mesh_args.index("-o") + 1] = f("asig_mesh.xmd")
+        wall, reps = run_ranks("align_significant", mesh_args + [
+            "--mesh", "dp"], 2, work, env_rendezvous=True)
+        report["align_significant_mesh"] = {
+            "program": "align_significant", "ranks": 2, "wall_s": wall,
+            "per_rank": reps}
+        log(f"  align_significant --mesh dp, 2 ranks: {wall:.3f} s; "
+            + "; ".join(f"rank {r} {rep['wall_s']:.3f} s, launches "
+                        f"{ {k: v for k, v in rep['launches'].items() if v} }"
+                        for r, rep in enumerate(reps)))
+        for r, rep in enumerate(reps):
+            check(rep["launches"]["cross_spectrum"] > 0, f"phase 11 "
+                  f"align_significant --mesh dp: rank {r} never launched "
+                  "cross_spectrum")
+        w_serial = column(f("asig.xmd"), "weight")
+        w_mesh = column(f("asig_mesh.xmd"), "weight")
+        mesh_err = max_rel(w_mesh, w_serial)
+        same_ref = float((column(f("asig_mesh.xmd"), "ref")
+                          == column(f("asig.xmd"), "ref")).mean())
+        quality["align_significant"] = {
+            "within_7.5_deg": a_within,
+            "median_angle_deg": float(np.median(a_ang)),
+            "mesh_weight_err": mesh_err, "mesh_same_ref": same_ref,
+            "k4_launches": k4}
+        log(f"  align_significant: {a_within:.4f} of the views within "
+            f"{1.5 * GALLERY_RATE} deg of their direction (median "
+            f"{np.median(a_ang):.2f} deg); --mesh dp weights within "
+            f"{mesh_err:.2e} of the max, {same_ref:.4f} of the rows on the "
+            "serial reference")
+        limit(a_within >= 0.9, f"phase 11 align_significant: {a_within:.4f} "
+              "of the views within 1.5 x the sampling (limit 0.9)")
+        limit(mesh_err <= RM_MESH_TOL, f"phase 11 align_significant mesh: "
+              f"weights {mesh_err:.2e} (limit {RM_MESH_TOL})")
+
+        # (d) reconstruct_significant on 256 "class averages"
+        (root / "sig").mkdir()
+        run("reconstruct_significant", "reconstruct_significant",
+            ["-i", f("sig.xmd"), "--odir", f("sig"), "--initvolumes",
+             f("init.vol"), "--angularSampling", RM_SIG_RATE, "--iter",
+             RM_SIG_ITERS, "--maxShift", RM_SIG_MAX_SHIFT])
+        launches = report["reconstruct_significant"]["launches"]
+        k3, k4s = (launches.get(k, 0) for k in ("kb_scatter_3ch",
+                                                "cross_spectrum"))
+        check(k3 == RM_SIG_ITERS and k4s == 13 * RM_SIG_ITERS,
+              f"phase 11 reconstruct_significant: launches {launches}")
+        vol = np.squeeze(Image(f("sig/significant_volume.vol")).data)
+        check(vol.shape == (N, N, N) and np.isfinite(vol).all(),
+              f"phase 11 reconstruct_significant: volume {vol.shape}")
+        sig_corr = real_corr(vol, sig_ref)
+        start_corr = real_corr(np.squeeze(Image(f("init.vol")).data),
+                                 sig_ref)
+        quality["reconstruct_significant"] = {
+            "corr": sig_corr, "start_corr": start_corr,
+            "kb_scatter_3ch": k3, "cross_spectrum": k4s}
+        log(f"  reconstruct_significant: correlation with the phantom "
+            f"{sig_corr:.4f} (the low-passed start {start_corr:.4f}); "
+            f"launches K3 {k3}, K4 {k4s}")
+        limit(sig_corr >= RM_SIG_CORR, f"phase 11 reconstruct_significant: "
+              f"correlation {sig_corr:.4f} (limit {RM_SIG_CORR})")
+        report["quality"] = quality
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    report["phase_s"] = time.perf_counter() - start
+    log(f"  phase 11 took {report['phase_s']:.2f} s")
+    log("recmisc " + json.dumps(report))
+    check(not failed, "phase 11: " + "; ".join(failed))
+    for k, (label, kname) in zip(kernels, (
+            ("art_psart", "tri_scatter"), ("art_sirt", "tri_scatter"),
+            ("wbp", "kb_scatter_3ch"))):
+        k["launches"] = recs[label][kname]
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -3162,6 +3847,10 @@ def main(argv=None) -> int:
         movie_monores(args.seed, root / "movie")
         log("phase 10: 2-D classification (BASELINE config 4's CL2D half)")
         ml2d_kernel = classify_2d(args.seed, root / "classify")
+        log("phase 11: image and metadata utilities, ART/SIRT/WBP, "
+            "align_significant and reconstruct_significant")
+        art_kernels = utilities_and_reconstruction(
+            args.seed, root / "recmisc", root / "e2e", root / "cycle", poses)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3170,6 +3859,7 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
     kernels.append(ml2d_kernel)
+    kernels += art_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -258,6 +258,12 @@ from xmipp3_tpu_torch.programs import (ctf_correct, ctf_estimate,
                                        transform_normalize)
 from xmipp3_tpu_torch.models import cl2d, ctf_estimation, dimred, ml2d, som
 from xmipp3_tpu_torch.programs import classify
+from xmipp3_tpu_torch.core import emx
+from xmipp3_tpu_torch.ops import art
+from xmipp3_tpu_torch.programs import (align_significant, image_misc,
+                                       image_operate, metadata_misc,
+                                       metadata_utilities, reconstruct_misc,
+                                       transform_misc)
 from xmipp3_tpu_torch.parallel import (cli, engines, match, mesh, movie,
                                        reconstruct)
 for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
@@ -272,7 +278,15 @@ for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "resolution_directional", "classify_CL2D", "ml_align2d",
              "mlf_align2d", "classify_kerdensom",
              "classify_CL2D_core_analysis", "angular_accuracy_pca",
-             *ALIASES):
+             "image_operate", "transform_window", "transform_add_noise",
+             "transform_threshold", "transform_mirror",
+             "transform_randomize_phases", "transform_downsample",
+             "image_resize", "image_convert", "image_header",
+             "image_statistics", "image_histogram", "metadata_utilities",
+             "metadata_split", "metadata_import", "metadata_histogram",
+             "angular_distance", "angular_rotate", "metadata_convert_emx",
+             "reconstruct_art", "reconstruct_wbp", "reconstruct_significant",
+             "align_significant", *ALIASES):
     assert get_program(name) is not None, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"
@@ -440,8 +454,10 @@ def _rank_main(spec_path: str, rank: int) -> None:
     from xmipp3_tpu_torch.parallel import reconstruct as pr
     from xmipp3_tpu_torch.parallel.cli import maybe_init_distributed
     from xmipp3_tpu_torch.programs import get_program
+    from xmipp3_tpu_torch.programs import align_significant as as_prog
     from xmipp3_tpu_torch.programs import movie_alignment as ma_prog
     from xmipp3_tpu_torch.programs import reconstruct_fourier as rf_prog
+    from xmipp3_tpu_torch.programs import reconstruct_misc as rm_prog
     torch.set_num_threads(1)
     spec = json.loads(Path(spec_path).read_text())
     n, device = spec["world"], spec["device"]
@@ -457,8 +473,8 @@ def _rank_main(spec_path: str, rank: int) -> None:
             return fn(*a, **k)
         return wrapper
 
-    rf_prog.save_image = counted(rf_prog.save_image)
-    ma_prog.save_image = counted(ma_prog.save_image)
+    for prog in (rf_prog, ma_prog, rm_prog, as_prog):
+        prog.save_image = counted(prog.save_image)
     MetaData.write = counted(MetaData.write)
     report = {"rank": rank, "jobs": {}}
     for job in spec["jobs"]:
@@ -470,7 +486,19 @@ def _rank_main(spec_path: str, rank: int) -> None:
             dist_coordinator=f"127.0.0.1:{job['port']}", dist_nprocs=n,
             dist_procid=rank, device_arg=device)
         try:
-            if "program" in job:
+            if "program" in job and job.get("rendezvous") == "env":
+                # a program without --dist_* flags: torchrun's environment
+                os.environ.update(MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(job["port"]),
+                                  WORLD_SIZE=str(n), RANK=str(rank))
+                try:
+                    got["rc"] = get_program(job["program"]).run_with_args(
+                        job["argv"] + ["--device", device, "-v", "0"])
+                finally:
+                    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                              "RANK"):
+                        os.environ.pop(k)
+            elif "program" in job:
                 got["rc"] = get_program(job["program"]).run_with_args(
                     job["argv"] + [
                         "--dist_coordinator", flags.dist_coordinator,

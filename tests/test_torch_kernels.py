@@ -5,8 +5,9 @@ and the Fourier filter), CTF estimation (the fitness, a whole staged
 fit, the periodogram against numpy, and compass rounds that never wait
 for the host) and the movie and MonoRes path (phantom frames, global and
 local alignment with the warp, the float64 gain estimate, MonoRes and
-FSO) and 2-D classification (ML2D and CL2D) on the card against the same
-on the CPU.
+FSO), 2-D classification (ML2D and CL2D), and ART, SIRT, WBP and the
+significance weights on the card against the same on the CPU; K2 also at
+the sample count of an ART block of 1,000 views.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -950,3 +951,64 @@ def test_monores_and_fso_on_the_card_match_the_cpu():
     assert np.abs(got[1] - want[1]).max() <= 1e-3
     np.testing.assert_array_equal(got[2], want[2])
 
+
+
+@pytest.mark.cuda
+def test_tri_kernel_at_an_art_block_matches_plain():
+    """K2 at the sample count of one pSART block of 1,000 views at N=128,
+    P=256 (reconstruct_art --block_size 1000 grids each block's residuals
+    in one call), against its plain version."""
+    require_cuda()
+    b = phantom_batch(3, 1000, 128)
+    mats = torch.as_tensor(euler_matrix(b["rot"], b["tilt"], b["psi"]),
+                           device="cuda")
+    coords = [a.reshape(-1).contiguous()
+              for a in trec._slice_tap_coords(mats, 128, 256, 0.5)]
+    rng = np.random.default_rng(3)
+    vals = [torch.as_tensor(rng.standard_normal(coords[0].numel()).astype(
+        np.float32), device="cuda") for _ in range(3)]
+    assert coords[0].numel() > 6_000_000
+    _, run, plain = _kernel_and_plain("tri_scatter", coords, vals, 256)
+    ck = [torch.zeros(256 ** 3, device="cuda") for _ in range(3)]
+    cp = [torch.zeros(256 ** 3, device="cuda") for _ in range(3)]
+    before = scatter_tri.launches
+    run(ck)
+    plain(cp)
+    torch.cuda.synchronize()
+    assert scatter_tri.launches == before + 1
+    for a, c in zip(ck, cp):
+        assert rel_err(a, c) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_art_wbp_and_significance_on_the_card_match_the_cpu():
+    """pSART (K2 a block), SIRT and the arbitrary-geometry WBP (K3) on the
+    card against the same on the CPU (1e-4 of the max), and the
+    significance weights of a score matrix with ties, equal."""
+    require_cuda()
+    from xmipp3_tpu_torch.core.sampling import (compute_sampling_points,
+                                                directions_from_angles)
+    from xmipp3_tpu_torch.ops import art as tart
+    from xmipp3_tpu_torch.programs.align_significant import \
+        significance_weights
+    b = phantom_batch(9, 40, 32)
+    args = (b["imgs"], b["rot"], b["tilt"], b["psi"])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        k2, k3 = scatter_tri.launches, scatter_kb.launches
+        art, _ = tart.art_reconstruct(*args, mode="pSART", block_size=10,
+                                      n_iters=2, positivity=True, device=dev)
+        sirt, _ = tart.sirt_reconstruct(*args, n_iters=2, device=dev)
+        wbp = tart.wbp_reconstruct(*args, mode="arbitrary", device=dev)
+        out[dev] = [v.cpu().numpy() for v in (art, sirt, wbp)]
+        if dev == "cuda":
+            assert scatter_tri.launches - k2 == 8      # 4 blocks x 2
+            assert scatter_kb.launches - k3 == 4       # SIRT 3, WBP 1
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert rel_err(got, want) <= 1e-4
+    dirs = directions_from_angles(compute_sampling_points(15.0))
+    cc = (np.random.default_rng(1).integers(-1, 6, (50, len(dirs))) / 6
+          ).astype(np.float32)
+    np.testing.assert_array_equal(
+        significance_weights(cc, dirs, 20.0, device="cuda").cpu().numpy(),
+        significance_weights(cc, dirs, 20.0, device="cpu").numpy())

@@ -23,6 +23,17 @@ reference's on the CPU, and backproject_chunk's kz-slab mode.
   local_align_mesh on 2 virtual devices to 0.02 px, on every rank; and
   movie_alignment_correlation --mesh dp on 2 ranks writes (rank 0 only)
   the shifts and average of the port's serial run (1e-4).
+- parallel_art_correction on 2 ranks (a 15-view block padded to 16)
+  against the reference's on 2 virtual devices (1e-4), and
+  reconstruct_art, align_significant (its ranks started through
+  torchrun's environment) and reconstruct_significant under --mesh dp on
+  2 ranks against the serial port and the reference's run on its virtual
+  mesh: ART's volume 1e-4; align_significant's rows and updated
+  references equal to the serial port's (the ranks score the serial
+  run's --batch chunks); reconstruct_significant's rows equal to the
+  serial port's (the same chunks) and its volume 1e-4 of them, its views
+  and weights (1e-4) the reference's, its volume correlated 0.99 with the
+  reference's.
 - On one rank (no process group): --mesh auto is the serial path, and
   dp|tp|slab|slab2d raise the reference's RuntimeError.
 
@@ -217,6 +228,10 @@ FUNCS = {  # name -> (ranks, job); kwargs beside the inputs' arrays
     "parallel_match_score_matrix": (2, dict(MATCH, mesh="data")),
     "parallel_match_tp": (2, dict(MATCH, mesh="model")),
     "parallel_match_refsharded": (2, dict(MATCH, mesh="model")),
+    # one ART block of C = 15 views on 2 ranks: padded to 16 with a row of
+    # weight 0
+    "parallel_art_correction": (2, dict(args=["art_vol", "imgs", "rot",
+                                              "tilt", "psi"], mesh="data")),
 }
 REC_MODES = {"dp": 2, "slab": 2, "slab2d": 4, "auto": 2, "tp": 2,
              "slab_ctf": 2}
@@ -243,6 +258,25 @@ def _movie_dataset(d):
     return frames, tmovie.global_align(frames, 10, device="cpu")
 
 
+# the mesh runs of reconstruct_art, align_significant (its ranks meet
+# through torchrun's environment: the program has no --dist_* flags) and
+# reconstruct_significant; argv(d, tag) writes under d/tag
+SLICE12_MESH = {
+    "art_dp": ("reconstruct_art", lambda d, t: [
+        "-i", str(d / "parts.xmd"), "-o", str(d / f"art_{t}.vol"),
+        "--parallel_mode", "pSART", "--block_size", "5", "-n", "2"], {}),
+    "asig_dp": ("align_significant", lambda d, t: [
+        "-i", str(d / "views.xmd"), "-r", str(d / "port.doc"), "-o",
+        str(d / f"asig_{t}.xmd"), "--max_shift", "4", "--batch", "4",
+        "--keepBestN", "2", "--oUpdatedRefs", str(d / f"upd_{t}")],
+        {"rendezvous": "env"}),
+    "rsig_dp": ("reconstruct_significant", lambda d, t: [
+        "-i", str(d / "views.xmd"), "--odir", str(d / f"rsig_{t}"),
+        "--iter", "1", "--angularSampling", "15", "--maxShift", "4",
+        "--initvolumes", str(d / "vol.vol")], {}),
+}
+
+
 def _cli_jobs(d, ranks):
     jobs = []
     if ranks == 2:
@@ -263,6 +297,10 @@ def _cli_jobs(d, ranks):
                              "--weight", "--batch", "4", "--mesh",
                              mode.split("_")[0]] + (CTF_FLAGS if ctf
                                                     else [])})
+    if ranks == 2:
+        jobs += [{"name": name, "program": prog, "argv": argv(d, "mesh")
+                  + ["--mesh", "dp"], **extra}
+                 for name, (prog, argv, extra) in SLICE12_MESH.items()]
     for mode, n in MATCH_MODES.items():
         if n == ranks:
             jobs.append({"name": f"match_{mode}", "program":
@@ -284,6 +322,11 @@ def _reference_funcs(inputs):
                                                        {}).items()}
     out = {}
     for name, (n, job) in FUNCS.items():
+        if name == "parallel_art_correction":
+            corr, ss, rmax = jpr.parallel_art_correction(
+                mesh(n), *a(job["args"]))
+            out[name] = dict(out0=np.asarray(corr), out1=ss, out2=rmax)
+            continue
         fn = getattr(jpr, job.get("fn", name), None) or \
             getattr(jpm, job.get("fn", name))
         m = (JaxMesh(np.array(devs[:n]).reshape(n // 2, 2), ("data", "z"))
@@ -305,7 +348,10 @@ def meshes(tmp_path_factory):
     refs, mimgs, allowed = _match_dataset(d)
     inputs = {k: b[k] for k in ("imgs", "rot", "tilt", "psi", "sx", "sy",
                                 "w", "flip", "imgs_f", "sx_f")}
-    inputs.update(refs=refs, mimgs=mimgs, allowed=allowed)
+    inputs.update(refs=refs, mimgs=mimgs, allowed=allowed,
+                  art_vol=(0.5 * phantom8(N)).astype(np.float32))
+    for t in ("mesh", "serial", "ref"):
+        (d / f"rsig_{t}").mkdir()
     inputs["movie"], inputs["movie_pos"] = _movie_dataset(d)
     spawns = {}
     for n in (2, 4):
@@ -352,6 +398,11 @@ def meshes(tmp_path_factory):
              str(d / "ref"), "--max_shift", "4", "--batch", "16", "--mesh",
              mode, "-v", "0"]) == 0
         ref[f"match_{mode}"] = _rows(out)
+    for name, (prog, argv, _) in SLICE12_MESH.items():
+        assert get_program(prog).run_with_args(
+            argv(d, "serial") + ["--device", "cpu", "-v", "0"]) == 0
+        assert jax_program(prog).run_with_args(
+            argv(d, "ref") + ["--mesh", "dp", "-v", "0"]) == 0
     reports = {n: s.join() for n, s in spawns.items()}
     return dict(dir=d, ref=ref, reports=reports, gallery=_rows(d / "ref.doc"),
                 angles=np.array([[r["angleRot"], r["angleTilt"]]
@@ -369,7 +420,8 @@ def test_ranks_import_neither_jax_nor_the_reference(meshes):
             assert rep["modules"] == [], rep["rank"]
 
 
-@pytest.mark.parametrize("name", [k for k in FUNCS if "match" not in k])
+@pytest.mark.parametrize("name", [k for k in FUNCS if "match" not in k
+                                  and k != "parallel_art_correction"])
 def test_mesh_reconstructors_match_the_reference(meshes, name):
     n, job = FUNCS[name]
     got = _port_out(meshes, name, n)["vol"]
@@ -419,6 +471,92 @@ def test_mesh_matchers_match_the_reference(meshes, name):
     for r in range(1, n):                 # every rank holds the results
         for k, v in _port_out(meshes, name, n, r).items():
             np.testing.assert_array_equal(v, got[k])
+
+
+def test_parallel_art_correction_matches_the_reference(meshes):
+    """The block's correction (trilinear, 1e-4 of the max), its residual
+    sum and max |residual| (1e-5 relative) on 2 ranks against the
+    reference's on 2 virtual devices; every rank holds the same."""
+    got = _port_out(meshes, "parallel_art_correction", 2)
+    want = meshes["ref"]["funcs"]["parallel_art_correction"]
+    assert got["out0"].shape == (N, N, N)
+    assert rel_err(got["out0"], want["out0"]) <= TOL["tri"]
+    for k in ("out1", "out2"):
+        assert abs(float(got[k]) - want[k]) <= 1e-5 * abs(want[k])
+    for k, v in _port_out(meshes, "parallel_art_correction", 2, 1).items():
+        np.testing.assert_array_equal(v, got[k])
+
+
+def test_reconstruct_art_mesh_dp_matches_serial_and_the_reference(meshes):
+    _cli_report(meshes, "art_dp", 2)
+    d = meshes["dir"]
+    got = np.squeeze(Image(str(d / "art_mesh.vol")).data)
+    for other in ("serial", "ref"):
+        assert rel_err(got, np.squeeze(Image(str(
+            d / f"art_{other}.vol")).data)) <= TOL["tri"]
+
+
+def _col(rows, k):
+    return np.array([r[k] for r in rows])
+
+
+def _same_views(got, want):
+    """Rows that assign the reference's direction and flip, where every
+    row names that view or its exact tie (the antipodal direction with the
+    other flip: the mirrored projection, which scores the same)."""
+    view = lambda rs: directions_from_angles(np.stack(
+        [_col(rs, "angleRot"), _col(rs, "angleTilt")], 1)) * \
+        np.where(_col(rs, "flip") > 0, -1.0, 1.0)[:, None]
+    assert [r["itemId"] for r in got] == [r["itemId"] for r in want]
+    assert ((view(got) * view(want)).sum(-1) > 1 - 1e-6).all()
+    return _col(got, "flip") == _col(want, "flip")
+
+
+def test_align_significant_mesh_dp_matches_serial_and_the_reference(meshes):
+    """The ranks score the serial run's --batch chunks: the rows and the
+    updated references equal the serial port's. Against the reference's
+    run on its virtual devices: every row names the reference's direction
+    and flip, or the antipode with the other flip (>= 0.9 the same), and
+    the values of those rows agree as tests/test_torch_cli_reconstruct_misc
+    .py holds the serial run."""
+    _cli_report(meshes, "asig_dp", 2)
+    d = meshes["dir"]
+    got, serial, want = (_rows(d / f"asig_{t}.xmd")
+                         for t in ("mesh", "serial", "ref"))
+    assert len(got) == 2 * B
+    assert [list(r.items()) for r in got] == \
+        [list(r.items()) for r in serial]
+    np.testing.assert_array_equal(Image(str(d / "upd_mesh.stk")).data,
+                                  Image(str(d / "upd_serial.stk")).data)
+    same = _same_views(got, want)
+    assert same.mean() >= 0.9
+    for k, tol in (("shiftX", 1e-3), ("shiftY", 1e-3), ("maxCC", 1e-5),
+                   ("weight", 2e-6)):      # the files keep 6 decimals
+        assert np.abs(_col(got, k) - _col(want, k))[same].max() <= tol, k
+
+
+def test_reconstruct_significant_mesh_dp_matches_serial_and_reference(meshes):
+    """The ranks score the serial run's chunks and grid the volume through
+    parallel_reconstruct: the serial port's rows, equal, and its volume
+    (1e-4); the reference's mesh run's views (weights 1e-4) and, since a
+    tie that names the antipode draws its weight from another
+    neighbourhood, its volume to a correlation of 0.99. A view is its
+    direction and flip, or their exact tie."""
+    _cli_report(meshes, "rsig_dp", 2)
+    d = meshes["dir"]
+    got, serial, want = (_rows(d / f"rsig_{t}" / "significant_images.xmd")
+                         for t in ("mesh", "serial", "ref"))
+    assert [list(r.items()) for r in got] == \
+        [list(r.items()) for r in serial]
+    same = _same_views(got, want)
+    assert same.mean() >= 0.9
+    assert np.abs(_col(got, "weight") - _col(want, "weight"))[
+        same].max() <= 1e-4
+    vol = lambda t: np.squeeze(Image(str(
+        d / f"rsig_{t}" / "significant_volume.vol")).data)
+    assert rel_err(vol("mesh"), vol("serial")) <= 1e-4
+    a, b = (v - v.mean() for v in (vol("mesh"), vol("ref")))
+    assert (a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()) >= 0.99
 
 
 def _cli_report(meshes, job, n):

@@ -486,8 +486,10 @@ def reconstruct_fourier(imgs, rot, tilt, psi, sx=None, sy=None, weights=None,
                         device=None):
     """One-call reconstruction of a full stack; returns the volume as a
     tensor on `device` (default: the card). ctfp: optional dict of (B,)
-    arrays (ops.ctf.CTF_PURE_FIELDS) enabling --useCTF gridding."""
-    imgs = np.asarray(imgs, np.float32)
+    arrays (ops.ctf.CTF_PURE_FIELDS) enabling --useCTF gridding. imgs may
+    be a tensor: its batches go to `device` as they are gridded."""
+    if not isinstance(imgs, torch.Tensor):
+        imgs = np.asarray(imgs, np.float32)
     N = imgs.shape[-1]
     rec = FourierReconstructor(N, pad_factor, sym, max_freq, interp,
                                niter_weight, blob, sampling=sampling,

@@ -29,7 +29,10 @@ import os
 import torch
 import torch.distributed as dist
 
-from xmipp3_tpu_torch.parallel.mesh import Mesh, data_mesh, rank_device, world
+from xmipp3_tpu_torch.core.program import XmippProgram
+from xmipp3_tpu_torch.device import resolve_device
+from xmipp3_tpu_torch.parallel.mesh import (Mesh, backend, data_mesh,
+                                            rank_device, world)
 
 MESH_MODES = ("auto", "dp", "tp", "slab", "slab2d", "none", "serial")
 
@@ -127,3 +130,32 @@ def resolve_mesh(mode: str = "auto", min_devices: int = 2,
         return Mesh({"data": n // 2, "z": 2}, dev), mode
     axis = "model" if mode == "tp" else axis_name
     return data_mesh(n, axis_name=axis, device=dev), mode
+
+
+class MeshProgram(XmippProgram):
+    """The device, the process group and the mesh of a program with
+    --mesh: readParams sets device_arg and mesh_mode (read_mesh_params);
+    run() resolves the device, starts the group when asked to, calls
+    _run(mesh) (mesh None on the serial path; self.device is then the
+    mesh's device) with self.writer True on rank 0 only, and stops the
+    group it started."""
+
+    def run(self):
+        self.device = resolve_device(self.device_arg)
+        started = maybe_init_distributed(self)
+        try:
+            mesh, mode = resolve_mesh(self.mesh_mode, device=self.device_arg)
+            if mesh is not None:
+                self.device = mesh.device
+                if self.verbose:
+                    print(f"mesh: {mode} {mesh.shape} over {mesh.size} "
+                          f"ranks, rank {mesh.rank} on {self.device}, "
+                          f"backend {backend()}")
+            # full float32 products: lower precision flips argmax winners
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            self.writer = world()[1] == 0
+            self._run(mesh)
+        finally:
+            if started:
+                torch.distributed.destroy_process_group()

@@ -10,7 +10,10 @@ sharding, gatherMetadatas in Xmipp). In the gallery-parallel entry points
 every rank holds a slice of the gallery, scans all particles against it,
 and the global winner is reduced with all_reduce(MAX) and (SUM), as the
 reference reduces it with pmax and psum. Every rank returns the same numpy
-results.
+results. The score matrix (parallel_match_score_matrix) is the one scorer
+of align_significant and reconstruct_significant, serial and on a mesh:
+it deals fixed chunks of images to the ranks in turn, so that a mesh run
+scores each chunk at the serial run's shape, and returns tensors.
 """
 from __future__ import annotations
 
@@ -90,20 +93,56 @@ def parallel_match_full(mesh, refs, imgs, max_shift: int = 8,
     return _gathered(out, mesh, axis_name, n_valid)
 
 
+_SCORE_KEYS = ("peak", "psi", "trial", "flip")
+
+
 def parallel_match_score_matrix(mesh, refs, imgs, max_shift: int = 8,
                                 axis_name: str = "data",
-                                check_mirror: bool = True):
-    """The full (image, reference) best-over-(psi, shift) score matrix with
-    the particle axis sharded over the mesh (align_significant --mesh dp in
-    the reference)."""
-    imgs = np.asarray(imgs, np.float32)
-    imgs_p, n_valid = pad_to_multiple(imgs, mesh.shape[axis_name])
-    out = match_score_matrix(replicate(refs, mesh),
-                             shard_particles(imgs_p, mesh, axis_name),
-                             max_shift=max_shift, check_mirror=check_mirror)
-    trials = out.pop("trials")
-    res = _gathered(out, mesh, axis_name, n_valid)
-    res["trials"] = trials
+                                check_mirror: bool = True,
+                                batch: int | None = None, verbose: int = 0):
+    """The full (image, reference) best-over-(psi, shift) score matrix of
+    match_score_matrix, in chunks of `batch` images: a dict of (B, R)
+    tensors on the references' device (this rank's with a mesh) and the
+    trial grid. The chunks are dealt to the ranks along axis_name in turn
+    and gathered back in order, so every chunk is scored at the shape that
+    the serial run (mesh None) gives it and the scores equal the serial
+    ones. batch None: one chunk a rank, the reference's contiguous shards
+    (align_significant and reconstruct_significant --mesh dp in the
+    reference)."""
+    n_dev = 1 if mesh is None else mesh.shape[axis_name]
+    rank = 0 if mesh is None else mesh.coords[axis_name]
+    if mesh is not None:
+        refs = replicate(refs, mesh)
+    B, R = len(imgs), len(refs)
+    batch = batch or max(-(-B // n_dev), 1)
+    n_chunks = -(-B // batch)
+    per_rank = -(-n_chunks // n_dev)
+    rows = {k: [] for k in _SCORE_KEYS}
+    for c in range(rank, per_rank * n_dev, n_dev):
+        s, e = c * batch, min((c + 1) * batch, B)
+        if c < n_chunks:
+            out = match_score_matrix(
+                refs, torch.as_tensor(imgs[s:e], dtype=torch.float32,
+                                      device=refs.device),
+                max_shift=max_shift, check_mirror=check_mirror)
+            if verbose:
+                print(f"  scored {e}/{B}")
+        else:                     # a padding chunk, for the gather's shape
+            out = {k: refs.new_zeros((0, R)) for k in _SCORE_KEYS}
+        for k in _SCORE_KEYS:
+            v = out[k].to(torch.float32)
+            rows[k].append(torch.cat([v, v.new_zeros((batch - len(v), R))]))
+    res = {}
+    for k in _SCORE_KEYS:
+        v = torch.cat(rows[k])
+        if mesh is not None:
+            # rank-major (rank, its chunks, batch) -> chunk order
+            v = all_gather(v, mesh, axis_name).reshape(
+                n_dev, per_rank, batch, R).transpose(0, 1).reshape(-1, R)
+        res[k] = v[:B]
+    res["trial"] = res["trial"].to(torch.int64)
+    res["flip"] = res["flip"] > 0.5
+    res["trials"] = _trial_shift_grid(max_shift).astype(np.float32)
     return res
 
 

@@ -11,7 +11,13 @@ its device, in chunks of `batch` particles, and the ranks meet once:
                         z-slab of the cube (backproject_chunk's kz-slab
                         mode), the slabs all_gather'ed into the full cube;
   slab_reconstruct_2d   particles sharded over "data" and the cube over
-                        "z": all_reduce over data, all_gather over z.
+                        "z": all_reduce over data, all_gather over z;
+  parallel_art_correction
+                        one ART block: its projections dealt to the ranks,
+                        each rank projects the volume at its poses, forms
+                        the residuals and grids them (K2), and one
+                        all_reduce of the cubes and the residual sum and
+                        one of max |residual| join them.
 
 --useCTF (ctfp=): each rank computes the CTF factor table of the rows it
 grids (its shard, or every row for a slab rank), a chunk at a time, and
@@ -216,3 +222,46 @@ def slab_reconstruct_2d(mesh, imgs, rot, tilt, psi, sx=None, sy=None,
         acc = [all_gather(all_reduce(a, mesh, data_axis), mesh, z_axis)
                for a in acc]
     return _finish(acc, N, P, interp, niter_weight)
+
+
+def parallel_art_correction(mesh, vol, imgs, rot, tilt, psi,
+                            pad_factor: float = 2.0, max_freq: float = 0.5,
+                            axis_name: str = "data", interp: str = "tri"):
+    """One ART block update, data-parallel: project the current volume at
+    the block's poses, form residuals and backproject them, with the
+    block's projections sharded over the mesh and one all_reduce fusing the
+    partial cubes (the reference distributes ART blocks across MPI workers
+    the same way, basic_art.h:92-116). The block is padded to a multiple of
+    the ranks with rows of weight 0, as in the reference.
+
+    vol: (N, N, N) tensor or array, the same on every rank; imgs: the
+    block's (B, N, N) projections. Returns (correction volume (N, N, N) on
+    the rank's device, residual sum of squares, max |residual|) — what
+    art_reconstruct's mode family needs."""
+    from xmipp3_tpu_torch.ops.art import _forward
+    dev = mesh.device
+    imgs = torch.as_tensor(imgs, dtype=torch.float32, device=dev)
+    B, N, _ = imgs.shape
+    n_dev = mesh.shape[axis_name]
+    P = _padded_size(N, pad_factor)
+    pad = (-B) % n_dev
+    if pad:
+        imgs = torch.cat([imgs, imgs.new_zeros((pad, N, N))])
+    mats, _, _, w = _poses(B, rot, tilt, psi, None, None, None, n_dev)
+    sl = shard_rows(B + pad, mesh, axis_name)
+    w_l = torch.as_tensor(w[sl], device=dev)
+    vol = torch.as_tensor(vol, dtype=torch.float32, device=dev)
+    resid = (imgs[sl] - _forward(vol, mats[sl], N, pad_factor)) \
+        * w_l[:, None, None]
+    ss = (resid ** 2).sum()
+    rmax = resid.abs().max() if len(resid) else ss.new_zeros(())
+    z = np.zeros(len(resid), np.float32)
+    acc = [torch.zeros((P, P, P), dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    backproject_chunk(*acc, resid, mats[sl], z, z, w[sl], P, max_freq,
+                      interp=interp)
+    for a in (*acc, ss):
+        all_reduce(a, mesh, axis_name)
+    all_reduce(rmax, mesh, axis_name, op="max")
+    corr = finalize_volume(*acc, N, P, interp=interp)
+    return corr, float(ss), float(rmax)

@@ -55,6 +55,31 @@ _REGISTRY: dict[str, str] = {
     "classify_CL2D_core_analysis":
         _P + "resolution_dir:ProgClassifyCL2DCoreAnalysis",
     "angular_accuracy_pca": _P + "resolution_dir:ProgAngularAccuracyPCA",
+    "image_operate": _P + "image_operate",
+    "transform_window": _P + "transform_misc:ProgTransformWindow",
+    "transform_add_noise": _P + "transform_misc:ProgTransformAddNoise",
+    "transform_threshold": _P + "transform_misc:ProgTransformThreshold",
+    "transform_mirror": _P + "transform_misc:ProgTransformMirror",
+    "transform_randomize_phases":
+        _P + "transform_misc:ProgTransformRandomizePhases",
+    "transform_downsample": _P + "transform_misc:ProgTransformDownsample",
+    "image_resize": _P + "image_misc:ProgImageResize",
+    "image_convert": _P + "image_misc:ProgImageConvert",
+    "image_header": _P + "image_misc:ProgImageHeader",
+    "image_statistics": _P + "image_misc:ProgImageStatistics",
+    "image_histogram": _P + "image_misc:ProgImageHistogram",
+    "metadata_utilities": _P + "metadata_utilities",
+    "metadata_split": _P + "metadata_misc:ProgMetadataSplit",
+    "metadata_import": _P + "metadata_misc:ProgMetadataImport",
+    "metadata_histogram": _P + "metadata_misc:ProgMetadataHistogram",
+    "angular_distance": _P + "metadata_misc:ProgAngularDistance",
+    "angular_rotate": _P + "metadata_misc:ProgAngularRotate",
+    "metadata_convert_emx": _P + "metadata_misc:ProgMetadataConvertEMX",
+    "reconstruct_art": _P + "reconstruct_misc:ProgReconstructART",
+    "reconstruct_wbp": _P + "reconstruct_misc:ProgReconstructWBP",
+    "reconstruct_significant":
+        _P + "reconstruct_misc:ProgReconstructSignificant",
+    "align_significant": _P + "align_significant",
 }
 
 # the reference's aliases of these programs (programs/registry.py:216,
@@ -80,6 +105,13 @@ ALIASES: dict[str, str] = {
     "mpi_mlf_align2d": "mlf_align2d",
     "mpi_classify_CL2D_core_analysis": "classify_CL2D_core_analysis",
     "mpi_angular_accuracy_pca": "angular_accuracy_pca",
+    "mpi_image_operate": "image_operate",
+    "mpi_image_resize": "image_resize",
+    "mpi_transform_threshold": "transform_threshold",
+    "mpi_reconstruct_art": "reconstruct_art",
+    "mpi_reconstruct_wbp": "reconstruct_wbp",
+    "mpi_reconstruct_significant": "reconstruct_significant",
+    "cuda_align_significant": "align_significant",
 }
 _REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 

@@ -27,10 +27,8 @@ from xmipp3_tpu_torch.core.metadata_program import (is_metadata_file,
 from xmipp3_tpu_torch.core.program import XmippProgram
 from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import resolve_device
-from xmipp3_tpu_torch.parallel.cli import (add_mesh_params,
-                                           maybe_init_distributed,
-                                           read_mesh_params, resolve_mesh)
-from xmipp3_tpu_torch.parallel.mesh import backend, world
+from xmipp3_tpu_torch.parallel.cli import (MeshProgram, add_mesh_params,
+                                           read_mesh_params)
 
 
 def _read_fractions(fn):
@@ -57,33 +55,7 @@ def _load_stack_md(fn):
                   for i in range(len(imgs))]
 
 
-class _MeshProgram(XmippProgram):
-    """The device, the process group and the mesh of a classification
-    program: run() starts the group when asked to, calls _run(mesh) and
-    stops the group it started."""
-
-    def run(self):
-        self.device = resolve_device(self.device_arg)
-        started = maybe_init_distributed(self)
-        try:
-            mesh, mode = resolve_mesh(self.mesh_mode, device=self.device_arg)
-            if mesh is not None:
-                self.device = mesh.device
-                if self.verbose:
-                    print(f"mesh: {mode} {mesh.shape} over {mesh.size} "
-                          f"ranks, rank {mesh.rank} on {self.device}, "
-                          f"backend {backend()}")
-            # full float32 products: lower precision flips argmax winners
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            self.writer = world()[1] == 0
-            self._run(mesh)
-        finally:
-            if started:
-                torch.distributed.destroy_process_group()
-
-
-class ProgClassifyCL2D(_MeshProgram):
+class ProgClassifyCL2D(MeshProgram):
     name = "xmipp_classify_CL2D"
 
     def defineParams(self):
@@ -215,7 +187,7 @@ class ProgClassifyCL2D(_MeshProgram):
                     fn_lvl, block=f"class{k + 1:06d}_images", append=True)
 
 
-class ProgMLAlign2D(_MeshProgram):
+class ProgMLAlign2D(MeshProgram):
     """Reference grammar: ml2d.cpp:226-302 (defineBasicParams /
     defineAdditionalParams / defineHiddenParams)."""
     name = "xmipp_ml_align2d"
