@@ -223,11 +223,52 @@ Phases; any failure exits non-zero before the result line is printed:
    launches): the map's correlation with the phantom against its planned
    limit. A `recmisc {...}` line gives each program's wall, phases, untimed
    rest, launches and peak device memory, and the quality.
-12. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+12. Phantoms and projection, continuous and discrete angular assignment,
+   class averages, subtraction, residuals, SSNR and common lines through
+   the CLI. (a) phantom_create from a .descr of six features (128^3) ->
+   phantom_project --nangles 10000 --xdim 128, Fourier and --method
+   real_space; phantom_project on a synthetic model of 300 atoms
+   (write_pdb; --xdim 64 --sampling_rate 2 --high_sampling_rate 1);
+   phantom_simulate_microscope with a CTF, and with a CTF and --noise.
+   Checks: the Fourier views against FourierProjector (1e-5 * max), the
+   real-space views' correlation with them, the PDB views' sums equal,
+   the CTF and the noise against numpy (the same Generator's draws). (b)
+   Phase 4's assignment (flipped rows turned into their unflipped poses)
+   -> angular_continuous_assign2 --optimizeAngles --optimizeShift (every
+   view), the same with --optimizeGray and angular_continuous_assign
+   --optimizeShift (the first 2,000 views): median rotation and shift
+   errors against the truth, no larger than phase 4's on the same views
+   and than the planned limits, and the mean cost no lower at the last
+   step than at the first. (c)
+   angular_discrete_assign (--shift_step 2, 3 orientations a view, every
+   gallery direction kept by the wavelet preselection and every in-plane
+   angle searched; its defaults on 2,000 views, read only) and angular_assignment_mag
+   --refVol -angleStep 5 on phase 4's views: >= 90 % within 7.5 degrees,
+   K4 launched. (d) angular_class_average --split, serially and with
+   --mesh dp over 2 gloo ranks: the averages' median correlation with
+   their gallery image, the mesh averages and halves within 1e-5 * max of
+   the serial ones. (e) subtract_projection on phase 6's CTF views at their
+   true poses: the energy left inside r < 0.45 N; image_residuals on the
+   first 2,000 of the results. (f) multireference_aligneability --sampling 5 (K4 in 20 chunks
+   of 512 views) and validation_nontilt on 2,000 views' discrete clouds:
+   the median accuracy weight and the score. K4 is held against its plain
+   version at the aligneability shape (512, 61, 1652, 257, no mirror) and
+   timed beside the plain version and one complex einsum. (g)
+   angular_neighbourhood, angular_break_symmetry --sym c4,
+   angular_estimate_tilt_axis on planted coordinate pairs, compare_views of
+   the phantom and phase 4's map, resolution_ssnr (with --gen_VSSNR) on
+   2,000 noisy unshifted views, continuous_create_residuals on 2,000 views
+   and angular_commonline on 24 views at 64 px: each output's shape,
+   finiteness and one quality number. Limits planned with
+   tools/plan_angular.py. An `angular {...}` line gives each program's
+   wall, phases, untimed rest, launches and peak device memory, and the
+   quality.
+13. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
    with phase 10's ML2D launches; K2 at a pSART block and a SIRT pass as
    tri_scatter_art_block and tri_scatter_sirt_pass, K3 at WBP's launch as
-   kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches) and,
-   last,
+   kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches; K4 at
+   the aligneability shape as cross_spectrum_aligneability, with phase
+   12's aligneability launches) and, last,
    {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
@@ -235,8 +276,9 @@ from beside itself (from any working directory), builds every kernel from
 the checkout's sources and writes its data under chip_smoke_data/ in the
 checkout, which it removes at the end. Without a card, or without the
 package beside it, it exits 2 and prints no result. (`chip_smoke.py
---mesh-rank <program> <args>` is a rank of phases 5, 9, 10 and 11: it runs one
-program and prints its launch counts, phase seconds and peak memory.)
+--mesh-rank <program> <args>` is a rank of phases 5 and 9-12: it runs
+one program and prints its launch counts, phase seconds and peak
+memory.)
 """
 from __future__ import annotations
 
@@ -1024,7 +1066,7 @@ MESH_RUNS = (  # (program, mode, ranks)
 
 
 def mesh_rank(argv) -> int:
-    """One rank of phases 5, 9, 10 and 11: run the program of argv with every
+    """One rank of phases 5, 9-12: run the program of argv with every
     launch count at 0 and phase timing on, then print a line RANK {rc,
     wall_s, launches, phases_s, peak_device_GB} with the program's local
     shift field (`field`) where it keeps one."""
@@ -3787,6 +3829,714 @@ def utilities_and_reconstruction(seed, root: Path, e2e: Path, cycle: Path,
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 12: phantoms and projection, continuous and discrete angular
+# assignment, class averages, subtraction, residuals, SSNR, common lines
+# ---------------------------------------------------------------------------
+
+# the phantom description at N=128 (centres and sizes scaled to other n):
+# (type, +/=, density, centre x y z, parameters whose first `sized` scale)
+ANG_FEATURES = (
+    ("sph", "+", 1.0, (12, -8, 5), (14,), 1),
+    ("ell", "+", 0.6, (-15, 10, 0), (20, 10, 14, 30, 40, 10), 3),
+    ("cyl", "+", 0.5, (0, -20, -10), (6, 8, 24, 60, 20, 0), 3),
+    ("cub", "=", 0.8, (20, 20, -20), (10, 12, 8, 0, 30, 60), 3),
+    ("gau", "+", 0.7, (-20, -20, 15), (5,), 1),
+    ("con", "+", 0.4, (0, 25, 20), (8, 16, 15, 75, 20), 2))
+ANG_FOURIER_TOL = 1e-5          # phantom_project vs FourierProjector
+ANG_CHECK_VIEWS = 1000          # the views held against FourierProjector
+ANG_PDB_ATOMS = 300             # the synthetic atomic model
+ANG_PDB = ("--xdim", 64, "--sampling_rate", 2, "--high_sampling_rate", 1,
+           "--nangles", 100)
+ANG_PDB_SPREAD = 1e-4           # its projections' sums, relative spread
+ANG_SIM_NOISE = 0.5             # simulate_microscope --noise, x the std
+ANG_SIM_TOL = 1e-4              # its CTF and noise against numpy
+ANG_SHIFT_STEP = 2              # angular_discrete_assign --shift_step
+ANG_ORIENTATIONS = 3            # ... --number_orientations: the clouds
+# ... keeping every gallery direction in the wavelet preselection and
+# every in-plane angle of the polar grid (ROADMAP.md section 3, item 15)
+ANG_DA_FLAGS = ("--keep", 100, "--pick", 0, "--psi_step", 1)
+ANG_WITHIN = 0.9                # views within 1.5 x the gallery's step
+ANG_CA_MIN = 3                  # classes of at least this many views
+ANG_MESH_TOL = 1e-5             # class-average mesh sums against serial
+ANG_SUB_RADIUS = 0.45           # the energy's circle, a share of N
+ANG_SUBSET = 2000               # views of validation_nontilt, residuals, SSNR
+ANG_TILT = (35.0, 40.0)         # tilt axis and tilt of the planted pairs
+ANG_TILT_TOL = 0.1              # degrees
+ANG_CL = (24, 64)               # angular_commonline: images and their size
+# limits planned with tools/plan_angular.py (the reference package at
+# N=64 on 1,000 views, 500 for the subsets; PERF.md section 6, PR 13): a
+# correlation r read gives 1 - 2 (1 - r), an error or a left-over energy e
+# gives 2 e, the SSNR and the common-line energy half the reading
+ANG_REAL_CORR = 0.99781
+ANG_ROT_DEG = {"pose": 0.9936, "full": 0.8050, "wavelet": 0.8196}
+ANG_SHIFT_PX = {"pose": 0.0950, "full": 0.0696, "wavelet": 0.0768}
+ANG_CA_CORR = 0.96548
+ANG_SUB_ENERGY = 0.27432
+ANG_MRA_ACC = 0.0065
+ANG_VNT_SCORE = 0.996
+ANG_CV_CORR = 0.92070
+ANG_SSNR = 12.42
+ANG_CCR_RATIO = 0.16216
+ANG_CL_ENERGY = 0.7280
+
+
+def angular_descr(n: int) -> str:
+    """The .descr of the phase's phantom at size n."""
+    k = n / 128
+    lines = [f"{n} {n} {n} 0 1"]
+    for t, op, dens, c, p, sized in ANG_FEATURES:
+        vals = [v * k for v in c] + [v * k if i < sized else v
+                                     for i, v in enumerate(p)]
+        lines.append(f"{t} {op} {dens} " + " ".join(f"{v:g}" for v in vals))
+    return "\n".join(lines) + "\n"
+
+
+def synthetic_model(n_atoms: int, seed: int):
+    """An atomic model of n_atoms atoms of C, N, O and S in a 40 A blob
+    (numpy, from the seed), as core.pdb's AtomicModel."""
+    from xmipp3_tpu_torch.core.pdb import AtomicModel
+    rng = np.random.default_rng(seed + 21)
+    els = list(rng.choice(["C", "N", "O", "S"], n_atoms, p=[.6, .2, .15, .05]))
+    return AtomicModel(rng.normal(0, 8.0, (n_atoms, 3)), els,
+                       rng.uniform(0.5, 2.0, n_atoms).astype(np.float32),
+                       np.ones(n_atoms, np.float32))
+
+
+def unflipped_rows(rows):
+    """Assignment rows with every flipped row turned into the unflipped
+    pose of the same view: the x-mirror of the projection at (rot, tilt)
+    is the projection at (rot, tilt + 180) (a half turn about y), so
+    (rot, tilt + 180, psi) with the same shifts registers the image as
+    (rot, tilt, psi) with flip did. The continuous refinements take no
+    flip."""
+    out = []
+    for r in rows:
+        r = dict(r)
+        if int(r.get("flip", 0)):
+            r["angleTilt"] = float(r["angleTilt"]) + 180.0
+        r["flip"] = 0
+        out.append(r)
+    return out
+
+
+def pose_errors(rows, poses):
+    """Median rotation angle (degrees) between each row's pose and its
+    view's true pose, and median shift error (px); rows name their view by
+    itemId."""
+    from xmipp3_tpu_torch.core.geometry import euler_matrix
+    col = lambda k: np.array([float(r[k]) for r in rows])
+    i = col("itemId").astype(int) - 1
+    A = np.asarray(euler_matrix(col("angleRot"), col("angleTilt"),
+                                col("anglePsi")), np.float64)
+    T = np.asarray(euler_matrix(poses["rot"][i], poses["tilt"][i],
+                                poses["psi"][i]), np.float64)
+    cos = (np.einsum("nij,nij->n", A, T) - 1) / 2
+    ang = np.degrees(np.arccos(np.clip(cos, -1, 1)))
+    sh = np.hypot(col("shiftX") - poses["sx"][i],
+                  col("shiftY") - poses["sy"][i])
+    return float(np.median(ang)), float(np.median(sh))
+
+
+def directions_within(rows, poses, step: float) -> float:
+    """Share of the rows whose effective direction is within 1.5 x step
+    degrees of their view's true direction."""
+    from xmipp3_tpu_torch.core.sampling import directions_from_angles
+    i = np.array([int(r["itemId"]) for r in rows]) - 1
+    d = directions_from_angles(np.stack([poses["rot"][i],
+                                         poses["tilt"][i]], 1))
+    ang = np.degrees(np.arccos(np.clip(
+        (d * effective_directions(rows)).sum(1), -1, 1)))
+    return float((ang <= 1.5 * step).mean())
+
+
+def first_orientation(rows, n: int):
+    """The best of each image's n consecutive rows."""
+    return rows[::n]
+
+
+def image_corrs(a, b):
+    """Pearson correlation of each image pair of two (K, n, n) stacks."""
+    a = a.reshape(len(a), -1).astype(np.float64)
+    b = b.reshape(len(b), -1).astype(np.float64)
+    a = a - a.mean(1, keepdims=True)
+    b = b - b.mean(1, keepdims=True)
+    return (a * b).sum(1) / np.maximum(np.sqrt((a * a).sum(1)
+                                               * (b * b).sum(1)), 1e-30)
+
+
+def masked_energy(stack, radius: float):
+    """Sum of squares of a stack inside a centred circle of `radius` px."""
+    n = stack.shape[-1]
+    y, x = np.mgrid[0:n, 0:n] - n // 2
+    inside = np.hypot(y, x) <= radius
+    return float((stack.astype(np.float64)[:, inside] ** 2).sum())
+
+
+def tilt_pairs(seed: int, n: int = 200):
+    """Untilted coordinates and their tilted partners: a tilt of
+    ANG_TILT[1] about an axis at ANG_TILT[0] degrees, and a shift."""
+    rng = np.random.default_rng(seed + 23)
+    u = rng.uniform(0, 4000, (n, 2))
+    a, t = np.deg2rad(ANG_TILT[0]), np.deg2rad(ANG_TILT[1])
+    R = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+    return u, (R @ np.diag([1.0, np.cos(t)]) @ R.T @ u.T).T + [40.0, -25.0]
+
+
+def commonline_set(seed: int):
+    """ANG_CL[0] noiseless projections of the 8-blob phantom at size
+    ANG_CL[1], uniform directions and psi (numpy)."""
+    count, n = ANG_CL
+    rng = np.random.default_rng(seed + 25)
+    rot = rng.uniform(0, 360, count)
+    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, count)))
+    psi = rng.uniform(0, 360, count)
+    z = np.zeros(count)
+    return projections(n, rot, tilt, psi, z, z, scaled_blobs(BLOBS8, n))
+
+
+def ssnr_set(seed: int, views: int, n: int, ref, device):
+    """SSNR's inputs: `views` unshifted projections of ref at uniform poses
+    with noise of 0.5 sigma, noise-only images at the same poses, and a
+    noise volume of 1e-3 sigma (numpy noise; projections on `device`).
+    Returns (signal images, noise images, noise volume, rot, tilt, psi)."""
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    rng = np.random.default_rng(seed + 27)
+    rot = rng.uniform(0, 360, views).astype(np.float32)
+    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, views))).astype(np.float32)
+    psi = rng.uniform(0, 360, views).astype(np.float32)
+    clean = FourierProjector(ref, device=device).project_euler(
+        rot, tilt, psi).cpu().numpy()
+    sig = float(clean.std())
+    noise = (0.5 * sig) * rng.standard_normal(clean.shape, dtype=np.float32)
+    nvol = (1e-3 * sig) * rng.standard_normal((n, n, n), dtype=np.float32)
+    return clean + noise, noise, nvol, rot, tilt, psi
+
+
+def ssnr_quality(table, n: int) -> float:
+    """Median linear S_SSNR over the table's rows 1..n/8 (low frequencies)."""
+    return float(np.median(table[1:n // 8 + 1, 3]))
+
+
+def cross_at_aligneability_shape(refs, views, device):
+    """K4 against its plain version at multireference_aligneability's
+    shape: the ring spectra (61 rings, 512 angles, k = 257 at N=128) of a
+    512-image chunk of the views and of the 5-degree --sampling gallery,
+    masked as rotational_corr_matrix masks them, no mirror output; timed
+    beside the plain version and one complex einsum."""
+    import torch
+    from xmipp3_tpu_torch.ops import cross
+    from xmipp3_tpu_torch.ops.match import _masked_spectra, _ring_weights
+    from xmipp3_tpu_torch.ops.polar import cartesian_to_polar, ring_ffts
+    from xmipp3_tpu_torch.programs.angular_misc import \
+        ProgMultireferenceAligneability
+    n = refs.shape[-1]
+    chunk = ProgMultireferenceAligneability.chunk
+    f_refs = ring_ffts(cartesian_to_polar(refs, 2, n // 2 - 2))
+    f_imgs = ring_ffts(cartesian_to_polar(torch.as_tensor(
+        views[:chunk], device=device), 2, n // 2 - 2))
+    w = _ring_weights(f_refs.shape[1], 2, refs.device)
+    fi, fr, _ = _masked_spectra(f_refs, f_imgs, w)
+    B, nr, K = fi.shape
+    R = fr.shape[0]
+    log(f"phase 12: cross_spectrum at multireference_aligneability's shape "
+        f"B={B}, nr={nr}, R={R}, k={K}, no mirror")
+    got = cross.cross_spectrum(fi, fr, w)
+    want = cross.cross_spectrum_plain(fi, fr, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    log(f"  cross_spectrum: max|kernel-plain| = {err:.3e}, / max|plain| = "
+        f"{rel:.3e}")
+    check(np.isfinite(rel) and rel <= TOL_CROSS,
+          f"cross_spectrum at the aligneability shape: kernel disagrees with "
+          f"its plain version ({rel:.3e} > {TOL_CROSS})")
+    del got, want
+    ms = time_ms(lambda: cross.cross_spectrum(fi, fr, w), reps=10)
+    plain_ms = time_ms(lambda: cross.cross_spectrum_plain(fi, fr, w),
+                       reps=3, warmup=1)
+    wi = w[None, :, None]
+    library_ms = time_ms(lambda: torch.einsum("brk,Rrk->bRk", fi * wi,
+                                              fr.conj()), reps=5)
+    nbytes = 8 * (B + R) * nr * K + 4 * nr + 8 * B * R * K
+    nops = 8 * B * nr * R * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS * 1e3
+    log(f"  cross_spectrum: {ms:.4f} ms (plain {plain_ms:.4f} ms, complex "
+        f"einsum {library_ms:.4f} ms); bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.3f} GFLOP "
+        f"-> {t_ops:.4f} ms)")
+    src, replaces = KERNELS["cross_spectrum"]
+    return {"name": "cross_spectrum_aligneability", "route": "cuda",
+            "source": src, "replaces": replaces, "launches": None,
+            "max_abs_err": err, "rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": [B, nr, R, K]}
+
+
+def angular_slice(seed, root: Path, cycle: Path, ctf_dir: Path, poses):
+    """Phase 12 in root, on phase 4's views, gallery, assignment and
+    phantom (cycle, with their true poses) and phase 6's CTF views
+    (ctf_dir). Returns K4's entry at the aligneability shape, with the
+    launches of the aligneability run."""
+    import torch
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.geometry import euler_matrix
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.pdb import write_pdb
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    from xmipp3_tpu_torch.programs import get_program
+    root.mkdir(parents=True)
+    f = lambda name: str(root / name)
+    report, quality, failed = {}, {}, []
+
+    def limit(ok, msg):
+        """A quality limit: every one is read and reported before the
+        phase fails on any."""
+        if not ok:
+            failed.append(msg)
+
+    def run(label, name, args):
+        torch.cuda.empty_cache()
+        launch_counts(reset=True)
+        timing.take_timing()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prog = get_program(name)
+        t0 = time.perf_counter()
+        rc = prog.run_with_args([str(a) for a in args]
+                                + ["--device", DEVICE, "-v", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"phase 12 {label} ({name}): rc {rc}")
+        phases = {k: v[0] for k, v in timing.take_timing().items()}
+        r = report[label] = {
+            "program": name, "wall_s": wall, "phases_s": phases,
+            "rest_s": wall - sum(phases.values()),
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {label} ({name}): {wall:.3f} s, peak "
+            f"{r['peak_device_GB']:.2f} GB, launches {r['launches']}, phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+            + f", rest {r['rest_s']:.3f}")
+        return prog
+
+    def stack(name):
+        return Image.read_stack(f(name))
+
+    def md_rows(fn):
+        md = MetaData(str(fn))
+        return [md.getRow(i) for i in md]
+
+    def finite(name, arr, shape):
+        check(arr.shape == shape and np.isfinite(arr).all(),
+              f"phase 12 {name}: output of shape {arr.shape} (expected "
+              f"{shape}), finite {np.isfinite(arr).all()}")
+
+    start = time.perf_counter()
+    timing.enable_timing(True)
+    vol_fn, gal_doc = cycle / "phantom.vol", cycle / "gallery.doc"
+    try:
+        # (a) phantoms and projection
+        Path(f("ph.descr")).write_text(angular_descr(N))
+        run("phantom_create", "phantom_create", ["-i", f("ph.descr"), "-o",
+                                                 f("ph.vol")])
+        ph = np.squeeze(Image(f("ph.vol")).data)
+        finite("phantom_create", ph, (N, N, N))
+        proj_args = ["-i", f("ph.descr"), "--nangles", VIEWS, "--xdim", N,
+                     "--seed", seed]
+        run("project_fourier", "phantom_project",
+            proj_args + ["-o", f("pf.stk")])
+        run("project_real_space", "phantom_project",
+            proj_args + ["-o", f("pr.stk"), "--method", "real_space"])
+        pf, pr = stack("pf.stk"), stack("pr.stk")
+        finite("phantom_project", pf, (VIEWS, N, N))
+        finite("phantom_project --method real_space", pr, (VIEWS, N, N))
+        ang = md_rows(f("pf.xmd"))
+        rot, tilt, psi = (np.array([r[k] for r in ang], np.float32)
+                          for k in ("angleRot", "angleTilt", "anglePsi"))
+        want = FourierProjector(ph, device=DEVICE).project_euler(
+            rot[:ANG_CHECK_VIEWS], tilt[:ANG_CHECK_VIEWS],
+            psi[:ANG_CHECK_VIEWS]).cpu().numpy()
+        fourier_err = max_rel(pf[:ANG_CHECK_VIEWS], want)
+        rs_corr = image_corrs(pr, pf)
+        write_pdb(f("model.pdb"), synthetic_model(ANG_PDB_ATOMS, seed))
+        run("project_pdb", "phantom_project",
+            ["-i", f("model.pdb"), "-o", f("pdb.stk"), *ANG_PDB])
+        pp = stack("pdb.stk")
+        finite("phantom_project (PDB)", pp, (ANG_PDB[-1], ANG_PDB[1],
+                                             ANG_PDB[1]))
+        sums = pp.sum(axis=(1, 2), dtype=np.float64)
+        pdb_spread = float(sums.std() / abs(sums.mean()))
+        sim_ctf = CTFDescription(sampling_rate=CTF_TS, voltage=CTF_KV,
+                                 defocusU=12000.0, defocusV=12600.0,
+                                 azimuthal_angle=30.0, Cs=CTF_CS, Q0=CTF_Q0)
+        sim_ctf.write(f("sim.ctfparam"))
+        sigma = ANG_SIM_NOISE * float(pf.std())
+        run("simulate_ctf", "phantom_simulate_microscope",
+            ["-i", f("pf.stk"), "-o", f("sim_ctf.mrcs"), "--ctf",
+             f("sim.ctfparam")])
+        run("simulate_ctf_noise", "phantom_simulate_microscope",
+            ["-i", f("pf.stk"), "-o", f("sim.mrcs"), "--ctf",
+             f("sim.ctfparam"), "--noise", sigma, "--seed", seed])
+        sim_ctf_out, sim = stack("sim_ctf.mrcs"), stack("sim.mrcs")
+        finite("phantom_simulate_microscope", sim, (VIEWS, N, N))
+        c = plant_ctf(N, CTF_TS, 12000.0, 12600.0, 30.0)
+        ctf_err = max_rel(sim_ctf_out[:ANG_CHECK_VIEWS], np.fft.irfft2(
+            np.fft.rfft2(pf[:ANG_CHECK_VIEWS].astype(np.float64)) * c,
+            s=(N, N)))
+        noise = np.random.default_rng(seed).normal(0, sigma, sim.shape) \
+            .astype(np.float32)
+        added = sim - sim_ctf_out
+        noise_err = float(np.abs(added - noise).max() / np.abs(sim).max())
+        noise_std = float(added.std()) / sigma
+        del pf, pr, want, sim, sim_ctf_out, noise, added
+        quality["phantoms"] = {
+            "fourier_vs_projector": fourier_err,
+            "real_vs_fourier_corr_median": float(np.median(rs_corr)),
+            "real_vs_fourier_corr_min": float(rs_corr.min()),
+            "pdb_sum_spread": pdb_spread, "sim_ctf_err": ctf_err,
+            "sim_noise_err": noise_err, "sim_noise_std_ratio": noise_std}
+        log(f"  phantoms: Fourier projections vs FourierProjector "
+            f"{fourier_err:.2e}; real space vs Fourier correlation median "
+            f"{np.median(rs_corr):.4f} (min {rs_corr.min():.4f}); PDB "
+            f"projections' sums spread {pdb_spread:.2e}; simulated CTF vs "
+            f"numpy {ctf_err:.2e}, noise vs numpy {noise_err:.2e}, its std "
+            f"{noise_std:.5f} of --noise")
+        limit(fourier_err <= ANG_FOURIER_TOL, f"phase 12 phantom_project: "
+              f"{fourier_err:.2e} from FourierProjector")
+        limit(np.median(rs_corr) >= ANG_REAL_CORR, f"phase 12 real space vs "
+              f"Fourier: correlation {np.median(rs_corr):.4f} (limit "
+              f"{ANG_REAL_CORR})")
+        limit(pdb_spread <= ANG_PDB_SPREAD, f"phase 12 PDB projections: "
+              f"sums spread {pdb_spread:.2e}")
+        limit(ctf_err <= ANG_SIM_TOL and noise_err <= ANG_SIM_TOL
+              and abs(noise_std - 1) <= 0.01, f"phase 12 simulate: CTF "
+              f"{ctf_err:.2e}, noise {noise_err:.2e}, std {noise_std:.4f}")
+        for name in ("pf.stk", "pr.stk", "sim.mrcs", "sim_ctf.mrcs"):
+            Path(f(name)).unlink()
+
+        # (b) continuous assignment from phase 4's assignment
+        rows4 = md_rows(cycle / "assigned.xmd")
+        start_rows = unflipped_rows(rows4)
+        MetaData.fromRows(start_rows).write(f("cont_in.xmd"))
+        err4 = pose_errors(start_rows, poses)
+        MetaData.fromRows(start_rows[:ANG_SUBSET]).write(f("cont_sub.xmd"))
+        err_sub = pose_errors(start_rows[:ANG_SUBSET], poses)
+        cont = {"phase4": {"rot_deg": err4[0], "shift_px": err4[1]},
+                "phase4_subset": {"rot_deg": err_sub[0],
+                                  "shift_px": err_sub[1]}}
+        # the pose refinement on every view, the other two on the subset
+        for label, name, inp, extra in (
+                ("pose", "angular_continuous_assign2", "cont_in.xmd",
+                 ["--optimizeAngles", "--optimizeShift"]),
+                ("full", "angular_continuous_assign2", "cont_sub.xmd",
+                 ["--optimizeAngles", "--optimizeShift", "--optimizeGray"]),
+                ("wavelet", "angular_continuous_assign", "cont_sub.xmd",
+                 ["--optimizeShift"])):
+            prog = run(f"continuous_{label}", name,
+                       ["-i", f(inp), "-o", f(f"cont_{label}.xmd"),
+                        "--ref", vol_fn, *extra])
+            got = md_rows(f(f"cont_{label}.xmd"))
+            views = VIEWS if label == "pose" else ANG_SUBSET
+            check(len(got) == views, f"phase 12 {label}: {len(got)} rows")
+            e_rot, e_sh = pose_errors(got, poses)
+            base = err4 if label == "pose" else err_sub
+            first = float(np.mean(prog.result["cost_first"]))
+            last = float(np.mean(prog.result["cost"]))
+            cont[label] = {"rot_deg": e_rot, "shift_px": e_sh,
+                           "cost_first": first, "cost_last": last}
+            log(f"  continuous {label} ({views} views): median rotation "
+                f"error {e_rot:.3f} deg, shift {e_sh:.3f} px (phase 4 "
+                f"{base[0]:.3f} deg, {base[1]:.3f} px); mean cost "
+                f"{first:.5f} -> {last:.5f}")
+            limit(e_rot <= min(base[0], ANG_ROT_DEG[label])
+                  and e_sh <= min(base[1], ANG_SHIFT_PX[label]),
+                  f"phase 12 continuous {label}: {e_rot:.3f} deg, "
+                  f"{e_sh:.3f} px")
+            limit(last >= first, f"phase 12 continuous {label}: cost "
+                  f"{first:.5f} -> {last:.5f}")
+        quality["continuous"] = cont
+
+        # (c) discrete assignment on phase 4's views
+        views_md = cycle / "views.xmd"
+        da_args = ["--ref", gal_doc, "--max_shift", MATCH_SHIFT,
+                   "--shift_step", ANG_SHIFT_STEP, "--number_orientations",
+                   ANG_ORIENTATIONS]
+        run("discrete_assign", "angular_discrete_assign",
+            ["-i", views_md, "-o", f("da.xmd"), *da_args, *ANG_DA_FLAGS])
+        # the defaults, on a subset: the preselection correlates the
+        # images' low bands with the gallery's without aligning them in
+        # plane, and the 5-degree psi mask leaves the peak between masked
+        # angles; both lose right directions (ROADMAP.md section 3, item
+        # 15)
+        MetaData.fromRows(md_rows(views_md)[:ANG_SUBSET]).write(
+            f("views_sub.xmd"))
+        run("discrete_assign_default", "angular_discrete_assign",
+            ["-i", f("views_sub.xmd"), "-o", f("da_default.xmd"), *da_args])
+        run("assignment_mag", "angular_assignment_mag",
+            ["-i", views_md, "-o", f("mag.xmd"), "--refVol", vol_fn,
+             "-angleStep", GALLERY_RATE, "-odir", f("magdir"), "--maxShift",
+             MATCH_SHIFT])
+        da_rows = md_rows(f("da.xmd"))
+        check(len(da_rows) == ANG_ORIENTATIONS * VIEWS,
+              f"phase 12 discrete: {len(da_rows)} rows")
+        disc = {"discrete_assign_default_within": directions_within(
+            first_orientation(md_rows(f("da_default.xmd")),
+                              ANG_ORIENTATIONS), poses, GALLERY_RATE)}
+        log(f"  discrete_assign with its defaults: "
+            f"{disc['discrete_assign_default_within']:.4f} of {ANG_SUBSET} "
+            f"views within {1.5 * GALLERY_RATE} deg")
+        for label, rs in (("discrete_assign", first_orientation(
+                da_rows, ANG_ORIENTATIONS)),
+                ("assignment_mag", md_rows(f("mag.xmd")))):
+            within = directions_within(rs, poses, GALLERY_RATE)
+            k4 = report[label]["launches"].get("cross_spectrum", 0)
+            disc[label] = {"within": within, "k4_launches": k4}
+            log(f"  {label}: {within:.4f} of the views within "
+                f"{1.5 * GALLERY_RATE} deg; cross_spectrum {k4} launches")
+            check(k4 > 0, f"phase 12 {label} never launched cross_spectrum")
+            limit(within >= ANG_WITHIN, f"phase 12 {label}: {within:.4f} "
+                  f"within 1.5 x the step")
+        quality["discrete"] = disc
+
+        # (d) class averages, serially and on 2 ranks
+        ca_args = ["-i", cycle / "assigned.xmd", "--lib", gal_doc,
+                   "--split"]
+        run("class_average", "angular_class_average",
+            ca_args + ["-o", f("ca")])
+        work = root / "ca_mesh"
+        work.mkdir()
+        wall, reps = run_ranks("angular_class_average", [str(a) for a in
+                               ca_args] + ["-o", f("ca_mesh"), "--mesh",
+                                           "dp"], 2, work)
+        report["class_average_mesh"] = {
+            "program": "angular_class_average", "ranks": 2, "wall_s": wall,
+            "per_rank": reps}
+        log(f"  angular_class_average --mesh dp, 2 ranks: {wall:.3f} s")
+        avgs = stack("ca.stk")
+        gal = Image.read_stack(str(cycle / "gallery.stk"))
+        counts = np.array([int(r["classCount"]) for r in md_rows(f("ca.xmd"))])
+        finite("angular_class_average", avgs, gal.shape)
+        big = counts >= ANG_CA_MIN
+        ca_corr = image_corrs(avgs[big], gal[big])
+        mesh_err = max(max_rel(stack(f"ca_mesh{s}.stk"), stack(f"ca{s}.stk"))
+                       for s in ("", "_split1", "_split2"))
+        same_counts = [int(r["classCount"]) for r in
+                       md_rows(f("ca_mesh.xmd"))] == counts.tolist()
+        quality["class_average"] = {
+            "classes": int(big.sum()), "corr_median": float(
+                np.median(ca_corr)), "mesh_err": mesh_err,
+            "mesh_counts_equal": same_counts}
+        log(f"  class averages: {big.sum()} classes of >= {ANG_CA_MIN} views, "
+            f"median correlation with their gallery image "
+            f"{np.median(ca_corr):.4f}; mesh averages and halves within "
+            f"{mesh_err:.2e} of the serial ones, counts equal {same_counts}")
+        limit(np.median(ca_corr) >= ANG_CA_CORR, f"phase 12 class averages: "
+              f"{np.median(ca_corr):.4f} (limit {ANG_CA_CORR})")
+        limit(mesh_err <= ANG_MESH_TOL and same_counts, f"phase 12 class "
+              f"average mesh: {mesh_err:.2e}, counts {same_counts}")
+
+        # (e) subtraction and residuals on phase 6's CTF views
+        pose = lambda i: {"angleRot": float(poses["rot"][i]),
+                          "angleTilt": float(poses["tilt"][i]),
+                          "anglePsi": float(poses["psi"][i]),
+                          "shiftX": float(poses["sx"][i]),
+                          "shiftY": float(poses["sy"][i])}
+        MetaData.fromRows(dict(r, **pose(i)) for i, r in enumerate(
+            md_rows(ctf_dir / "noisy.xmd"))).write(f("sub_in.xmd"))
+        run("subtract_projection", "subtract_projection",
+            ["-i", f("sub_in.xmd"), "--ref", vol_fn, "-o", f("sub"),
+             "--sampling", CTF_TS])
+        sub = stack("sub.mrcs")
+        finite("subtract_projection", sub, (VIEWS, N, N))
+        orig = Image.read_stack(str(ctf_dir / "ctf_noisy.mrcs"))
+        ratio = masked_energy(sub, ANG_SUB_RADIUS * N) / \
+            masked_energy(orig, ANG_SUB_RADIUS * N)
+        del sub, orig
+        MetaData.fromRows(md_rows(f("sub.xmd"))[:ANG_SUBSET]).write(
+            f("sub_subset.xmd"))
+        run("image_residuals", "image_residuals",
+            ["-i", f("sub_subset.xmd"), "-o", f("ir")])
+        covs = stack("ir.stk")
+        finite("image_residuals", covs, (ANG_SUBSET, N, N))
+        z = np.array([[r[k] for k in ("zScoreResMean", "zScoreResVar",
+                                       "zScoreResCov")]
+                      for r in md_rows(f("ir.xmd"))])
+        finite("image_residuals z-scores", z, (ANG_SUBSET, 3))
+        del covs
+        quality["subtraction"] = {"energy_ratio": ratio,
+                                  "residual_cov_z_median": float(
+                                      np.median(z[:, 2]))}
+        log(f"  subtract_projection: energy inside r < {ANG_SUB_RADIUS} N "
+            f"{ratio:.4f} of the views'; image_residuals' divergence "
+            f"median {np.median(z[:, 2]):.4f}")
+        limit(ratio <= ANG_SUB_ENERGY, f"phase 12 subtraction: energy "
+              f"{ratio:.4f} (limit {ANG_SUB_ENERGY})")
+        for name in ("sub.mrcs", "ir.stk"):
+            Path(f(name)).unlink()
+
+        # (f) aligneability and validation
+        run("aligneability", "multireference_aligneability",
+            ["-i", cycle / "assigned.xmd", "--volume", vol_fn, "--sampling",
+             GALLERY_RATE, "-o", f("mra.xmd")])
+        mra = md_rows(f("mra.xmd"))
+        acc_w = np.array([r["weightAlignabilityAccuracy"] for r in mra])
+        finite("multireference_aligneability", acc_w, (VIEWS,))
+        k4_mra = report["aligneability"]["launches"].get("cross_spectrum", 0)
+        chunks = -(-VIEWS // get_program(
+            "multireference_aligneability").chunk)
+        check(k4_mra == chunks, f"phase 12 aligneability: cross_spectrum "
+              f"launched {k4_mra} times, expected {chunks}")
+        MetaData.fromRows(da_rows[:ANG_ORIENTATIONS * ANG_SUBSET]).write(
+            f("clouds.xmd"))
+        (root / "vnt").mkdir()
+        prog = run("validation_nontilt", "validation_nontilt",
+                   ["--i", f("clouds.xmd"), "--gallery", gal_doc, "--odir",
+                    f("vnt")])
+        finite("validation_nontilt", np.asarray(prog.P), (ANG_SUBSET,))
+        quality["validation"] = {
+            "aligneability_acc_median": float(np.median(acc_w)),
+            "aligneability_k4": k4_mra, "nontilt_score": float(prog.score)}
+        log(f"  aligneability: accuracy weight median {np.median(acc_w):.4f}"
+            f" (K4 {k4_mra} launches); validation_nontilt score "
+            f"{prog.score:.4f} over {ANG_SUBSET} clouds")
+        limit(np.median(acc_w) >= ANG_MRA_ACC, f"phase 12 aligneability: "
+              f"{np.median(acc_w):.4f} (limit {ANG_MRA_ACC})")
+        limit(prog.score >= ANG_VNT_SCORE, f"phase 12 validation_nontilt: "
+              f"{prog.score:.4f} (limit {ANG_VNT_SCORE})")
+        from xmipp3_tpu_torch.core.sampling import Sampling
+        ref_vol = np.squeeze(Image(str(vol_fn)).data)
+        s = Sampling(GALLERY_RATE, "c1")
+        kernel = cross_at_aligneability_shape(
+            FourierProjector(ref_vol, device=DEVICE).project_euler(
+                s.angles[:, 0].astype(np.float32),
+                s.angles[:, 1].astype(np.float32),
+                np.zeros(len(s.angles), np.float32)),
+            Image.read_stack(str(cycle / "views.mrcs")), DEVICE)
+        kernel["launches"] = k4_mra
+
+        # (g) the other programs
+        other = {}
+        run("neighbourhood", "angular_neighbourhood",
+            ["--i1", cycle / "assigned.xmd", "--i2", gal_doc, "-o",
+             f("nb.xmd"), "--dist", 1.5 * GALLERY_RATE])
+        nb = md_rows(f("nb.xmd"))
+        listed = np.zeros(VIEWS, bool)
+        for r in nb:
+            listed[np.asarray(r["neighbors"], int) - 1] = True
+        other["neighbourhood_listed"] = float(listed.mean())
+        limit(len(nb) == len(gal) and listed.all(), f"phase 12 "
+              f"neighbourhood: {len(nb)} rows, {listed.mean():.4f} listed")
+        run("break_symmetry", "angular_break_symmetry",
+            ["-i", cycle / "assigned.xmd", "-o", f("bs.xmd"), "--sym", "c4",
+             "--seed", seed])
+        bs = md_rows(f("bs.xmd"))
+        col = lambda rs, k: np.array([float(r[k]) for r in rs])
+        A0 = np.asarray(euler_matrix(*(col(rows4, k) for k in (
+            "angleRot", "angleTilt", "anglePsi"))), np.float64)
+        A1 = np.asarray(euler_matrix(*(col(bs, k) for k in (
+            "angleRot", "angleTilt", "anglePsi"))), np.float64)
+        # A1 = A0 Rz(k 90)^T: A0^T A1 is a turn about z by a multiple of 90
+        Rz = np.einsum("nji,njk->nik", A0, A1)
+        turn = np.degrees(np.arctan2(Rz[:, 0, 1], Rz[:, 0, 0]))
+        sym_ok = float(((np.abs(Rz[:, 2, 2] - 1) < 1e-4)
+                        & (np.abs((turn + 45) % 90 - 45) < 1e-2)).mean())
+        other["break_symmetry_ok"] = sym_ok
+        limit(sym_ok == 1.0, f"phase 12 break_symmetry: {sym_ok:.4f}")
+        u, t = tilt_pairs(seed)
+        for name, c in (("u", u), ("t", t)):
+            MetaData.fromRows({"xcoor": float(a), "ycoor": float(b)}
+                              for a, b in c).write(f(f"tilt_{name}.xmd"))
+        prog = run("estimate_tilt_axis", "angular_estimate_tilt_axis",
+                   ["--untilted", f("tilt_u.xmd"), "--tilted",
+                    f("tilt_t.xmd"), "-o", f("axis.xmd")])
+        other["tilt"] = [prog.tilt_axis_angle, prog.tilt_angle]
+        limit(abs(prog.tilt_angle - ANG_TILT[1]) <= ANG_TILT_TOL,
+              f"phase 12 tilt axis: tilt {prog.tilt_angle:.3f}")
+        prog = run("compare_views", "compare_views",
+                   ["-v1", vol_fn, "-v2", cycle / "cycle.vol", "-o",
+                    f("cv.xmp"), "--degstep", 2 * GALLERY_RATE])
+        cv = np.asarray(prog.corr_image)
+        check(np.isfinite(cv).all(), "phase 12 compare_views: not finite")
+        other["compare_views_median"] = float(np.median(cv))
+        limit(np.median(cv) >= ANG_CV_CORR, f"phase 12 compare_views: "
+              f"{np.median(cv):.4f} (limit {ANG_CV_CORR})")
+        simg, nimg, nvol, srot, stilt, spsi = ssnr_set(
+            seed, ANG_SUBSET, N, ref_vol, DEVICE)
+        save_image(f("ssnr_s.mrcs"), simg)
+        save_image(f("ssnr_n.mrcs"), nimg)
+        save_image(f("noise.vol"), nvol)
+        for tag in "sn":
+            MetaData.fromRows(
+                {"image": f"{i + 1}@{f(f'ssnr_{tag}.mrcs')}",
+                 "angleRot": float(srot[i]), "angleTilt": float(stilt[i]),
+                 "anglePsi": float(spsi[i])} for i in range(ANG_SUBSET)
+            ).write(f(f"ssnr_{tag}.xmd"))
+        prog = run("resolution_ssnr", "resolution_ssnr",
+                   ["--signal", vol_fn, "--noise", f("noise.vol"),
+                    "--sel_signal", f("ssnr_s.xmd"), "--sel_noise",
+                    f("ssnr_n.xmd"), "-o", f("ssnr.txt"), "--gen_VSSNR",
+                    "--VSSNR", f("vssnr.vol")])
+        table = np.asarray(prog.ssnr_table)
+        check(np.isfinite(table).all(), "phase 12 resolution_ssnr: table "
+              "not finite")
+        finite("resolution_ssnr --gen_VSSNR",
+               np.squeeze(Image(f("vssnr.vol")).data), (N, N, N))
+        other["ssnr_low"] = ssnr_quality(table, N)
+        limit(other["ssnr_low"] >= ANG_SSNR, f"phase 12 SSNR: "
+              f"{other['ssnr_low']:.4f} (limit {ANG_SSNR})")
+        MetaData.fromRows(start_rows[:ANG_SUBSET]).write(f("ccr_in.xmd"))
+        run("create_residuals", "continuous_create_residuals",
+            ["-i", f("ccr_in.xmd"), "-o", f("ccr.xmd"), "--ref", vol_fn,
+             "--optimizeShift", "--oresiduals", f("ccr.stk")])
+        res = stack("ccr.stk")
+        finite("continuous_create_residuals", res, (ANG_SUBSET, N, N))
+        imgs = Image.read_stack(str(cycle / "views.mrcs"))
+        ids = np.array([int(r["itemId"]) for r in start_rows[:ANG_SUBSET]])
+        other["residual_ratio"] = float(
+            (res.astype(np.float64) ** 2).sum()
+            / (imgs[ids - 1].astype(np.float64) ** 2).sum())
+        del res, imgs
+        limit(other["residual_ratio"] <= ANG_CCR_RATIO, f"phase 12 "
+              f"residuals: {other['residual_ratio']:.4f} (limit "
+              f"{ANG_CCR_RATIO})")
+        save_image(f("cl.mrcs"), commonline_set(seed))
+        MetaData.fromRows({"image": f"{i + 1}@{f('cl.mrcs')}"}
+                          for i in range(ANG_CL[0])).write(f("cl_in.xmd"))
+        run("commonline", "angular_commonline",
+            ["-i", f("cl_in.xmd"), "--oang", f("cl.xmd"), "--NGen", 1000,
+             "--NGroup", 2])
+        cl = md_rows(f("cl.xmd"))
+        energy = float(cl[0]["cost"])
+        check(len(cl) == ANG_CL[0] and np.isfinite(energy),
+              f"phase 12 commonline: {len(cl)} rows, energy {energy}")
+        other["commonline_energy"] = energy
+        limit(energy >= ANG_CL_ENERGY, f"phase 12 commonline: energy "
+              f"{energy:.4f} (limit {ANG_CL_ENERGY})")
+        quality["other"] = other
+        log(f"  neighbourhood: {listed.mean():.4f} of the views listed; "
+            f"break_symmetry {sym_ok:.4f} symmetry copies; tilt axis "
+            f"{other['tilt'][0]:.3f}, "
+            f"tilt {other['tilt'][1]:.3f} deg; compare_views median "
+            f"{other['compare_views_median']:.4f}; SSNR at low frequency "
+            f"{other['ssnr_low']:.3f}; residual energy "
+            f"{other['residual_ratio']:.4f} of the views'; commonline "
+            f"energy {energy:.4f}")
+        report["quality"] = quality
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    report["phase_s"] = time.perf_counter() - start
+    log(f"  phase 12 took {report['phase_s']:.2f} s")
+    log("angular " + json.dumps(report))
+    check(not failed, "phase 12: " + "; ".join(failed))
+    return kernel
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--mesh-rank"]:
@@ -3851,6 +4601,11 @@ def main(argv=None) -> int:
             "align_significant and reconstruct_significant")
         art_kernels = utilities_and_reconstruction(
             args.seed, root / "recmisc", root / "e2e", root / "cycle", poses)
+        log("phase 12: phantoms and projection, continuous and discrete "
+            "angular assignment, class averages, subtraction, residuals, "
+            "SSNR and common lines")
+        angular_kernel = angular_slice(args.seed, root / "angular",
+                                       root / "cycle", root / "ctf", poses)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3860,6 +4615,7 @@ def main(argv=None) -> int:
         k["launches"] = launches[k["name"]]
     kernels.append(ml2d_kernel)
     kernels += art_kernels
+    kernels.append(angular_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -195,8 +195,9 @@ def test_matching_with_ctf_matches_the_reference(work, tmp_path, kind,
 
 def test_both_programs_through_the_dispatcher(work, tmp_path):
     """`python -m xmipp3_tpu_torch.programs` in a process of its own, which
-    never imports jax or the reference package."""
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    never imports jax or the reference package. It runs on one thread, as
+    this process does, so that its FFTs sum in the same order."""
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     run = lambda *a: subprocess.run(
         [sys.executable, "-m", "xmipp3_tpu_torch.programs", *a, "--device",
          "cpu"], cwd=tmp_path, env=env, capture_output=True, text=True,

@@ -15,7 +15,7 @@ Tolerances, relative to the max of the reference's output:
   tests (arbitrary filter, --weight, --diameter, --radius);
 - align_significant: the same references and flips for every image and
   rank, psi within 0.01 degrees, shifts 1e-3 px, maxCC 1e-5, the weights
-  1e-6, the updated references 1e-4;
+  one step of the 6 decimals the .xmd holds, the updated references 1e-4;
 - reconstruct_significant from given volumes, one iteration: the same
   gallery directions and flips, psi within 0.05 degrees, shifts 0.01 px,
   weights and maxCC 1e-4, volumes 5e-3 (kb); with --useImed,
@@ -210,9 +210,11 @@ def test_align_significant_matches_the_reference(sig):
     assert len(got) == 2 * B
     assert [r["ref"] for r in got] == [r["ref"] for r in want]
     _hold_assignments(got, want, 0.01, 1e-3, 1e-5, ("maxCC",))
+    # the .xmd holds 6 decimals: the weights agree within one written step
     for k in ("weight", "weightSignificant"):
-        assert np.abs(np.array([r[k] for r in got])
-                      - [r[k] for r in want]).max() <= 1e-6
+        assert np.abs(np.rint(np.array([r[k] for r in got]) * 1e6)
+                      - np.rint(np.array([r[k] for r in want]) * 1e6)
+                      ).max() <= 1, k
     assert rel(vol(d / "t" / "upd.stk"), vol(d / "j" / "upd.stk")) <= 1e-4
     up_t, up_j = rows(d / "t" / "upd.xmd"), rows(d / "j" / "upd.xmd")
     assert np.abs(np.array([r["weight"] for r in up_t])

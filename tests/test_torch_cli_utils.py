@@ -795,9 +795,12 @@ def test_new_alias_dispatches_to_its_program(alias):
 
 def test_the_registry_holds_85_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
+    from test_torch_cli_angular import NEW as LATER, NEW_ALIASES as LATER_A
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
-    assert len(names) == 85 and len(ALIASES) == 27
+    # the endpoints of later slices (tests/test_torch_cli_angular.py) aside
+    later = set(LATER) | set(LATER_A)
+    assert len(names - later) == 85 and len(set(ALIASES) - later) == 27
 
 
 DEVICE_PROGRAMS = {

@@ -266,6 +266,11 @@ from xmipp3_tpu_torch.programs import (align_significant, image_misc,
                                        transform_misc)
 from xmipp3_tpu_torch.parallel import (cli, engines, match, mesh, movie,
                                        reconstruct)
+from xmipp3_tpu_torch.core import pdb
+from xmipp3_tpu_torch.ops import continuous, phantom
+from xmipp3_tpu_torch.programs import (angular_commonline_prog,
+                                       angular_misc, angular_programs,
+                                       phantom_programs, ssnr_residuals)
 for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "ctf_estimate_from_psd_fast", "ctf_group", "ctf_sort_psds",
              "ctf_enhance_psd", "ctf_estimate_psd_with_arma",
@@ -286,7 +291,17 @@ for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "metadata_split", "metadata_import", "metadata_histogram",
              "angular_distance", "angular_rotate", "metadata_convert_emx",
              "reconstruct_art", "reconstruct_wbp", "reconstruct_significant",
-             "align_significant", *ALIASES):
+             "align_significant", "phantom_create", "phantom_project",
+             "project", "phantom_simulate_microscope",
+             "angular_continuous_assign2", "angular_continuous_assign",
+             "angular_class_average", "angular_neighbourhood",
+             "subtract_projection", "image_residuals",
+             "angular_discrete_assign", "angular_assignment_mag",
+             "angular_break_symmetry", "angular_estimate_tilt_axis",
+             "multireference_aligneability", "validation_nontilt",
+             "compare_views", "resolution_ssnr",
+             "continuous_create_residuals", "angular_commonline",
+             *ALIASES):
     assert get_program(name) is not None, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"
@@ -449,12 +464,14 @@ def _rank_main(spec_path: str, rank: int) -> None:
     import torch.distributed as dist
     from xmipp3_tpu_torch.core.metadata import MetaData
     from xmipp3_tpu_torch.ops import cross, scatter, scatter_kb, scatter_tri
+    from xmipp3_tpu_torch.parallel import engines as pe
     from xmipp3_tpu_torch.parallel import match as pm
     from xmipp3_tpu_torch.parallel import movie as pmov
     from xmipp3_tpu_torch.parallel import reconstruct as pr
     from xmipp3_tpu_torch.parallel.cli import maybe_init_distributed
     from xmipp3_tpu_torch.programs import get_program
     from xmipp3_tpu_torch.programs import align_significant as as_prog
+    from xmipp3_tpu_torch.programs import angular_programs as ap_prog
     from xmipp3_tpu_torch.programs import movie_alignment as ma_prog
     from xmipp3_tpu_torch.programs import reconstruct_fourier as rf_prog
     from xmipp3_tpu_torch.programs import reconstruct_misc as rm_prog
@@ -473,7 +490,7 @@ def _rank_main(spec_path: str, rank: int) -> None:
             return fn(*a, **k)
         return wrapper
 
-    for prog in (rf_prog, ma_prog, rm_prog, as_prog):
+    for prog in (rf_prog, ma_prog, rm_prog, as_prog, ap_prog):
         prog.save_image = counted(prog.save_image)
     MetaData.write = counted(MetaData.write)
     report = {"rank": rank, "jobs": {}}
@@ -508,7 +525,8 @@ def _rank_main(spec_path: str, rank: int) -> None:
                 assert maybe_init_distributed(flags)
                 try:
                     got["backend"] = dist.get_backend()
-                    fn = next(getattr(m, job["fn"]) for m in (pr, pm, pmov)
+                    fn = next(getattr(m, job["fn"]) for m in (pr, pm, pmov,
+                                                               pe)
                               if hasattr(m, job["fn"]))
                     out = fn(_rank_mesh(job["mesh"], device),
                              *(inputs[k] for k in job["args"]),

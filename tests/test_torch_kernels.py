@@ -7,7 +7,11 @@ for the host) and the movie and MonoRes path (phantom frames, global and
 local alignment with the warp, the float64 gain estimate, MonoRes and
 FSO), 2-D classification (ML2D and CL2D), and ART, SIRT, WBP and the
 significance weights on the card against the same on the CPU; K2 also at
-the sample count of an ART block of 1,000 views.
+the sample count of an ART block of 1,000 views; K4 at the shape of
+multireference_aligneability, and the phantom, the real-space projector,
+the continuous refinement and the aligneability scores on the card
+against the same on the CPU, and the continuous refinement's step loop
+without a host sync.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -1012,3 +1016,88 @@ def test_art_wbp_and_significance_on_the_card_match_the_cpu():
     np.testing.assert_array_equal(
         significance_weights(cc, dirs, 20.0, device="cuda").cpu().numpy(),
         significance_weights(cc, dirs, 20.0, device="cpu").numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [512, 19])
+def test_cross_spectrum_kernel_at_the_aligneability_shape(B):
+    """K4 at multireference_aligneability's shape: a chunk of images (a
+    whole 512-image chunk and a ragged one) against the 5-degree --sampling
+    gallery (R = 1652), 61 rings and k = 257 harmonics at N=128, no
+    mirror; <= 1e-5 * max."""
+    require_cuda()
+    fi, fr, w = _ring_spectra(B, 61, 1652, 257, seed=12)
+    before = cross.launches
+    got = cross.cross_spectrum(fi, fr, w)
+    torch.cuda.synchronize()
+    assert cross.launches == before + 1
+    assert got.shape == (B, 1652, 257)
+    assert rel_err(got, cross.cross_spectrum_plain(fi, fr, w)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_angular_slice_on_the_card_matches_the_cpu():
+    """The phantom's voxelization, the real-space projector, the
+    continuous refinement (autograd through the projector, 6 Adam steps)
+    and the aligneability scores (K4 on the card) against the same on the
+    CPU at N=32: the volume equal, projections 1e-5, refined angles 1e-2
+    degrees and shifts 1e-3 px, scores 1e-4."""
+    require_cuda()
+    from xmipp3_tpu_torch.ops.continuous import continuous_assign_full
+    from xmipp3_tpu_torch.ops.phantom import Feature, Phantom
+    from xmipp3_tpu_torch.ops.project import (FourierProjector,
+                                              project_real_space)
+    from xmipp3_tpu_torch.programs.angular_misc import gallery_correlations
+    ph = Phantom((32, 32, 32), 0.0, 1.0, [
+        Feature("sph", "+", 1.0, np.array([3.0, -2.0, 1.0]), [5.0]),
+        Feature("ell", "+", 0.5, np.array([-4.0, 3.0, 0.0]),
+                [6.0, 3.0, 4.0, 30.0, 40.0, 10.0])])
+    b = phantom_batch(4, 24, 32)
+    out, k4 = {}, {}
+    for dev in ("cpu", "cuda"):
+        vol = ph.voxelize(dev)
+        proj = project_real_space(vol, b["rot"], b["tilt"], b["psi"])
+        res = continuous_assign_full(
+            vol, proj, b["rot"] + 2, b["tilt"] - 2, b["psi"] + 3, n_steps=6,
+            optimize_gray=True, device=dev)
+        refs = FourierProjector(vol.cpu().numpy(), device=dev).project_euler(
+            b["rot"][:12], b["tilt"][:12], b["psi"][:12])
+        before = cross.launches
+        cc = gallery_correlations(refs, proj.cpu().numpy(), chunk=10)
+        k4[dev] = cross.launches - before
+        out[dev] = (vol.cpu().numpy(), proj.cpu().numpy(), res, cc)
+    (vc, pc, rc, cc), (vg, pg, rg, cg) = out["cpu"], out["cuda"]
+    assert k4 == {"cpu": 0, "cuda": 3}
+    np.testing.assert_array_equal(vg, vc)
+    assert rel_err(pg, pc) <= 1e-5
+    for k in ("rot", "tilt", "psi"):
+        assert np.abs(rg[k] - rc[k]).max() <= 1e-2, k
+    for k in ("sx", "sy"):
+        assert np.abs(rg[k] - rc[k]).max() <= 1e-3, k
+    assert rel_err(cg, cc) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_continuous_step_loop_never_syncs_on_the_card():
+    """A chunk's Adam steps (forward and backward through the slice
+    gather, the update, the trust-region clip) queue on the card without
+    one host sync: torch.cuda's sync debug mode raises on any."""
+    require_cuda()
+    from xmipp3_tpu_torch.ops.continuous import _adam_run, _ncc_loss
+    from xmipp3_tpu_torch.ops.project import prepare_fourier_volume
+    b = phantom_batch(5, 16, 32)
+    vf, _ = prepare_fourier_volume(b["imgs"][0][None].repeat(32, 0),
+                                   device="cuda")
+    imgs = torch.as_tensor(b["imgs"], device="cuda")
+    p0 = torch.as_tensor(np.stack([b["rot"], b["tilt"], b["psi"], b["sx"],
+                                   b["sy"]]), device="cuda")
+    lrs = torch.tensor([0.5, 0.5, 0.5, 0.2, 0.2], device="cuda")
+    lo, hi = p0 - 3.0, p0 + 3.0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, first, last = _adam_run(
+            lambda q: _ncc_loss(q, vf, imgs, 32, 0.35), p0, lrs, 4, lo, hi)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(last).all() and (p >= lo).all() and (p <= hi).all()

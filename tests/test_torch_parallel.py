@@ -34,6 +34,13 @@ reference's on the CPU, and backproject_chunk's kz-slab mode.
   serial port's (the same chunks) and its volume 1e-4 of them, its views
   and weights (1e-4) the reference's, its volume correlated 0.99 with the
   reference's.
+- parallel_class_sums on 2 ranks against the serial sums (1e-5 * max) and
+  the reference's on 2 virtual devices (1e-5 * max), and
+  angular_class_average --mesh dp --split on 2 ranks against the serial
+  port: averages and halves 1e-5 * max, counts equal (the ranks draw the
+  serial path's halves). The reference's mesh path draws its halves
+  otherwise than its serial path (ROADMAP.md section 3, item 14): its mesh
+  halves are held to differ from its serial ones, its averages to agree.
 - On one rank (no process group): --mesh auto is the serial path, and
   dp|tp|slab|slab2d raise the reference's RuntimeError.
 
@@ -53,6 +60,7 @@ from test_torch_project import phantom8
 from xmipp3_tpu.ops import reconstruct as jrec
 from xmipp3_tpu.parallel import match as jpm
 from xmipp3_tpu.parallel import reconstruct as jpr
+from xmipp3_tpu.parallel.engines import parallel_class_sums as jax_class_sums
 from xmipp3_tpu.parallel.mesh import data_mesh as jax_data_mesh
 from xmipp3_tpu.parallel.movie import local_align_mesh as jax_local_align_mesh
 from xmipp3_tpu.programs import get_program as jax_program
@@ -172,6 +180,10 @@ def _rec_dataset(d):
     md.setColumnValues("ctfDefocusV", [1600.0 + 60 * i for i in range(C)])
     md.setColumnValues("ctfDefocusAngle", [13.0 * i for i in range(C)])
     md.write(str(d / "parts_ctf.xmd"))
+    # a class assignment of the views for angular_class_average
+    rows = _rows(d / "parts.xmd")
+    MetaData.fromRows(dict(r, ref=CLASS_OF(i) + 1, maxCC=0.5)
+                      for i, r in enumerate(rows)).write(str(d / "ca.xmd"))
     # the slab reconstructors take no flips: the programs mirror flipped
     # images and negate their shiftX first
     f = b["flip"]
@@ -205,6 +217,12 @@ def _match_dataset(d):
     return refs, imgs, allowed
 
 
+N_CLASSES = 4
+CLASS_OF = lambda i: (7 * i) % N_CLASSES
+CLASS_SUMS = dict(args=["imgs", "psi", "sx", "sy", "flipf", "assign"],
+                  arrays={"sel_weights": "selw"},
+                  kwargs={"n_refs": N_CLASSES}, mesh="data",
+                  fn="parallel_class_sums")
 REC = dict(args=["imgs", "rot", "tilt", "psi", "sx", "sy"],
            arrays={"weights": "w", "flip": "flip"})
 SLAB = dict(args=["imgs_f", "rot", "tilt", "psi", "sx_f", "sy"],
@@ -274,6 +292,9 @@ SLICE12_MESH = {
         "-i", str(d / "views.xmd"), "--odir", str(d / f"rsig_{t}"),
         "--iter", "1", "--angularSampling", "15", "--maxShift", "4",
         "--initvolumes", str(d / "vol.vol")], {}),
+    "classavg_dp": ("angular_class_average", lambda d, t: [
+        "-i", str(d / "ca.xmd"), "--lib", str(d / "ref.doc"), "-o",
+        str(d / f"classavg_{t}"), "--split", "--limitRclass", "10"], {}),
 }
 
 
@@ -350,6 +371,10 @@ def meshes(tmp_path_factory):
                                 "w", "flip", "imgs_f", "sx_f")}
     inputs.update(refs=refs, mimgs=mimgs, allowed=allowed,
                   art_vol=(0.5 * phantom8(N)).astype(np.float32))
+    # the 15 views in 4 classes, 2 rejected by the selection weights
+    inputs.update(flipf=b["flip"].astype(np.float32),
+                  assign=np.array([CLASS_OF(i) for i in range(C)], np.int64),
+                  selw=(np.arange(C) % 7 != 3).astype(np.float32))
     for t in ("mesh", "serial", "ref"):
         (d / f"rsig_{t}").mkdir()
     inputs["movie"], inputs["movie_pos"] = _movie_dataset(d)
@@ -362,6 +387,7 @@ def meshes(tmp_path_factory):
                          "local_align_mesh", "mesh": "data",
                          "args": ["movie", "movie_pos"],
                          "kwargs": MOVIE_KW})
+            jobs.append(dict(CLASS_SUMS, name="parallel_class_sums"))
         (d / f"w{n}").mkdir()
         spawns[n] = Ranks(n, jobs + _cli_jobs(d, n), d / f"w{n}", inputs)
 
@@ -403,6 +429,13 @@ def meshes(tmp_path_factory):
             argv(d, "serial") + ["--device", "cpu", "-v", "0"]) == 0
         assert jax_program(prog).run_with_args(
             argv(d, "ref") + ["--mesh", "dp", "-v", "0"]) == 0
+    # the reference's class averages on its serial path too
+    assert jax_program("angular_class_average").run_with_args(
+        SLICE12_MESH["classavg_dp"][1](d, "refserial")
+        + ["--mesh", "none", "-v", "0"]) == 0
+    ref["class_sums"] = [np.asarray(v) for v in jax_class_sums(
+        jax_data_mesh(2), *(inputs[k] for k in CLASS_SUMS["args"]),
+        N_CLASSES, sel_weights=inputs["selw"])]
     reports = {n: s.join() for n, s in spawns.items()}
     return dict(dir=d, ref=ref, reports=reports, gallery=_rows(d / "ref.doc"),
                 angles=np.array([[r["angleRot"], r["angleTilt"]]
@@ -533,6 +566,52 @@ def test_align_significant_mesh_dp_matches_serial_and_the_reference(meshes):
     for k, tol in (("shiftX", 1e-3), ("shiftY", 1e-3), ("maxCC", 1e-5),
                    ("weight", 2e-6)):      # the files keep 6 decimals
         assert np.abs(_col(got, k) - _col(want, k))[same].max() <= tol, k
+
+
+def test_parallel_class_sums_match_serial_and_the_reference(meshes):
+    """Each rank registers its half of the views and adds them into the
+    class sums with index_add_; one all_reduce: every rank holds the
+    serial sums and counts."""
+    from xmipp3_tpu_torch.ops.geo import apply_md_geometry
+    d = meshes["dir"]
+    inp = dict(np.load(d / "w2" / "inputs.npz"))
+    reg = apply_md_geometry(inp["imgs"], inp["psi"], inp["sx"], inp["sy"],
+                            inp["flipf"] > 0.5, device="cpu").numpy()
+    w = inp["selw"]
+    serial = np.stack([(reg * (w * (inp["assign"] == k))[:, None, None])
+                       .sum(0) for k in range(N_CLASSES)])
+    counts = np.array([w[inp["assign"] == k].sum()
+                       for k in range(N_CLASSES)])
+    want_sums, want_counts = meshes["ref"]["class_sums"]
+    for r in range(2):
+        got = _port_out(meshes, "parallel_class_sums", 2, r)
+        for want in (serial, want_sums):
+            assert rel_err(got["out0"], want) <= 1e-5
+        np.testing.assert_array_equal(got["out1"], counts)
+        np.testing.assert_array_equal(got["out1"], want_counts)
+
+
+def test_angular_class_average_mesh_dp_matches_serial(meshes):
+    """--mesh dp --split on 2 ranks: the serial port's averages and halves
+    (the ranks draw the serial path's halves, one permutation a class);
+    the reference's averages. The reference's own mesh path draws its
+    halves from one Bernoulli draw over all views, and its serial path one
+    permutation a class, so its mesh halves differ from its serial ones
+    (ROADMAP.md section 3, item 14)."""
+    _cli_report(meshes, "classavg_dp", 2)
+    d = meshes["dir"]
+    stk = lambda t, s="": np.squeeze(Image(str(d / f"classavg_{t}{s}.stk"))
+                                     .data)
+    for s in ("", "_split1", "_split2"):
+        assert rel_err(stk("mesh", s), stk("serial", s)) <= 1e-5, s
+    assert [r["classCount"] for r in _rows(d / "classavg_mesh.xmd")] == \
+        [r["classCount"] for r in _rows(d / "classavg_serial.xmd")]
+    assert rel_err(stk("mesh"), stk("ref")) <= 1e-5
+    assert rel_err(stk("mesh"), stk("refserial")) <= 1e-5
+    assert rel_err(stk("mesh", "_split1"), stk("refserial", "_split1")) \
+        <= 1e-5
+    assert rel_err(stk("ref", "_split1"), stk("refserial", "_split1")) \
+        > 1e-2
 
 
 def test_reconstruct_significant_mesh_dp_matches_serial_and_reference(meshes):

@@ -425,6 +425,30 @@ class XmippProgram:
     def getParam(self, name: str, idx: int = 0) -> str:
         return self._get(name, idx)
 
+    def refuse_unread(self, *names: str, item: int) -> None:
+        """Raise for any of `names` given with a value other than its
+        default: flags that the reference declares and never reads, which
+        the port refuses rather than ignore (ROADMAP.md section 3, item
+        `item`). A flag without arguments is refused whenever it is
+        given."""
+        for name in names:
+            if not self.checkParam(name):
+                continue
+            args = self._grammar.params[self._grammar.canonical(name)].args
+            same = bool(args)
+            for k, a in enumerate(args):
+                got = self._get(name, k)
+                try:
+                    same &= float(got) == float(a.default)
+                except (TypeError, ValueError):
+                    same &= got == a.default
+            if not same:
+                raise XmippError(
+                    ErrCode.ARG_INCORRECT,
+                    f"{name}: the reference accepts this flag and never "
+                    f"reads it; the port refuses it rather than ignore it "
+                    f"(ROADMAP.md section 3, item {item})")
+
     def getIntParam(self, name: str, idx: int = 0) -> int:
         return int(float(self._get(name, idx)))
 

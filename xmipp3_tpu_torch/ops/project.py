@@ -4,8 +4,8 @@ Counterpart of the Fourier part of the reference package's ops/project.py:
 the padded volume is 3-D FFT'd once; each projection is a batched trilinear
 gather of a rotated central slice from the complex cube, followed by a
 batched irfft2 — thousands of projections become one gather and one batched
-FFT. The real-space ray-casting projector is not yet ported (ROADMAP.md,
-port queue).
+FFT. `project_real_space` is the ray-casting projector: the volume rotated
+per view, trilinear, summed along z, in chunks of views.
 
 Conventions: Euler ZYZ (core.geometry.euler_matrix); the projection of the
 volume along direction A[2] has its 2D FFT equal to the central slice spanned
@@ -132,3 +132,47 @@ class FourierProjector:
             slices = shift_spec_2d(slices, shifts[:, 0], shifts[:, 1],
                                    self.N, self.N)
         return slices_to_projections(slices, self.N)
+
+
+def project_real_space(vol, rot, tilt, psi, order: int = 1, device=None,
+                       chunk_bytes: int = 1 << 30):
+    """Ray-casting projector: rotate the volume so the projection direction
+    becomes z, then sum along z (reference projectVolume,
+    data/projection.h:196). Returns a (B, N, N) float32 tensor on the
+    volume's device (`device`; the card by default for a host volume).
+
+    The rotated copy of view b is vol(A_b^T x) at every centred voxel x,
+    trilinear with zeros outside (ops/geo.py::apply_affine_3d's warp),
+    sampled for a chunk of views at once by grid_sample; a chunk's sample
+    grid and rotated cubes hold about `chunk_bytes`. The views are
+    independent, so the chunks give the numbers one batch would. `order`
+    is the reference's (trilinear only)."""
+    vol = as_tensor(vol, device)
+    dev = vol.device
+    D, H, W = vol.shape
+    rot = np.atleast_1d(np.asarray(rot, np.float32))
+    tilt = np.atleast_1d(np.asarray(tilt, np.float32))
+    psi = np.atleast_1d(np.asarray(psi, np.float32))
+    # the source of output voxel x is R x with R = A^-1 = A^T
+    R = torch.as_tensor(np.asarray(euler_matrix(rot, tilt, psi), np.float32),
+                        device=dev).transpose(1, 2)
+    axes = [torch.arange(n, dtype=torch.float32, device=dev) - n // 2
+            for n in (W, H, D)]                 # x, y, z
+    shapes = ((1, 1, 1, -1), (1, 1, -1, 1), (1, -1, 1, 1))
+    per = max(1, chunk_bytes // (16 * vol.numel()))
+    out = []
+    for s in range(0, len(R), per):
+        Rc = R[s:s + per]
+        grid = []
+        for k, n in enumerate((W, H, D)):
+            # source index along axis k, normalised as grid_sample takes it
+            # (align_corners: -1 and 1 are the first and last voxels)
+            src = sum(Rc[:, k, j].reshape(-1, 1, 1, 1) * axes[j].reshape(
+                shapes[j]) for j in range(3)) + n // 2
+            grid.append(src * (2.0 / (n - 1)) - 1.0)
+        grid = torch.stack(grid, dim=-1)        # (b, D, H, W, 3)
+        cubes = torch.nn.functional.grid_sample(
+            vol.expand(len(Rc), 1, D, H, W), grid, mode="bilinear",
+            padding_mode="zeros", align_corners=True)
+        out.append(cubes[:, 0].sum(dim=1))
+    return torch.cat(out)

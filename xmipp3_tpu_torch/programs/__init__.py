@@ -80,6 +80,33 @@ _REGISTRY: dict[str, str] = {
     "reconstruct_significant":
         _P + "reconstruct_misc:ProgReconstructSignificant",
     "align_significant": _P + "align_significant",
+    "phantom_create": _P + "phantom_programs:ProgPhantomCreate",
+    "phantom_project": _P + "phantom_programs:ProgPhantomProject",
+    "project": _P + "phantom_programs:ProgPhantomProject",
+    "phantom_simulate_microscope":
+        _P + "phantom_programs:ProgPhantomSimulateMicroscope",
+    "angular_continuous_assign2":
+        _P + "angular_programs:ProgAngularContinuousAssign2",
+    "angular_continuous_assign":
+        _P + "angular_programs:ProgAngularContinuousAssign",
+    "angular_class_average": _P + "angular_programs:ProgAngularClassAverage",
+    "angular_neighbourhood": _P + "angular_programs:ProgAngularNeighbourhood",
+    "subtract_projection": _P + "angular_programs:ProgSubtractProjection",
+    "image_residuals": _P + "angular_programs:ProgImageResiduals",
+    "angular_discrete_assign": _P + "angular_misc:ProgAngularDiscreteAssign",
+    "angular_assignment_mag": _P + "angular_misc:ProgAngularAssignmentMag",
+    "angular_break_symmetry": _P + "angular_misc:ProgAngularBreakSymmetry",
+    "angular_estimate_tilt_axis":
+        _P + "angular_misc:ProgAngularEstimateTiltAxis",
+    "multireference_aligneability":
+        _P + "angular_misc:ProgMultireferenceAligneability",
+    "validation_nontilt": _P + "angular_misc:ProgValidationNonTilt",
+    "compare_views": _P + "angular_misc:ProgCompareViews",
+    "resolution_ssnr": _P + "ssnr_residuals:ProgResolutionSSNR",
+    "continuous_create_residuals":
+        _P + "ssnr_residuals:ProgContinuousCreateResiduals",
+    "angular_commonline":
+        _P + "angular_commonline_prog:ProgAngularCommonline",
 }
 
 # the reference's aliases of these programs (programs/registry.py:216,
@@ -112,6 +139,16 @@ ALIASES: dict[str, str] = {
     "mpi_reconstruct_wbp": "reconstruct_wbp",
     "mpi_reconstruct_significant": "reconstruct_significant",
     "cuda_align_significant": "align_significant",
+    "mpi_angular_assignment_mag": "angular_assignment_mag",
+    "mpi_angular_class_average": "angular_class_average",
+    "mpi_angular_continuous_assign": "angular_continuous_assign",
+    "mpi_angular_continuous_assign2": "angular_continuous_assign2",
+    "mpi_angular_discrete_assign": "angular_discrete_assign",
+    "mpi_continuous_create_residuals": "continuous_create_residuals",
+    "mpi_multireference_aligneability": "multireference_aligneability",
+    "mpi_subtract_projection": "subtract_projection",
+    "mpi_validation_nontilt": "validation_nontilt",
+    "cuda_angular_continuous_assign2": "angular_continuous_assign2",
 }
 _REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 
