@@ -656,9 +656,12 @@ def test_alias_dispatches_to_its_program(alias):
 
 def test_the_registry_holds_115_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
+    from test_torch_cli_analysis import NEW as LATER, NEW_ALIASES as LATER_A
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
-    assert len(names) == 115 and len(ALIASES) == 37
+    # the endpoints of later slices (tests/test_torch_cli_analysis.py) aside
+    later = set(LATER) | set(LATER_A)
+    assert len(names - later) == 115 and len(set(ALIASES) - later) == 37
 
 
 REFUSED = {

@@ -795,11 +795,14 @@ def test_new_alias_dispatches_to_its_program(alias):
 
 def test_the_registry_holds_85_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
-    from test_torch_cli_angular import NEW as LATER, NEW_ALIASES as LATER_A
+    import test_torch_cli_analysis as analysis
+    import test_torch_cli_angular as angular
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
-    # the endpoints of later slices (tests/test_torch_cli_angular.py) aside
-    later = set(LATER) | set(LATER_A)
+    # the endpoints of later slices (tests/test_torch_cli_angular.py,
+    # tests/test_torch_cli_analysis.py) aside
+    later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
+                          for m in (angular, analysis)))
     assert len(names - later) == 85 and len(set(ALIASES) - later) == 27
 
 

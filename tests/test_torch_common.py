@@ -472,6 +472,8 @@ def _rank_main(spec_path: str, rank: int) -> None:
     from xmipp3_tpu_torch.programs import get_program
     from xmipp3_tpu_torch.programs import align_significant as as_prog
     from xmipp3_tpu_torch.programs import angular_programs as ap_prog
+    from xmipp3_tpu_torch.programs import classify_analysis as ca_prog
+    from xmipp3_tpu_torch.programs import image_analysis as ia_prog
     from xmipp3_tpu_torch.programs import movie_alignment as ma_prog
     from xmipp3_tpu_torch.programs import reconstruct_fourier as rf_prog
     from xmipp3_tpu_torch.programs import reconstruct_misc as rm_prog
@@ -490,7 +492,8 @@ def _rank_main(spec_path: str, rank: int) -> None:
             return fn(*a, **k)
         return wrapper
 
-    for prog in (rf_prog, ma_prog, rm_prog, as_prog, ap_prog):
+    for prog in (rf_prog, ma_prog, rm_prog, as_prog, ap_prog, ca_prog,
+                 ia_prog):
         prog.save_image = counted(prog.save_image)
     MetaData.write = counted(MetaData.write)
     report = {"rank": rank, "jobs": {}}
@@ -533,7 +536,7 @@ def _rank_main(spec_path: str, rank: int) -> None:
                              **{k: inputs[v] for k, v in
                                 job.get("arrays", {}).items()},
                              **job.get("kwargs", {}))
-                    if isinstance(out, torch.Tensor):
+                    if isinstance(out, (torch.Tensor, np.ndarray)):
                         out = {"vol": out}
                     elif isinstance(out, tuple):
                         out = {f"out{i}": v for i, v in enumerate(out)}

@@ -11,7 +11,9 @@ the sample count of an ART block of 1,000 views; K4 at the shape of
 multireference_aligneability, and the phantom, the real-space projector,
 the continuous refinement and the aligneability scores on the card
 against the same on the CPU, and the continuous refinement's step loop
-without a host sync.
+without a host sync; K3 and K2 at the shapes of the two first splits, the
+analysis ops (features, TV, FRM, helical map, filter bank, LTSA) on the
+card against the CPU, and the first splits' launches on the card.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -1101,3 +1103,124 @@ def test_continuous_step_loop_never_syncs_on_the_card():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(last).all() and (p >= lo).all() and (p <= hi).all()
+
+
+def _first_split_samples(C, N=128, P=256, seed=0):
+    """The slice samples of C random views at N within max_freq 0.25 (the
+    first splits' gridding) and three value streams, on the card."""
+    b = phantom_batch(seed, C, 8)
+    mats = torch.as_tensor(euler_matrix(b["rot"], b["tilt"], b["psi"]),
+                           device="cuda")
+    coords = [a.reshape(-1).contiguous()
+              for a in trec._slice_tap_coords(mats, N, P, 0.25)]
+    rng = np.random.default_rng(seed)
+    vals = [torch.as_tensor(rng.standard_normal(coords[0].numel()).astype(
+        np.float32), device="cuda") for _ in range(3)]
+    return coords, vals, P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,C", [("kb_scatter_3ch", 8),
+                                      ("tri_scatter", 2000)])
+def test_scatters_at_the_first_split_shapes(kernel, C):
+    """K3 at one classify_first_split subset (8 views of 128^2 into the
+    256^3 cube) and K2 at one classify_first_split3 half set (gridded as
+    all 2,000 views weighted 0 or 1), each against its plain version
+    (1e-4 * max)."""
+    require_cuda()
+    coords, vals, P = _first_split_samples(C)
+    mod, run, plain = _kernel_and_plain(kernel, coords, vals, P)
+    cubes = lambda: [torch.zeros((P, P, P), device="cuda") for _ in range(3)]
+    got, want = cubes(), cubes()
+    before = mod.launches
+    run(got)
+    assert mod.launches == before + 1
+    plain(want)
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_analysis_ops_on_the_card_match_the_cpu():
+    """The feature extractors and a short SPG TV run, the SO(3) grid and the
+    unpolished FRM matrix, the helical map, the halves filter bank and an
+    LTSA embedding on the card against the same code on the CPU: features
+    1e-4 of each one's max (LBP equal), TV 1e-3 absolute, the SO(3) grid
+    1e-5 with the same argmax, the helical map 1e-4, the bank 1e-5, LTSA
+    1e-6 up to sign."""
+    require_cuda()
+    from xmipp3_tpu_torch.models.dimred import ltsa
+    from xmipp3_tpu_torch.ops import features as F
+    from xmipp3_tpu_torch.ops import halves_restoration as hr
+    from xmipp3_tpu_torch.ops.frm import frm_align_volumes
+    from xmipp3_tpu_torch.ops.helical import helical_correlation_grid
+    rng = np.random.default_rng(0)
+    imgs = rng.standard_normal((6, 32, 32)).astype(np.float32)
+    z, y, x = np.mgrid[0:32, 0:32, 0:32].astype(np.float32) - 16
+    v = sum(a * np.exp(-((z - cz) ** 2 + (y - cy) ** 2 + (x - cx) ** 2)
+                       / (2 * s * s)) for cz, cy, cx, s, a in
+            ((0, 0, 0, 3, 1), (5, -3, 3, 2, .8), (-4, 4, -2, 2.5, .6),
+             (2, 6, -5, 1.8, .9)))
+    h1, h2 = (v + 0.2 * rng.standard_normal(v.shape).astype(np.float32)
+              for _ in range(2))
+    X = rng.standard_normal((60, 6))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        o = {n: getattr(F, n)(imgs, device=dev).cpu().numpy() for n in
+             ("extract_entropy", "extract_granulo", "extract_histdist",
+              "extract_lbp", "extract_ramp", "extract_variance",
+              "extract_zernike")}
+        o["tv"] = F.tv_denoise_spg(imgs, 20, device=dev).cpu().numpy()
+        o["frm"] = frm_align_volumes(h1, h2, L=12, n_beta=32, n_ang=64,
+                                     refine=False, device=dev)
+        o["hel"] = helical_correlation_grid(v, [2.0, 3.0], [30.0, 40.0],
+                                            device=dev).cpu().numpy()
+        r2 = torch.as_tensor(hr.make_r2(v.shape), device=dev)
+        o["bank"] = torch.stack(hr.filter_bank(
+            torch.as_tensor(h1, device=dev), torch.as_tensor(h2, device=dev),
+            r2, v.shape, 0.1, 0.5, 1, 3.0)).cpu().numpy()
+        o["ltsa"] = ltsa(X, 2, device=dev)
+        out[dev] = o
+    c, g = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(g["extract_lbp"], c["extract_lbp"])
+    for n in [k for k in c if k.startswith("extract_")]:
+        assert (np.abs(g[n] - c[n]) <= 1e-4 * np.abs(c[n]).max(axis=0)).all()
+    assert np.abs(g["tv"] - c["tv"]).max() <= 1e-3
+    np.testing.assert_array_equal(g["frm"], c["frm"])
+    assert np.abs(g["hel"] - c["hel"]).max() <= 1e-4
+    assert rel_err(g["bank"], c["bank"]) <= 1e-5
+    s = np.sign((g["ltsa"] * c["ltsa"]).sum(axis=0))
+    assert rel_err(g["ltsa"] * s, c["ltsa"]) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_first_splits_launch_their_scatters_on_the_card(tmp_path):
+    """classify_first_split on the card: one K3 launch for the average and
+    one a subset; classify_first_split3: one K2 launch a half a sweep and
+    two for the final halves. Both write finite volumes."""
+    require_cuda()
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.programs import get_program
+    b = phantom_batch(6, 40, 32)
+    stk = str(tmp_path / "v.mrcs")
+    save_image(stk, b["imgs"])
+    MetaData.fromRows({"image": f"{i + 1}@{stk}",
+                       "angleRot": float(b["rot"][i]),
+                       "angleTilt": float(b["tilt"][i]),
+                       "anglePsi": float(b["psi"][i]), "itemId": i + 1}
+                      for i in range(40)).write(str(tmp_path / "v.xmd"))
+    k3 = scatter_kb.launches
+    prog = get_program("classify_first_split")
+    assert prog.run_with_args(["-i", str(tmp_path / "v.xmd"), "--oroot",
+                               str(tmp_path / "fs"), "--Nrec", "6",
+                               "-v", "0"]) == 0
+    assert scatter_kb.launches - k3 == 7
+    k2 = scatter_tri.launches
+    prog3 = get_program("classify_first_split3")
+    assert prog3.run_with_args(["-i", str(tmp_path / "v.xmd"), "--oroot",
+                                str(tmp_path / "s3"), "--Niter", "1500",
+                                "-v", "0"]) == 0
+    assert scatter_tri.launches - k2 == 2 * prog3.sweeps_run + 2
+    for f in ("fs_v1.vol", "fs_v2.vol", "s3_avg1.vol", "s3_avg2.vol"):
+        assert np.isfinite(np.asarray(Image(str(tmp_path / f)).data)).all()

@@ -41,6 +41,16 @@ reference's on the CPU, and backproject_chunk's kz-slab mode.
   serial path's halves). The reference's mesh path draws its halves
   otherwise than its serial path (ROADMAP.md section 3, item 14): its mesh
   halves are held to differ from its serial ones, its averages to agree.
+- parallel_pca_components on 2 ranks (91 samples padded to 92) against
+  the port's serial SVD components and the reference's on 2 virtual
+  devices, up to sign (1e-4: float32 moments, float64 eigh), and
+  parallel_filter_bank (bands dealt in turn) against the serial
+  filter_bank (1e-5 * max: the sums' order differs) and the reference's
+  (5e-5, the tolerance of tests/test_torch_halves.py; read 1.1e-5);
+  image_rotational_pca and volume_halves_restoration under --mesh dp on 2
+  ranks against their serial runs (each principal angle of the bases
+  <= 1e-3 rad; the restored volumes 1e-5 * max) and the reference's mesh
+  runs (the same angles; the volumes 5e-5, read 1.2e-5).
 - On one rank (no process group): --mesh auto is the serial path, and
   dp|tp|slab|slab2d raise the reference's RuntimeError.
 
@@ -57,9 +67,11 @@ from test_torch_cli_match import _hold_rows, _rows
 from test_torch_common import Ranks, phantom_batch, rel_err
 from test_torch_match import _hold
 from test_torch_project import phantom8
+from xmipp3_tpu.ops import halves_restoration as jhr
 from xmipp3_tpu.ops import reconstruct as jrec
 from xmipp3_tpu.parallel import match as jpm
 from xmipp3_tpu.parallel import reconstruct as jpr
+from xmipp3_tpu.parallel import engines as jpe
 from xmipp3_tpu.parallel.engines import parallel_class_sums as jax_class_sums
 from xmipp3_tpu.parallel.mesh import data_mesh as jax_data_mesh
 from xmipp3_tpu.parallel.movie import local_align_mesh as jax_local_align_mesh
@@ -223,6 +235,13 @@ CLASS_SUMS = dict(args=["imgs", "psi", "sx", "sy", "flipf", "assign"],
                   arrays={"sel_weights": "selw"},
                   kwargs={"n_refs": N_CLASSES}, mesh="data",
                   fn="parallel_class_sums")
+PCA = dict(args=["pca_X"], kwargs={"n_eig": 4}, mesh="data",
+           fn="parallel_pca_components")
+HN = 16                                  # the half maps of the filter bank
+BANK_KW = {"shape": [HN] * 3, "bank_step": 0.1, "bank_overlap": 0.5,
+           "weight_fun": 2, "weight_power": 3.0}
+BANK = dict(args=["h1", "h2", "hr2"], kwargs=BANK_KW, mesh="data",
+            fn="parallel_filter_bank")
 REC = dict(args=["imgs", "rot", "tilt", "psi", "sx", "sy"],
            arrays={"weights": "w", "flip": "flip"})
 SLAB = dict(args=["imgs_f", "rot", "tilt", "psi", "sx_f", "sy"],
@@ -288,6 +307,13 @@ SLICE12_MESH = {
         str(d / f"asig_{t}.xmd"), "--max_shift", "4", "--batch", "4",
         "--keepBestN", "2", "--oUpdatedRefs", str(d / f"upd_{t}")],
         {"rendezvous": "env"}),
+    "rpca_dp": ("image_rotational_pca", lambda d, t: [
+        "-i", str(d / "views.xmd"), "--oroot", str(d / f"rpca_{t}"),
+        "--eigenvectors", "4", "--psi_step", "45"], {}),
+    "halves_dp": ("volume_halves_restoration", lambda d, t: [
+        "--i1", str(d / "half1.vol"), "--i2", str(d / "half2.vol"),
+        "--oroot", str(d / f"halves_{t}"), "--denoising", "1",
+        "--filterBank", "0.05", "0.5", "1", "3", "--difference", "1"], {}),
     "rsig_dp": ("reconstruct_significant", lambda d, t: [
         "-i", str(d / "views.xmd"), "--odir", str(d / f"rsig_{t}"),
         "--iter", "1", "--angularSampling", "15", "--maxShift", "4",
@@ -378,6 +404,19 @@ def meshes(tmp_path_factory):
     for t in ("mesh", "serial", "ref"):
         (d / f"rsig_{t}").mkdir()
     inputs["movie"], inputs["movie_pos"] = _movie_dataset(d)
+    # 91 samples (padded to 92 on 2 ranks) of 64 features for the PCA
+    # moments; two noisy half maps for the filter bank (written for the CLI
+    # runs too)
+    rng = np.random.default_rng(9)
+    inputs["pca_X"] = (rng.standard_normal((91, 5)) * [6, 4, 3, 2, 1]
+                       @ rng.standard_normal((5, 64))
+                       + rng.standard_normal((91, 64))).astype(np.float32)
+    hv = phantom8(HN, scale=0.3)
+    for k in (1, 2):
+        inputs[f"h{k}"] = (hv + 0.2 * rng.standard_normal(hv.shape)) \
+            .astype(np.float32)
+        save_image(str(d / f"half{k}.vol"), inputs[f"h{k}"])
+    inputs["hr2"] = jhr.make_r2((HN,) * 3)
     spawns = {}
     for n in (2, 4):
         jobs = [dict(job, name=name, fn=job.get("fn", name))
@@ -388,6 +427,8 @@ def meshes(tmp_path_factory):
                          "args": ["movie", "movie_pos"],
                          "kwargs": MOVIE_KW})
             jobs.append(dict(CLASS_SUMS, name="parallel_class_sums"))
+            jobs.append(dict(PCA, name="parallel_pca_components"))
+            jobs.append(dict(BANK, name="parallel_filter_bank"))
         (d / f"w{n}").mkdir()
         spawns[n] = Ranks(n, jobs + _cli_jobs(d, n), d / f"w{n}", inputs)
 
@@ -436,6 +477,11 @@ def meshes(tmp_path_factory):
     ref["class_sums"] = [np.asarray(v) for v in jax_class_sums(
         jax_data_mesh(2), *(inputs[k] for k in CLASS_SUMS["args"]),
         N_CLASSES, sel_weights=inputs["selw"])]
+    ref["pca"] = jpe.parallel_pca_components(jax_data_mesh(2),
+                                             inputs["pca_X"], 4)
+    ref["bank"] = [np.asarray(v) for v in jpe.parallel_filter_bank(
+        jax_data_mesh(2), *(inputs[k] for k in BANK["args"]),
+        **dict(BANK_KW, shape=(HN,) * 3))]
     reports = {n: s.join() for n, s in spawns.items()}
     return dict(dir=d, ref=ref, reports=reports, gallery=_rows(d / "ref.doc"),
                 angles=np.array([[r["angleRot"], r["angleTilt"]]
@@ -763,3 +809,51 @@ def test_resolve_mesh_modes():
         resolve_mesh("ring")
     for mode in ("none", "serial", "auto"):
         assert resolve_mesh(mode) == (None, "none")
+
+
+def test_parallel_pca_components_match_serial_and_the_reference(meshes):
+    from xmipp3_tpu_torch.models.dimred import pca
+    X = dict(np.load(meshes["dir"] / "w2" / "inputs.npz"))["pca_X"]
+    _, model = pca(X, d=4, return_model=True, device="cpu")
+    for r in range(2):
+        got = _port_out(meshes, "parallel_pca_components", 2, r)["vol"]
+        assert got.shape == (4, 64)
+        for want in (model["components"], meshes["ref"]["pca"]):
+            s = np.sign((got * want).sum(axis=1))[:, None]
+            assert rel_err(s * got, want) <= 1e-4
+
+
+def test_parallel_filter_bank_matches_serial_and_the_reference(meshes):
+    from xmipp3_tpu_torch.ops import halves_restoration as thr
+    inp = dict(np.load(meshes["dir"] / "w2" / "inputs.npz"))
+    serial = thr.filter_bank(*(torch.as_tensor(inp[k]) for k in BANK["args"]),
+                             **dict(BANK_KW, shape=(HN,) * 3))
+    for r in range(2):
+        got = _port_out(meshes, "parallel_filter_bank", 2, r)
+        for i, want in enumerate(serial):
+            assert rel_err(got[f"out{i}"], want) <= 1e-5
+            assert rel_err(got[f"out{i}"], meshes["ref"]["bank"][i]) <= 5e-5
+
+
+def _principal_angles(A, B):
+    qa = np.linalg.qr(A.reshape(len(A), -1).T)[0]
+    qb = np.linalg.qr(B.reshape(len(B), -1).T)[0]
+    return np.arccos(np.clip(np.linalg.svd(qa.T @ qb, compute_uv=False),
+                             -1, 1))
+
+
+def test_image_rotational_pca_mesh_dp_matches_serial(meshes):
+    _cli_report(meshes, "rpca_dp", 2)
+    d = meshes["dir"]
+    basis = lambda t: np.squeeze(Image(str(d / f"rpca_{t}.stk")).data)
+    for other in ("serial", "ref"):
+        assert _principal_angles(basis("mesh"), basis(other)).max() <= 1e-3
+
+
+def test_volume_halves_restoration_mesh_dp_matches_serial(meshes):
+    _cli_report(meshes, "halves_dp", 2)
+    d = meshes["dir"]
+    v = lambda t, f: np.squeeze(Image(str(d / f"halves_{t}_{f}.vol")).data)
+    for f in ("filterBank", "restored1", "restored2", "avgDiff"):
+        assert rel_err(v("mesh", f), v("serial", f)) <= 1e-5, f
+        assert rel_err(v("mesh", f), v("ref", f)) <= 5e-5, f

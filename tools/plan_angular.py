@@ -115,7 +115,8 @@ def main() -> int:
         psi = rng.uniform(0, 360, V)
         sx, sy = rng.uniform(-3, 3, (2, V))
         poses = dict(rot=rot, tilt=tilt, psi=psi, sx=sx, sy=sy)
-        clean = cs.projections(n, rot, tilt, psi, sx, sy, blobs)
+        clean = cs.projections(n, rot, tilt, psi, sx, sy, blobs,
+                               device="cpu")
         save_image(f("views.mrcs"), clean + (0.5 * clean.std())
                    * rng.standard_normal(clean.shape, dtype=np.float32))
         MetaData.fromRows({"image": f"{i + 1}@{f('views.mrcs')}",
@@ -245,7 +246,7 @@ def main() -> int:
                     "--sel_signal", f("ssnr_s.xmd"), "--sel_noise",
                     f("ssnr_n.xmd"), "-o", f("ssnr.txt")])
         read["ssnr_low"] = cs.ssnr_quality(np.asarray(prog.ssnr_table), n)
-        save_image(f("cl.mrcs"), cs.commonline_set(seed))
+        save_image(f("cl.mrcs"), cs.commonline_set(seed, "cpu"))
         MetaData.fromRows({"image": f"{i + 1}@{f('cl.mrcs')}"}
                           for i in range(cs.ANG_CL[0])).write(f("cl_in.xmd"))
         run("commonline", "angular_commonline",

@@ -77,7 +77,7 @@ def main() -> int:
     tilt = np.degrees(np.arccos(rng.uniform(-1, 1, V)))
     psi = rng.uniform(0, 360, V)
     sx, sy = rng.uniform(-3, 3, (2, V))
-    clean = cs.projections(N, rot, tilt, psi, sx, sy, blobs)
+    clean = cs.projections(N, rot, tilt, psi, sx, sy, blobs, device="cpu")
     ctf_clean = cs.ctf_stack(clean)
     noisy = ctf_clean + (0.5 * ctf_clean.std()) * np.random.default_rng(
         args.seed + 5).standard_normal(ctf_clean.shape, dtype=np.float32)

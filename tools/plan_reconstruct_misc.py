@@ -97,7 +97,8 @@ def main() -> int:
             print(label, q, f"{seconds[label]:.1f} s", flush=True)
 
         t0 = time.perf_counter()
-        sig_ref = cs.significance_data(root, n, cs.RM_SIG_VIEWS, args.seed)
+        sig_ref = cs.significance_data(root, n, cs.RM_SIG_VIEWS, args.seed,
+                                           "cpu")
         (root / "sig").mkdir()
         rc = get_program("reconstruct_significant").run_with_args(
             [str(a) for a in (

@@ -98,8 +98,8 @@ class FourierProjector:
     card)."""
 
     def __init__(self, vol, pad_factor: float = 2.0, device=None):
-        vol = np.asarray(vol, np.float32)
         self.device = resolve_device(device)
+        vol = as_tensor(vol, self.device)
         self.N = vol.shape[-1]
         self.vf, self.pad_n = prepare_fourier_volume(vol, pad_factor,
                                                      self.device)

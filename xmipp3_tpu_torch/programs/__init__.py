@@ -107,10 +107,37 @@ _REGISTRY: dict[str, str] = {
         _P + "ssnr_residuals:ProgContinuousCreateResiduals",
     "angular_commonline":
         _P + "angular_commonline_prog:ProgAngularCommonline",
+    "image_vectorize": _P + "image_analysis:ProgImageVectorize",
+    "image_sort": _P + "image_analysis:ProgImageSortChain",
+    "image_sort_by_statistics":
+        _P + "image_analysis:ProgImageSortByStatistics",
+    "image_find_center": _P + "image_analysis:ProgImageFindCenter",
+    "image_ssnr": _P + "image_analysis:ProgImageSSNR",
+    "image_eliminate_empty_particles":
+        _P + "image_analysis:ProgEliminateEmptyParticles",
+    "matrix_dimred": _P + "image_analysis:ProgMatrixDimred",
+    "image_rotational_pca": _P + "image_analysis:ProgImageRotationalPCA",
+    "image_eliminate_byEnergy": _P + "image_analysis:ProgEliminateByEnergy",
+    "classify_evaluate_classes":
+        _P + "classify_analysis:ProgClassifyEvaluateClasses",
+    "classify_analyze_cluster":
+        _P + "classify_analysis:ProgClassifyAnalyzeCluster",
+    "classify_extract_features":
+        _P + "classify_analysis:ProgClassifyExtractFeatures",
+    "classify_compare_classes":
+        _P + "classify_analysis:ProgClassifyCompareClasses",
+    "classify_first_split": _P + "classify_analysis:ProgClassifyFirstSplit",
+    "classify_first_split3":
+        _P + "classify_analysis:ProgClassifyFirstSplit3",
+    "volume_halves_restoration":
+        _P + "classify_analysis:ProgVolumeHalvesRestoration",
+    "volume_find_symmetry": _P + "classify_analysis:ProgVolumeFindSymmetry",
+    "run": _P + "classify_analysis:ProgMpiRun",
+    "denoising_tv": _P + "classify_analysis:ProgDenoisingTV",
 }
 
-# the reference's aliases of these programs (programs/registry.py:216,
-# :305, :311-350, :360): alias -> the program it runs
+# the reference's aliases of these programs (programs/registry.py:177,
+# :216, :305, :311-350, :360): alias -> the program it runs
 ALIASES: dict[str, str] = {
     "ctf_correct_phase": "ctf_phase_flip",
     "cuda_movie_alignment_correlation": "movie_alignment_correlation",
@@ -149,6 +176,12 @@ ALIASES: dict[str, str] = {
     "mpi_subtract_projection": "subtract_projection",
     "mpi_validation_nontilt": "validation_nontilt",
     "cuda_angular_continuous_assign2": "angular_continuous_assign2",
+    "mpi_image_eliminate_byEnergy": "image_eliminate_byEnergy",
+    "mpi_image_rotational_pca": "image_rotational_pca",
+    "mpi_image_sort": "image_sort",
+    "mpi_image_ssnr": "image_ssnr",
+    "mpi_run": "run",
+    "cuda_volume_halves_restoration": "volume_halves_restoration",
 }
 _REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 
