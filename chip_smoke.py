@@ -291,7 +291,7 @@ Phases; any failure exits non-zero before the result line is printed:
    eliminated, particles kept), image_sort_by_statistics and
    image_eliminate_byEnergy (the outliers' AUC), image_find_center on
    1,000 views moved by (3, -2) px (the error), image_ssnr (the median),
-   image_sort on 1,000 views (the chain's median neighbour correlation);
+   image_sort on 200 views (the chain's median neighbour correlation);
    image_vectorize -> matrix_dimred on 1,000 of phase 10's views
    registered by their planted poses at 32^2 (PCA against numpy's float64
    SVD to 1e-4; LTSA: the share nearest their direction's centroid);
@@ -312,7 +312,51 @@ Phases; any failure exits non-zero before the result line is printed:
    quality. K3 at one first_split subset (8 views) and K2 at one
    first_split3 half set (every view weighted 0 or 1) are held against
    their plain versions and timed with the wrapper's host microseconds.
-14. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+14. Micrograph picking, the misc programs and the volume programs through
+   the CLI; none may launch a kernel. (a) Two 4096^2 micrographs at 1.34
+   A/px (BASELINE config 2's frame), each with 300 views of the 8-blob
+   phantom at N=128 (uniform directions) at distinct cells of a 136 px
+   grid (one box apart at least) and white noise of 1 sigma of the views
+   (numpy; the views rendered on the card) -> micrograph_scissor at the
+   first micrograph's positions (against a numpy crop: exact) and
+   --extractNoise 300 (no noise box on a particle);
+   micrograph_automatic_picking --ref (16 template views) --max_peaks 400
+   on the first, --trainSVM on the scissor's particle and noise boxes and
+   --svm on the second, --mode buildinv on the first with its positions,
+   --mode train and --mode autoselect on the second: recall and precision
+   within a quarter box against the planted positions. (b)
+   transform_dimred on 1,000 of phase 10's views registered by their
+   planted poses at 32^2 (--distance Euclidean PCA against numpy's float64
+   SVD to 1e-4; the default Correlation distance: the share of views
+   nearest their direction's centroid); on the first 2,000 of phase 4's
+   views (its clean views with new noise of 0.5 sigma, its true poses):
+   image_odd_even with --sum_frames and angular_distribution_show
+   --sampling 10 against numpy; transform_adjust_image_grey_levels on
+   their FourierProjector views with a planted a = 1.03, b = 0.02 sigma
+   (--max_resolution 2): a and b recovered; transform_center_image on
+   the unshifted views and on a copy moved by planted shifts (the
+   difference of the two runs' shifts against the plant);
+   transform_morphology --binaryOperation dilation --size 2 against
+   scipy.ndimage (exact); local_volume_adjust on the 256^3 phantom with
+   one 32^3 block scaled by 1.5 (the occupancy and the output against the
+   plant); volume_local_sharpening -k 1 on a 256^3 density of blobs
+   blurred by 2 px with a two-zone resolution map (3 A, 8 A): finite, and
+   its energy above 0.2 cycles/px lifted more against the 0.08-0.15 band
+   in the fine zone than in the coarse one. (c) At 64^3: volume_from_pdb on phase 12's
+   300-atom model (and --high_sampling_rate 1) against the sums the
+   reference gave on the same model; volume_center on a planted shift;
+   volume_align on a planted rotation (30, 20, 0) and shift by its grid
+   (10-degree, 1 px steps), --local and --frm, each within one grid step;
+   volume_subtraction --sub of the phantom without one of its blobs (the
+   removed blob's energy recovered, the rest small); volume_segment
+   (Otsu; its mask against numpy); transform_mask --mask circular -20
+   against numpy (exact); transform_symmetrize --sym c4 on a noisy C4 map
+   about z (closer to the clean one); volume_to_pseudoatoms --sigma 1
+   --targetError 1 (it reaches the target). Limits planned with
+   tools/plan_volume_misc.py. A `misc {...}` line gives each program's
+   wall, phases, untimed rest, launches and peak device memory, and the
+   quality.
+15. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
    with phase 10's ML2D launches; K2 at a pSART block and a SIRT pass as
    tri_scatter_art_block and tri_scatter_sirt_pass, K3 at WBP's launch as
    kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches; K4 at
@@ -1066,6 +1110,18 @@ def effective_directions(rows):
     return np.where((col("flip") > 0)[:, None], -d, d)
 
 
+def cycle_poses(seed):
+    """Phase 4's true poses (VIEWS uniform directions, psi uniform, shifts
+    in +-3 px; numpy's draws from the seed) and the Generator, which goes
+    on to draw the views' noise."""
+    rng = np.random.default_rng(seed + 3)
+    rot = rng.uniform(0, 360, VIEWS)
+    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, VIEWS)))
+    psi = rng.uniform(0, 360, VIEWS)
+    sx, sy = rng.uniform(-3, 3, (2, VIEWS))
+    return dict(rot=rot, tilt=tilt, psi=psi, sx=sx, sy=sy), rng
+
+
 def matching_cycle(seed, root: Path):
     """Phase 4 in root (kept for phase 5); returns the launches and the
     matching run's arguments."""
@@ -1079,11 +1135,9 @@ def matching_cycle(seed, root: Path):
     root.mkdir(parents=True)
     ref = phantom(N, BLOBS8)
     save_image(str(root / "phantom.vol"), ref)
-    rng = np.random.default_rng(seed + 3)
-    rot = rng.uniform(0, 360, VIEWS)
-    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, VIEWS)))
-    psi = rng.uniform(0, 360, VIEWS)
-    sx, sy = rng.uniform(-3, 3, (2, VIEWS))
+    p, rng = cycle_poses(seed)
+    rot, tilt, psi, sx, sy = (p[k] for k in ("rot", "tilt", "psi", "sx",
+                                             "sy"))
     t0 = time.perf_counter()
     clean = projections(N, rot, tilt, psi, sx, sy, BLOBS8, device=DEVICE)
     stk = root / "views.mrcs"
@@ -4543,7 +4597,9 @@ AN_OUTLIER_GAIN = 3.0          # their contrast, x the view
 AN_EMPTY_T = 5.0               # image_eliminate_empty_particles -t
 AN_ENERGY_CONF = 0.99          # image_eliminate_byEnergy --confidence
 AN_CENTER = (3.0, -2.0)        # the views' common offset (x, y) px at N=128
-AN_SORT_VIEWS = 1000           # image_sort's chain
+AN_SORT_VIEWS = 200            # image_sort's chain (PR 15: 1,000 -> 200,
+                               # its planned size, to pay for phase 14)
+AN_CENTER_VIEWS = 1000         # image_find_center's views
 AN_DIMRED_VIEWS, AN_DIMRED_N = 1000, 32   # phase 10's registered views
 AN_RPCA_VIEWS, AN_RPCA_N, AN_RPCA_EIG = 2000, 64, 8
 # --psi_step: 4 orientations a view keep the 2,000 x 4 x 64^2 samples
@@ -4910,7 +4966,7 @@ def analysis(seed, root: Path, cycle: Path, classify: Path, clean4, poses):
         energy_auc = 0.5 * (float(bad[outl].mean())
                             + float((~bad[~outl]).mean()))
         dx, dy = AN_CENTER
-        moved = np.roll(views4[:AN_SORT_VIEWS], (int(dy), int(dx)),
+        moved = np.roll(views4[:AN_CENTER_VIEWS], (int(dy), int(dx)),
                         axis=(1, 2))
         ctr_md = write_views(root, "centre", moved)
         prog = run("find_center", "image_find_center",
@@ -5127,6 +5183,570 @@ def analysis(seed, root: Path, cycle: Path, classify: Path, clean4, poses):
     return split_kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 14: micrograph picking, the misc programs and the volume programs
+# ---------------------------------------------------------------------------
+
+PK_SIZE = 4096                 # BASELINE config 2's frame (a 4k detector)
+PK_TS = 1.34                   # A/px
+PK_VIEWS = 300                 # planted views a micrograph
+PK_CELL = 136                  # the positions' grid: one box and 8 px
+PK_JITTER = 4                  # px: each position off its cell's centre
+PK_NOISE = 1.0                 # x the views' std
+PK_TEMPLATES = 16              # --ref: views at random directions
+PK_MAX_PEAKS = 400
+PK_WITHIN = 0.25               # a pick within a quarter box is a hit
+MS_VIEWS = 2000                # phase 4's views the misc programs take
+MS_PLANT_AB = (1.03, 0.02)     # grey levels: a, and b as a share of std
+MS_GREY_RES = 2                # --max_resolution (A at 1 A/px): no low-pass
+MS_SHIFT = 3.0                 # transform_center_image: plant in +-3 px
+MS_DIST_RATE = 10.0            # angular_distribution_show --sampling
+MS_BIG_N = 256                 # local adjustment and sharpening volumes
+MS_BLOCK = 32                  # --neighborhood (A at 1 A/px)
+MS_BLOCK_AT = (4, 4, 4)        # the scaled block (holding the centre)
+MS_BLOCK_SCALE = 1.5
+MS_ZONES = (0.2, 0.4, 3.0, 8.0)   # fine r < 0.2 n at 3 A, coarse to 0.4 n
+MS_SHARP_ITERS = 10            # volume_local_sharpening -i
+MS_SHARP_K = 1                 # -k: at the default 0.025 a voxel at 8 A
+                               # weighs the 3 A band at 0.54, and the two
+                               # zones' filters barely differ
+MS_HIGH = ((0.08, 0.15), 0.2)  # cycles/px: a band below 1/6 A, and above
+MS_BLOB, MS_BLUR = 1.5, 2.0     # px: the density's blobs and its blur
+MS_BLOB_DENSITY = 1 / 256       # blobs a voxel
+MS_SHARP_NOISE = 0.02
+VL_N = 64                      # the volume programs' size
+VL_PDB = ("--sampling", 2, "--size", VL_N)
+VL_SHIFT = (3, -2, 4)          # volume_center's plant (z, y, x) voxels
+VL_ALIGN = (30.0, 20.0, 0.0, 1.0, -2.0, 2.0)   # rot, tilt, psi, z, y, x
+VL_STEP = 10.0                 # the grid's angular step (degrees)
+VL_GRID = ("--rot", 0, 60, VL_STEP, "--tilt", 0, 40, VL_STEP,
+           "-z", -2, 2, 1, "-y", -2, 2, 1, "-x", -2, 2, 1)
+VL_REMOVED = 7                 # BLOBS8's blob that volume_subtraction finds
+VL_C4_NOISE = 0.5              # x the C4 phantom's std
+VL_PSEUDO = ("--sigma", 1, "--targetError", 1)
+MISC_TOL = 1e-4                # numpy checks: exact or 1e-4 * max
+
+# Limits planned with tools/plan_volume_misc.py on the reference package
+# (the CPU, at these sizes but --big-n 128; PERF.md section 2): twice the
+# shortfall of a share r (1 - 2 (1 - r)) or of a ratio below 1; for the
+# C4 error ratio twice its distance from the ideal 1/2 (four copies of
+# white noise averaged; C2 would give 1/sqrt(2)) over 1/2; the
+# volume_from_pdb sums the reference's own to 1e-5; fixed bounds for the
+# rest (0.5 px for the two centrings, one grid step for volume_align, 1e-4
+# for the checks against numpy and the planted a and b).
+PK_RECALL = {"ref": 0.9867, "svm": 0.78, "modes": 1.0}  # 0.9933, 0.89, 1.0
+PK_PRECISION = {"ref": 1.0, "svm": 1.0, "modes": 1.0}   # read 1.0 each
+MS_DIMRED_SEP = 0.72                # read 0.86
+MS_GREY_A, MS_GREY_B = 1e-4, 1e-4   # read 0 and 1.0e-6
+MS_CENTER_PX = 0.5                  # read 9.5e-5 px
+MS_ADJUST_TOL = 1e-4                # read 2.4e-7 and 1.1e-7
+VL_PDB_SUM = {"scattering": 95.25894927978516,
+              "high_sampling": 706.2008056640625}
+VL_CENTER_PX = 0.5                  # read 1.5e-5 px
+VL_SUB_RECOVERED, VL_SUB_REST = 0.186, 1.029e-3   # read 0.5930, 5.14e-4
+VL_SEGMENT_MASS = 0.2624                          # read 0.6312
+VL_SYM_RATIO = 0.5039                             # read 0.4981
+
+
+def picking_micrographs(n: int, size: int, views: int, seed: int, device):
+    """Two size^2 micrographs, each with `views` views of the 8-blob
+    phantom (BLOBS8 scaled to n; uniform directions, random psi) at
+    distinct cells of a PK_CELL grid (at least one box apart), plus the
+    PK_TEMPLATES template views; white noise of PK_NOISE x the views'
+    std. numpy's draws, the views rendered on `device`. Returns (mics,
+    positions (2, views, 2) as (x, y), templates)."""
+    rng = np.random.default_rng(seed + 41)
+    blobs = scaled_blobs(BLOBS8, n)
+    cell = PK_CELL * n // N
+    g = size // cell
+    total = 2 * views + PK_TEMPLATES
+    rot = rng.uniform(0, 360, total)
+    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, total)))
+    psi = rng.uniform(0, 360, total)
+    z = np.zeros(total)
+    imgs = projections(n, rot, tilt, psi, z, z, blobs, device=device)
+    sigma = float(imgs[:2 * views].std())
+    mics, pos = [], []
+    h = n // 2
+    for m in range(2):
+        cells = rng.choice(g * g, views, replace=False)
+        xy = np.stack([cells % g, cells // g], 1) * cell + cell // 2 \
+            + rng.integers(-PK_JITTER, PK_JITTER + 1, (views, 2))
+        xy = np.clip(xy, h, size - h)
+        mic = (PK_NOISE * sigma) * rng.standard_normal((size, size),
+                                                       dtype=np.float32)
+        for (x, y), v in zip(xy, imgs[m * views:(m + 1) * views]):
+            mic[y - h:y + h, x - h:x + h] += v
+        mics.append(mic)
+        pos.append(xy)
+    return mics, np.stack(pos), imgs[2 * views:]
+
+
+def recall_precision(picks, truth, box: int):
+    """(the share of planted positions with a pick within PK_WITHIN x box,
+    the share of picks within that of a planted position)."""
+    p = np.asarray(picks, np.float64).reshape(-1, 2)
+    t = np.asarray(truth, np.float64)
+    if not len(p):
+        return 0.0, 0.0
+    d = np.hypot(p[:, None, 0] - t[None, :, 0], p[:, None, 1] - t[None, :, 1])
+    hit = d <= PK_WITHIN * box
+    return float(hit.any(axis=0).mean()), float(hit.any(axis=1).mean())
+
+
+def c4_z_volume(n: int):
+    """BLOBS8 (scaled to n) and its copies turned by 90, 180 and 270
+    degrees about z: a C4 map about the axis --sym c4 names."""
+    blobs = []
+    for cz, cy, cx, s, a in scaled_blobs(BLOBS8, n):
+        for k in range(4):
+            c, si = round(np.cos(np.pi / 2 * k)), round(np.sin(np.pi / 2 * k))
+            blobs.append((cz, si * cx + c * cy, c * cx - si * cy, s, a))
+    return phantom(n, blobs)
+
+
+def rotation_angle_deg(A, B) -> float:
+    """The angle of the rotation taking B's 3x3 part to A's, degrees."""
+    R = np.asarray(A, np.float64)[:3, :3] @ np.asarray(B, np.float64)[:3, :3].T
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1,
+                                              1))))
+
+
+def misc_volume_readings(seed, root: Path, run, device, clean4, poses4,
+                         classify: Path, n: int = N, pick_size: int = PK_SIZE,
+                         pick_views: int = PK_VIEWS, big_n: int = MS_BIG_N,
+                         vol_n: int = VL_N, sharp_k: float = MS_SHARP_K):
+    """Phase 14's programs on its recipes: run(label, program, args) runs
+    one program (the port's on the card in this script, the reference's
+    on the CPU in tools/plan_volume_misc.py) and returns it; the data are
+    made on `device`. clean4 / poses4 are phase 4's clean views and true
+    poses (the first MS_VIEWS are used), classify phase 10's output.
+    sharp_k is volume_local_sharpening's -k. Returns the quality
+    readings."""
+    from scipy import ndimage
+
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.pdb import write_pdb
+    from xmipp3_tpu_torch.ops.geo import apply_affine_3d, apply_md_geometry
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    from xmipp3_tpu_torch.ops.resize import fourier_resize_2d
+    from xmipp3_tpu_torch.programs.volume_programs import ProgVolumeAlign
+    f = lambda name: str(root / name)
+    load = lambda name: np.squeeze(Image(f(name)).data)
+    q = {}
+
+    def write_pos(name, xy):
+        MetaData.fromRows({"xcoor": int(x), "ycoor": int(y)}
+                          for x, y in xy).write(f(name))
+        return f(name)
+
+    def picked(fn):
+        return [(float(r["xcoor"]), float(r["ycoor"])) for r in md_rows(fn)]
+
+    # (a) picking at config 2's size
+    t0 = time.perf_counter()
+    mics, pos, templ = picking_micrographs(n, pick_size, pick_views, seed,
+                                           device)
+    for m, mic in enumerate(mics):
+        save_image(f(f"mic{m + 1}.mrc"), mic, sampling=PK_TS)
+    save_image(f("templates.mrcs"), templ)
+    pos1, pos2 = write_pos("mic1.pos", pos[0]), write_pos("mic2.pos", pos[1])
+    q["data_s"] = time.perf_counter() - t0
+    h = n // 2
+    run("scissor", "micrograph_scissor",
+        ["-i", f("mic1.mrc"), "--pos", pos1, "-o", f("parts1.stk"),
+         "--Xdim", n])
+    parts = Image.read_stack(f("parts1.stk"))
+    crop = np.stack([mics[0][y - h:y + h, x - h:x + h] for x, y in pos[0]])
+    q["scissor_max_abs_diff"] = float(np.abs(parts - crop).max())
+    noise_pos = write_pos("noise1.pos", pos[0])
+    run("scissor_noise", "micrograph_scissor",
+        ["-i", f("mic1.mrc"), "--pos", noise_pos, "-o", f("noise1.stk"),
+         "--Xdim", n, "--extractNoise", pick_views])
+    npos = np.array(picked(noise_pos))
+    near = ((np.abs(npos[:, None, 0] - pos[0][None, :, 0]) < h)
+            & (np.abs(npos[:, None, 1] - pos[0][None, :, 1]) < h)).any(1)
+    q["noise_boxes"] = int(len(Image.read_stack(f("noise1.stk"))))
+    q["noise_on_particles"] = int(near.sum())
+    prog = run("pick_ref", "micrograph_automatic_picking",
+               ["-i", f("mic1.mrc"), "-o", f("pick_ref.pos"),
+                "--particleSize", n, "--ref", f("templates.mrcs"),
+                "--max_peaks", PK_MAX_PEAKS])
+    q["pick_ref"] = dict(zip(("recall", "precision"), recall_precision(
+        picked(f("pick_ref.pos")), pos[0], n)), picked=prog.n_picked)
+    prog = run("train_svm", "micrograph_automatic_picking",
+               ["-i", f("mic1.mrc"), "--particleSize", n, "--trainSVM",
+                "--trainPos", f("parts1.xmd"), "--trainNeg", f("noise1.xmd"),
+                "--svm", f("model")])
+    svm_acc = prog.train_accuracy
+    prog = run("pick_svm", "micrograph_automatic_picking",
+               ["-i", f("mic2.mrc"), "-o", f("pick_svm.pos"),
+                "--particleSize", n, "--ref", f("templates.mrcs"),
+                "--max_peaks", PK_MAX_PEAKS, "--svm", f("model")])
+    q["pick_svm"] = dict(zip(("recall", "precision"), recall_precision(
+        picked(f("pick_svm.pos")), pos[1], n)), picked=prog.n_picked,
+        train_accuracy=svm_acc)
+    run("buildinv", "micrograph_automatic_picking",
+        ["-i", f("mic1.mrc"), "--particleSize", n, "--mode", "buildinv",
+         pos1, "--model", f("auto")])
+    prog = run("train", "micrograph_automatic_picking",
+               ["-i", f("mic1.mrc"), "--particleSize", n, "--mode", "train",
+                "--model", f("auto"), "--outputRoot", f("out1")])
+    acc = prog.train_accuracy
+    prog = run("autoselect", "micrograph_automatic_picking",
+               ["-i", f("mic2.mrc"), "--particleSize", n, "--mode",
+                "autoselect", "--model", f("auto"), "--outputRoot",
+                f("out2")])
+    q["pick_modes"] = dict(zip(("recall", "precision"), recall_precision(
+        picked(f"particles_auto@{f('out2')}.pos"), pos[1], n)),
+        picked=prog.n_picked, train_accuracy=acc)
+    del mics
+
+    # (b) the misc programs
+    V = min(MS_VIEWS, len(clean4))
+    rows10 = md_rows(classify / "poses.xmd")[:AN_DIMRED_VIEWS]
+    col10 = lambda k: np.array([float(r[k]) for r in rows10], np.float32)
+    v10 = Image.read_stack(str(classify / "views.mrcs"))[:AN_DIMRED_VIEWS]
+    reg = fourier_resize_2d(apply_md_geometry(
+        v10, col10("anglePsi"), col10("shiftX"), col10("shiftY"),
+        col10("flip") > 0.5, device=device), AN_DIMRED_N,
+        AN_DIMRED_N).cpu().numpy()
+    lab10 = np.array([int(r["itemId"]) for r in rows10])
+    label10 = np.asarray(classify_recipe(n, CLS_VIEWS, seed)["label"])[
+        lab10 - 1]
+    dim_md = write_views(root, "dimred_in", reg)
+    run("dimred_pca", "transform_dimred",
+        ["-i", dim_md, "-o", f("dimred_pca.xmd"), "--method", "PCA",
+         "--dout", 3, "--distance", "Euclidean"])
+    Y = np.stack([r["dimred"] for r in md_rows(f("dimred_pca.xmd"))])
+    Xn = reg.reshape(len(reg), -1).astype(np.float64)
+    U, S, _ = np.linalg.svd(Xn - Xn.mean(axis=0), full_matrices=False)
+    want = U[:, :3] * S[:3]
+    sgn = np.sign((Y * want).sum(axis=0))
+    q["dimred_pca_vs_numpy_svd"] = float(np.abs(Y * sgn - want).max()
+                                         / np.abs(want).max())
+    run("dimred_corr", "transform_dimred",
+        ["-i", dim_md, "-o", f("dimred_corr.xmd"), "--method", "PCA",
+         "--dout", 3])
+    Yc = np.stack([r["dimred"] for r in md_rows(f("dimred_corr.xmd"))])
+    q["dimred_corr_nearest_centroid"] = nearest_centroid_share(Yc, label10)
+
+    rng = np.random.default_rng(seed + 43)
+    clean = np.asarray(clean4[:V], np.float32)
+    noisy = clean + (0.5 * clean.std()) * rng.standard_normal(
+        clean.shape, dtype=np.float32)
+    p4 = {k: np.asarray(v)[:V] for k, v in poses4.items()}
+    views_md = write_views(root, "views", noisy, p4)
+    run("odd_even", "image_odd_even",
+        ["-i", f("views.mrcs"), "-o", f("odd.mrcs"), "-e", f("even.mrcs"),
+         "--sum_frames"])
+    q["odd_even_max_abs_diff"] = max(
+        float(np.abs(load("odd.mrcs") - noisy[0::2]).max()),
+        float(np.abs(load("even.mrcs") - noisy[1::2]).max()),
+        float(np.abs(load("odd_avg.mrc") - noisy[0::2].mean(0)).max()
+              / np.abs(noisy[0::2].mean(0)).max()))
+    prog = run("distribution", "angular_distribution_show",
+               ["-i", views_md, "-o", f("dist.xmd"), "--sampling",
+                MS_DIST_RATE])
+    drows = md_rows(f("dist.xmd"))
+    d_ref = np.array([[r["X"], r["Y"], r["Z"]] for r in drows])
+    rr, tt = np.deg2rad(p4["rot"]), np.deg2rad(p4["tilt"])
+    d_exp = np.stack([np.cos(rr) * np.sin(tt), np.sin(rr) * np.sin(tt),
+                      np.cos(tt)], 1)
+    counts = np.bincount(np.argmax(d_exp @ d_ref.T, axis=1),
+                         minlength=len(d_ref))
+    q["distribution_count_diff"] = int(np.abs(
+        counts - np.array([r["weight"] for r in drows])).max())
+
+    # grey levels on the phantom's Fourier views at the true poses (the
+    # program's own projector), centring on unshifted analytic views
+    ph = phantom(n, scaled_blobs(BLOBS8, n))
+    save_image(f("phantom.vol"), ph)
+    P = FourierProjector(ph, device=device).project_euler(
+        p4["rot"], p4["tilt"], p4["psi"]).cpu().numpy()
+    a, b = MS_PLANT_AB
+    b_abs = b * float(P.std())
+    write_views(root, "grey", a * P + b_abs, p4)
+    run("grey_levels", "transform_adjust_image_grey_levels",
+        ["-i", f("grey.xmd"), "-o", f("grey_out.mrcs"),
+         "--save_metadata_stack", f("grey_out.xmd"), "--ref",
+         f("phantom.vol"), "--max_resolution", MS_GREY_RES])
+    grows = md_rows(f("grey_out.xmd"))
+    q["grey_a_err"] = float(np.median(np.abs(
+        np.array([r["continuousA"] for r in grows]) - a)))
+    q["grey_b_err"] = float(np.median(np.abs(
+        np.array([r["continuousB"] for r in grows]) - b_abs))
+        / float(P.std()))
+    del P
+    z = np.zeros(V)
+    flat = projections(n, p4["rot"], p4["tilt"], p4["psi"], z, z,
+                       scaled_blobs(BLOBS8, n), device=device)
+    shift = rng.uniform(-MS_SHIFT, MS_SHIFT, (2, V))
+    fy = np.fft.fftfreq(n)[:, None]
+    fx = np.fft.rfftfreq(n)[None, :]
+    moved = np.fft.irfft2(np.fft.rfft2(flat) * np.exp(
+        -2j * np.pi * (fx * shift[0][:, None, None]
+                       + fy * shift[1][:, None, None])), s=(n, n))
+    cen = {}
+    for name, stack in (("flat", flat), ("moved", moved)):
+        write_views(root, f"c_{name}", stack.astype(np.float32))
+        run(f"center_{name}", "transform_center_image",
+            ["-i", f(f"c_{name}.xmd"), "-o", f(f"c_{name}_out.mrcs"),
+             "--save_metadata_stack", f(f"c_{name}_out.xmd"),
+             "--save_metadata_transform"])
+        cr = md_rows(f(f"c_{name}_out.xmd"))
+        cen[name] = np.array([[r["shiftX"], r["shiftY"]] for r in cr]).T
+    q["center_image_err_px"] = float(np.median(np.hypot(
+        *(cen["moved"] - cen["flat"] + shift))))
+    binary = (flat > 0.3 * flat.max()).astype(np.float32)
+    save_image(f("binary.mrcs"), binary)
+    run("morphology", "transform_morphology",
+        ["-i", f("binary.mrcs"), "-o", f("morph.mrcs"), "--binaryOperation",
+         "dilation", "--size", 2])
+    st = ndimage.generate_binary_structure(2, 2)
+    want = np.stack([ndimage.binary_dilation(im > 0.5, st, iterations=2)
+                     for im in binary]).astype(np.float32)
+    q["morphology_diff_pixels"] = int((load("morph.mrcs") != want).sum())
+    del flat, moved, noisy, clean
+
+    # local adjustment and sharpening on big_n^3 maps
+    big = phantom(big_n, scaled_blobs(BLOBS8, big_n))
+    blk = MS_BLOCK * big_n // MS_BIG_N
+    sl = tuple(slice(k * blk, (k + 1) * blk) for k in MS_BLOCK_AT)
+    scaled = big.copy()
+    scaled[sl] *= MS_BLOCK_SCALE
+    save_image(f("big.vol"), big)
+    save_image(f("big_scaled.vol"), scaled)
+    (root / "occ").mkdir()
+    run("local_adjust", "local_volume_adjust",
+        ["--i1", f("big.vol"), "--i2", f("big_scaled.vol"), "-o",
+         f("adjusted.vol"), "--neighborhood", blk, "--save", f("occ")])
+    occ = np.squeeze(Image(f("occ/Occupancy.mrc")).data)
+    q["local_adjust_scale_err"] = float(np.abs(occ[sl] - MS_BLOCK_SCALE)
+                                        .max())
+    q["local_adjust_out_err"] = float(np.abs(load("adjusted.vol") - big)
+                                      .max() / big.max())
+    # sharpening: a density of Gaussian blobs (sigma MS_BLOB px at random
+    # places inside r < MS_ZONES[1] n, MS_BLOB_DENSITY a voxel) blurred by
+    # a Gaussian of MS_BLUR px, with noise of MS_SHARP_NOISE x its std;
+    # resolution MS_ZONES[2] A inside r < MS_ZONES[0] n and MS_ZONES[3] A
+    # to MS_ZONES[1] n, unmeasured (0) outside. A zone's tilt is the
+    # output's gain of energy above MS_HIGH[1] cycles/px over its gain in
+    # (MS_HIGH[0][0], MS_HIGH[0][1]]: sharpening to 3 A lifts the first
+    # more than sharpening to 8 A does
+    import torch
+    c = np.arange(big_n) - big_n // 2
+    r = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2
+                + c[None, None, :] ** 2)
+    fine = r < MS_ZONES[0] * big_n
+    coarse = (r >= MS_ZONES[0] * big_n) & (r < MS_ZONES[1] * big_n)
+    res = np.where(fine, MS_ZONES[2], np.where(coarse, MS_ZONES[3], 0.0))
+    w2 = torch.as_tensor(np.fft.fftfreq(big_n)[:, None, None] ** 2
+                         + np.fft.fftfreq(big_n)[None, :, None] ** 2
+                         + np.fft.rfftfreq(big_n)[None, None, :] ** 2,
+                         device=device)
+    srng = np.random.default_rng(seed + 45)
+    inside = np.flatnonzero(r < MS_ZONES[1] * big_n)
+    spikes = np.zeros(big_n ** 3, np.float32)
+    spikes[srng.choice(inside, int(MS_BLOB_DENSITY * len(inside)),
+                       replace=False)] = 1.0
+    sig = np.hypot(MS_BLOB, MS_BLUR)
+    blurred = torch.fft.irfftn(torch.fft.rfftn(torch.as_tensor(
+        spikes.reshape((big_n,) * 3), device=device).double())
+        * torch.exp(-2 * np.pi ** 2 * sig ** 2 * w2), (big_n,) * 3) \
+        .float().cpu().numpy()
+    del spikes
+    blurred += (MS_SHARP_NOISE * blurred.std()) * srng.standard_normal(
+        blurred.shape, dtype=np.float32)
+    save_image(f("blurred.vol"), blurred)
+    save_image(f("resmap.vol"), res.astype(np.float32))
+    run("sharpening", "volume_local_sharpening",
+        ["--vol", f("blurred.vol"), "--resolution_map", f("resmap.vol"),
+         "-o", f("sharp.vol"), "--md", f("sharp.xmd"), "--sampling", 1,
+         "-i", MS_SHARP_ITERS, "-k", sharp_k])
+    sharp = load("sharp.vol")
+    (lo, hi), top = MS_HIGH
+    masks = {"mid": (w2 > lo ** 2) & (w2 <= hi ** 2), "top": w2 > top ** 2}
+    zones = {k: torch.as_tensor(z, device=device)
+             for k, z in (("fine", fine), ("coarse", coarse))}
+    energy = {}      # (volume, band, zone) -> energy, float64 on device
+    for vname, v in (("sharp", sharp), ("blurred", blurred)):
+        F = torch.fft.rfftn(torch.as_tensor(v, device=device).double())
+        for bname, m in masks.items():
+            b = torch.fft.irfftn(F * m, v.shape)
+            for zname, zone in zones.items():
+                energy[vname, bname, zname] = float((b[zone] ** 2).sum())
+        del F
+    gain = lambda b, z: energy["sharp", b, z] / energy["blurred", b, z]
+    q["sharpening"] = {
+        "finite": bool(np.isfinite(sharp).all()),
+        "iterations": int(md_rows(f("sharp.xmd"))[0]["iterationNumber"]),
+        **{f"tilt_{z}": gain("top", z) / gain("mid", z) for z in zones}}
+    del big, scaled, occ, blurred, sharp, r, res, fine, coarse, w2, zones
+
+    # (c) the volume programs at vol_n^3
+    write_pdb(f("model.pdb"), synthetic_model(ANG_PDB_ATOMS, seed))
+    run("from_pdb", "volume_from_pdb",
+        ["-i", f("model.pdb"), "-o", f("pdb")] + list(VL_PDB))
+    run("from_pdb_hs", "volume_from_pdb",
+        ["-i", f("model.pdb"), "-o", f("pdb_hs"), "--high_sampling_rate", 1]
+        + list(VL_PDB))
+    q["from_pdb_sum"] = {"scattering": float(load("pdb.vol").sum()),
+                         "high_sampling": float(load("pdb_hs.vol").sum())}
+    v = phantom(vol_n, scaled_blobs(BLOBS8, vol_n))
+    save_image(f("v.vol"), v)
+    save_image(f("v_shifted.vol"), np.roll(v, VL_SHIFT, (0, 1, 2)))
+    sh = []
+    for name in ("v", "v_shifted"):
+        prog = run(f"center_{name}", "volume_center",
+                   ["-i", f(f"{name}.vol"), "-o", f(f"{name}_c.vol")])
+        sh.append(np.array(prog.shift[::-1], np.float64))   # (z, y, x)
+    q["volume_center_err_px"] = float(np.abs(sh[1] - sh[0]
+                                             + np.array(VL_SHIFT)).max())
+    rot, tilt, psi, sz, sy, sx = VL_ALIGN
+    A = ProgVolumeAlign._trial_matrix(1.0, rot, tilt, psi, 1.0, sz, sy, sx)
+    moved = apply_affine_3d(v, np.linalg.inv(A)[None, :3, :4].astype(
+        np.float32), device=device)[0].cpu().numpy()
+    save_image(f("v_moved.vol"), moved)
+    for label, extra in (
+            ("align_grid", list(VL_GRID)),
+            ("align_local", ["--rot", rot - 5, "--tilt", tilt - 5,
+                             "-y", sy + 1, "--local", "--dontScale"]),
+            ("align_frm", ["--frm"])):
+        prog = run(label, "volume_align",
+                   ["--i1", f("v.vol"), "--i2", f("v_moved.vol")] + extra)
+        q[label] = {"rotation_err_deg": rotation_angle_deg(prog.matrix_A, A),
+                    "shift_err_px": float(np.abs(prog.matrix_A[:3, 3]
+                                                 - A[:3, 3]).max())}
+    blobs = scaled_blobs(BLOBS8, vol_n)
+    removed = phantom(vol_n, blobs[VL_REMOVED:VL_REMOVED + 1])
+    save_image(f("v_minus.vol"), phantom(vol_n, blobs[:VL_REMOVED]
+                                         + blobs[VL_REMOVED + 1:]))
+    run("subtraction", "volume_subtraction",
+        ["--i1", f("v.vol"), "--i2", f("v_minus.vol"), "-o", f("diff.vol"),
+         "--sub"])
+    diff = load("diff.vol")
+    region = removed > 0.05 * removed.max()
+    q["subtraction_recovered"] = float((diff * removed)[region].sum()
+                                       / (removed ** 2)[region].sum())
+    q["subtraction_rest"] = float((diff[~region] ** 2).sum()
+                                  / (v ** 2).sum())
+    prog = run("segment", "volume_segment",
+               ["-i", f("v.vol"), "-o", f("seg.vol")])
+    seg = load("seg.vol")
+    q["segment_mismatch"] = int((seg != (v >= prog.threshold)).sum())
+    q["segment_mass"] = float(v[seg > 0.5].sum() / v.sum())
+    run("mask", "transform_mask",
+        ["-i", f("v.vol"), "-o", f("masked.vol"), "--mask", "circular", -20])
+    cz = np.arange(vol_n, dtype=np.float32) - vol_n // 2
+    r2 = (cz[:, None, None] ** 2 + cz[None, :, None] ** 2
+          + cz[None, None, :] ** 2)
+    q["mask_max_abs_diff"] = float(np.abs(
+        load("masked.vol") - v * (np.sqrt(r2) <= vol_n // 2 - 20)).max())
+    sym = c4_z_volume(vol_n)
+    noisy_sym = (sym + VL_C4_NOISE * sym.std()
+                 * np.random.default_rng(seed + 47).standard_normal(
+                     sym.shape)).astype(np.float32)
+    save_image(f("c4_noisy.vol"), noisy_sym)
+    run("symmetrize", "transform_symmetrize",
+        ["-i", f("c4_noisy.vol"), "-o", f("c4_sym.vol"), "--sym", "c4"])
+    err = lambda w: float(np.sqrt(((w - sym) ** 2).mean()))
+    q["symmetrize_err_ratio"] = err(load("c4_sym.vol")) / err(noisy_sym)
+    prog = run("pseudoatoms", "volume_to_pseudoatoms",
+               ["-i", f("v.vol"), "-o", f("atoms")] + list(VL_PSEUDO))
+    q["pseudoatoms"] = {"final_error": prog.final_error,
+                        "atoms": prog.n_placed,
+                        "target": VL_PSEUDO[3] / 100.0}
+    return q
+
+
+def misc_and_volumes(seed, root: Path, classify: Path, clean4, poses4):
+    """Phase 14 in root: the 18 programs of the micrograph, misc and volume
+    slices through their CLI on the card, none of which may launch a
+    kernel; the readings against the limits planned with
+    tools/plan_volume_misc.py."""
+    from xmipp3_tpu_torch.core import timing
+    root.mkdir(parents=True)
+    report = {}
+    limit = Limits(14)
+
+    def run(label, name, args):
+        prog = run_program(14, report, label, name, args)
+        check(not report[label]["launches"], f"phase 14 {label}: launched "
+              f"{report[label]['launches']}")
+        return prog
+
+    start = time.perf_counter()
+    timing.enable_timing(True)
+    try:
+        q = misc_volume_readings(seed, root, run, DEVICE, clean4, poses4,
+                                 classify)
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    report["quality"] = q
+    report["phase_s"] = time.perf_counter() - start
+    for k in ("ref", "svm", "modes"):
+        pk = q["pick_" + k] if k != "ref" else q["pick_ref"]
+        limit(pk["recall"] >= PK_RECALL[k] and pk["precision"]
+              >= PK_PRECISION[k], f"phase 14 pick_{k}: recall "
+              f"{pk['recall']:.4f}, precision {pk['precision']:.4f} (limits "
+              f"{PK_RECALL[k]}, {PK_PRECISION[k]})")
+    limit(q["scissor_max_abs_diff"] == 0.0, "phase 14 scissor: "
+          f"{q['scissor_max_abs_diff']} off the numpy crop")
+    limit(q["noise_boxes"] == PK_VIEWS and q["noise_on_particles"] == 0,
+          f"phase 14 --extractNoise: {q['noise_boxes']} boxes, "
+          f"{q['noise_on_particles']} on a particle")
+    limit(q["dimred_pca_vs_numpy_svd"] <= MISC_TOL, "phase 14 dimred PCA: "
+          f"{q['dimred_pca_vs_numpy_svd']:.2e}")
+    limit(q["dimred_corr_nearest_centroid"] >= MS_DIMRED_SEP,
+          f"phase 14 dimred: {q['dimred_corr_nearest_centroid']:.4f}")
+    limit(q["odd_even_max_abs_diff"] <= MISC_TOL, "phase 14 odd_even: "
+          f"{q['odd_even_max_abs_diff']}")
+    limit(q["distribution_count_diff"] == 0, "phase 14 distribution: "
+          f"counts off by {q['distribution_count_diff']}")
+    limit(q["grey_a_err"] <= MS_GREY_A and q["grey_b_err"] <= MS_GREY_B,
+          f"phase 14 grey levels: a {q['grey_a_err']:.2e}, b "
+          f"{q['grey_b_err']:.2e} (limits {MS_GREY_A}, {MS_GREY_B})")
+    limit(q["center_image_err_px"] <= MS_CENTER_PX, "phase 14 "
+          f"center_image: {q['center_image_err_px']:.3f} px")
+    limit(q["morphology_diff_pixels"] == 0, "phase 14 morphology: "
+          f"{q['morphology_diff_pixels']} pixels off scipy")
+    limit(q["local_adjust_scale_err"] <= MS_ADJUST_TOL
+          and q["local_adjust_out_err"] <= MS_ADJUST_TOL,
+          f"phase 14 local_adjust: {q['local_adjust_scale_err']:.2e}, "
+          f"{q['local_adjust_out_err']:.2e}")
+    sh = q["sharpening"]
+    limit(sh["finite"] and sh["tilt_fine"] > sh["tilt_coarse"],
+          f"phase 14 sharpening: {sh}")
+    for k, v in VL_PDB_SUM.items():
+        limit(abs(q["from_pdb_sum"][k] - v) <= 1e-5 * abs(v),
+              f"phase 14 from_pdb {k}: sum {q['from_pdb_sum'][k]} (plan "
+              f"{v})")
+    limit(q["volume_center_err_px"] <= VL_CENTER_PX, "phase 14 "
+          f"volume_center: {q['volume_center_err_px']:.3f} px")
+    for k in ("align_grid", "align_local", "align_frm"):
+        limit(q[k]["rotation_err_deg"] <= VL_STEP
+              and q[k]["shift_err_px"] <= 1.0, f"phase 14 {k}: {q[k]}")
+    limit(q["subtraction_recovered"] >= VL_SUB_RECOVERED
+          and q["subtraction_rest"] <= VL_SUB_REST,
+          f"phase 14 subtraction: {q['subtraction_recovered']:.4f}, "
+          f"{q['subtraction_rest']:.2e}")
+    limit(q["segment_mismatch"] == 0 and q["segment_mass"]
+          >= VL_SEGMENT_MASS, f"phase 14 segment: {q['segment_mismatch']}, "
+          f"{q['segment_mass']:.4f}")
+    limit(q["mask_max_abs_diff"] == 0.0, "phase 14 mask: "
+          f"{q['mask_max_abs_diff']}")
+    limit(q["symmetrize_err_ratio"] <= VL_SYM_RATIO, "phase 14 symmetrize: "
+          f"{q['symmetrize_err_ratio']:.4f}")
+    pa = q["pseudoatoms"]
+    limit(pa["final_error"] <= pa["target"], f"phase 14 pseudoatoms: {pa}")
+    log(f"  phase 14 took {report['phase_s']:.2f} s")
+    log("misc " + json.dumps(report))
+    limit.check()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--mesh-rank"]:
@@ -5202,6 +5822,10 @@ def main(argv=None) -> int:
         split_kernels = analysis(args.seed, root / "analysis",
                                  root / "cycle", root / "classify", clean,
                                  poses)
+        log("phase 14: micrograph picking, the misc programs and the volume "
+            "programs")
+        misc_and_volumes(args.seed, root / "misc", root / "classify", clean,
+                         poses)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

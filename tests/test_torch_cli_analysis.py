@@ -632,9 +632,16 @@ def test_alias_dispatches_to_its_program(alias):
 
 def test_the_registry_holds_140_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
+    import test_torch_cli_micrograph as micrograph
+    import test_torch_cli_misc as misc
+    import test_torch_cli_volume as volume
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
-    assert len(names) == 140 and len(ALIASES) == 43
+    # the endpoints of later slices (tests/test_torch_cli_micrograph.py,
+    # tests/test_torch_cli_misc.py, tests/test_torch_cli_volume.py) aside
+    later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
+                          for m in (micrograph, misc, volume)))
+    assert len(names - later) == 140 and len(set(ALIASES) - later) == 43
 
 
 REFUSED = {

@@ -656,11 +656,17 @@ def test_alias_dispatches_to_its_program(alias):
 
 def test_the_registry_holds_115_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
-    from test_torch_cli_analysis import NEW as LATER, NEW_ALIASES as LATER_A
+    import test_torch_cli_analysis as analysis
+    import test_torch_cli_micrograph as micrograph
+    import test_torch_cli_misc as misc
+    import test_torch_cli_volume as volume
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
-    # the endpoints of later slices (tests/test_torch_cli_analysis.py) aside
-    later = set(LATER) | set(LATER_A)
+    # the endpoints of later slices (tests/test_torch_cli_analysis.py,
+    # tests/test_torch_cli_micrograph.py, tests/test_torch_cli_misc.py,
+    # tests/test_torch_cli_volume.py) aside
+    later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
+                          for m in (analysis, micrograph, misc, volume)))
     assert len(names - later) == 115 and len(set(ALIASES) - later) == 37
 
 

@@ -257,9 +257,12 @@ def test_eighteen_aliases_and_six_programs_are_registered():
              "mpi_transform_threshold", "mpi_reconstruct_art",
              "mpi_reconstruct_wbp", "mpi_reconstruct_significant",
              "cuda_align_significant"}    # tests/test_torch_cli_utils.py
-    from test_torch_cli_analysis import NEW_ALIASES as LATER_B
-    from test_torch_cli_angular import NEW_ALIASES as LATER_A
-    later |= set(LATER_A) | set(LATER_B)
+    import test_torch_cli_analysis as analysis
+    import test_torch_cli_angular as angular
+    import test_torch_cli_misc as misc
+    import test_torch_cli_volume as volume
+    later |= set().union(*(set(m.NEW_ALIASES)
+                           for m in (angular, analysis, misc, volume)))
     assert len(set(ALIASES) - {"ctf_correct_phase",
                                "cuda_movie_alignment_correlation"}
                - later) == 18

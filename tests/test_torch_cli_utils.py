@@ -797,12 +797,17 @@ def test_the_registry_holds_85_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
     import test_torch_cli_analysis as analysis
     import test_torch_cli_angular as angular
+    import test_torch_cli_micrograph as micrograph
+    import test_torch_cli_misc as misc
+    import test_torch_cli_volume as volume
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
     # the endpoints of later slices (tests/test_torch_cli_angular.py,
-    # tests/test_torch_cli_analysis.py) aside
+    # tests/test_torch_cli_analysis.py, tests/test_torch_cli_micrograph.py,
+    # tests/test_torch_cli_misc.py, tests/test_torch_cli_volume.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
-                          for m in (angular, analysis)))
+                          for m in (angular, analysis, micrograph, misc,
+                                    volume)))
     assert len(names - later) == 85 and len(set(ALIASES) - later) == 27
 
 

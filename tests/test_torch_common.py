@@ -271,6 +271,10 @@ from xmipp3_tpu_torch.ops import continuous, phantom
 from xmipp3_tpu_torch.programs import (angular_commonline_prog,
                                        angular_misc, angular_programs,
                                        phantom_programs, ssnr_residuals)
+from xmipp3_tpu_torch.models import svm
+from xmipp3_tpu_torch.ops import optim, pocs
+from xmipp3_tpu_torch.programs import (micrograph_programs, misc_programs,
+                                       volume_programs)
 for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "ctf_estimate_from_psd_fast", "ctf_group", "ctf_sort_psds",
              "ctf_enhance_psd", "ctf_estimate_psd_with_arma",
@@ -301,6 +305,14 @@ for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "multireference_aligneability", "validation_nontilt",
              "compare_views", "resolution_ssnr",
              "continuous_create_residuals", "angular_commonline",
+             "micrograph_scissor", "micrograph_automatic_picking",
+             "transform_dimred", "angular_distribution_show",
+             "image_odd_even", "transform_adjust_image_grey_levels",
+             "local_volume_adjust", "volume_local_sharpening",
+             "transform_morphology", "transform_center_image",
+             "volume_from_pdb", "volume_center", "volume_align",
+             "volume_subtraction", "volume_segment", "transform_mask",
+             "transform_symmetrize", "volume_to_pseudoatoms",
              *ALIASES):
     assert get_program(name) is not None, name
 bad = sorted(m for m in sys.modules

@@ -173,7 +173,7 @@ def main() -> int:
             read["energy_auc"] = 0.5 * (float(bad[outl].mean())
                                         + float((~bad[~outl]).mean()))
             dx, dy = (v * n / cs.N for v in cs.AN_CENTER)
-            moved = np.roll(views4[:cs.AN_SORT_VIEWS],
+            moved = np.roll(views4[:cs.AN_CENTER_VIEWS],
                             (int(round(dy)), int(round(dx))), axis=(1, 2))
             ctr = cs.write_views(root, "centre", moved)
             prog = run("find_center", "image_find_center",

@@ -383,10 +383,18 @@ def shift_2d_real(imgs, sx, sy, order: int = 1, wrap: bool = False,
 # 3D affine (volumes): used by symmetrize / volume align
 # ---------------------------------------------------------------------------
 
+#: voxels of warped output that one pass of apply_affine_3d computes: the
+#: matrices go through in chunks of this many voxels (about 20 float32 and
+#: int64 temporaries of that size each)
+AFFINE_CHUNK_VOXELS = 1 << 23
+
+
 def apply_affine_3d(vol, mats, wrap: bool = False, device=None):
     """vol (D,H,W), mats (S,3,3) rotation-only (or (S,3,4) with translation);
     returns (S,D,H,W) — one trilinearly warped copy per matrix (symmetry
-    replication)."""
+    replication). The matrices are warped together, in chunks of
+    AFFINE_CHUNK_VOXELS output voxels; each voxel's arithmetic is the same
+    as for one matrix alone."""
     vol = as_tensor(vol, device)
     dev = vol.device
     D, H, W = vol.shape
@@ -401,17 +409,21 @@ def apply_affine_3d(vol, mats, wrap: bool = False, device=None):
     yy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None] - cy
     xx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :] - cx
     flat = vol.reshape(-1)
+    Rs = torch.linalg.inv(mats[:, :, :3])
+    ts = mats[:, :, 3]
 
-    def one(M):
-        R = torch.linalg.inv(M[:, :3])
-        t = M[:, 3]
-        xs = R[0, 0] * (xx - t[0]) + R[0, 1] * (yy - t[1]) + R[0, 2] * (zz - t[2])
-        ys = R[1, 0] * (xx - t[0]) + R[1, 1] * (yy - t[1]) + R[1, 2] * (zz - t[2])
-        zs = R[2, 0] * (xx - t[0]) + R[2, 1] * (yy - t[1]) + R[2, 2] * (zz - t[2])
+    def warp(R, t):
+        # R (s,3,3), t (s,3) -> (s,D,H,W)
+        r = lambda i, j: R[:, i, j].reshape(-1, 1, 1, 1)
+        X, Y, Z = (c - t[:, k].reshape(-1, 1, 1, 1)
+                   for k, c in enumerate((xx, yy, zz)))
+        xs = r(0, 0) * X + r(0, 1) * Y + r(0, 2) * Z
+        ys = r(1, 0) * X + r(1, 1) * Y + r(1, 2) * Z
+        zs = r(2, 0) * X + r(2, 1) * Y + r(2, 2) * Z
         zi, yi, xi = zs + cz, ys + cy, xs + cx
         z0, y0, x0 = (torch.floor(c).to(torch.int64) for c in (zi, yi, xi))
         fz, fy, fx = zi - z0, yi - y0, xi - x0
-        out = torch.zeros((D, H, W), device=dev)
+        out = torch.zeros((len(R), D, H, W), device=dev)
         for dz in range(2):
             for dy in range(2):
                 for dx in range(2):
@@ -432,7 +444,9 @@ def apply_affine_3d(vol, mats, wrap: bool = False, device=None):
                     out = out + w * val
         return out
 
-    return torch.stack([one(M) for M in mats])
+    per = max(1, AFFINE_CHUNK_VOXELS // (D * H * W))
+    return torch.cat([warp(Rs[s:s + per], ts[s:s + per])
+                      for s in range(0, len(Rs), per)])
 
 
 def window_2d(imgs, out_h: int, out_w: int, fill: float = 0.0, device=None):

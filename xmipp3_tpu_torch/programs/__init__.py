@@ -134,6 +134,28 @@ _REGISTRY: dict[str, str] = {
     "volume_find_symmetry": _P + "classify_analysis:ProgVolumeFindSymmetry",
     "run": _P + "classify_analysis:ProgMpiRun",
     "denoising_tv": _P + "classify_analysis:ProgDenoisingTV",
+    "micrograph_scissor": _P + "micrograph_programs:ProgMicrographScissor",
+    "micrograph_automatic_picking":
+        _P + "micrograph_programs:ProgMicrographAutomaticPicking",
+    "transform_dimred": _P + "misc_programs:ProgTransformDimred",
+    "angular_distribution_show":
+        _P + "misc_programs:ProgAngularDistributionShow",
+    "image_odd_even": _P + "misc_programs:ProgImageOddEven",
+    "transform_adjust_image_grey_levels":
+        _P + "misc_programs:ProgAdjustGreyLevels",
+    "local_volume_adjust": _P + "misc_programs:ProgLocalVolumeAdjust",
+    "volume_local_sharpening":
+        _P + "misc_programs:ProgVolumeLocalSharpening",
+    "transform_morphology": _P + "misc_programs:ProgTransformMorphology",
+    "transform_center_image": _P + "misc_programs:ProgTransformCenterImage",
+    "volume_from_pdb": _P + "volume_programs:ProgVolumeFromPDB",
+    "volume_center": _P + "volume_programs:ProgVolumeCenter",
+    "volume_align": _P + "volume_programs:ProgVolumeAlign",
+    "volume_subtraction": _P + "volume_programs:ProgVolumeSubtraction",
+    "volume_segment": _P + "volume_programs:ProgVolumeSegment",
+    "transform_mask": _P + "volume_programs:ProgTransformMask",
+    "transform_symmetrize": _P + "volume_programs:ProgTransformSymmetrize",
+    "volume_to_pseudoatoms": _P + "volume_programs:ProgVolumeToPseudoatoms",
 }
 
 # the reference's aliases of these programs (programs/registry.py:177,
@@ -182,6 +204,10 @@ ALIASES: dict[str, str] = {
     "mpi_image_ssnr": "image_ssnr",
     "mpi_run": "run",
     "cuda_volume_halves_restoration": "volume_halves_restoration",
+    "mpi_transform_adjust_image_grey_levels":
+        "transform_adjust_image_grey_levels",
+    "mpi_transform_mask": "transform_mask",
+    "mpi_transform_symmetrize": "transform_symmetrize",
 }
 _REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 
