@@ -356,14 +356,47 @@ Phases; any failure exits non-zero before the result line is printed:
    tools/plan_volume_misc.py. A `misc {...}` line gives each program's
    wall, phases, untimed rest, launches and peak device memory, and the
    quality.
-15. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+15. Zernike3D and NMA flexibility through the CLI. (a) The 8-blob
+   phantom at 128^3 deformed by planted Zernike3D coefficients (L1=3,
+   L2=2: 13 x 3) -> volume_deform_sph --analyzeStrain (its NCC and the
+   RMS error of the fitted displacement field over the phantom's mass),
+   volume_apply_coefficient_zernike3d with the planted coefficients
+   (against the script's warp, 1e-4 * max), forward_zernike_volume. (b)
+   16 views at 128^2 of the phantom, each deformed by its own planted
+   coefficients, at phase 4's first poses, with the CTFs of phase 6's
+   recipe at 2 A/px and noise; the rows' angles and shifts a little off
+   -> angular_sph_alignment, serially and with --mesh dp over 2 gloo ranks
+   (the mesh rows within FX_MESH_TOL of the serial ones),
+   forward_zernike_images --useCTF and forward_zernike_images_priors from
+   its output: the mean CC, the coefficients' relative error and the
+   median pose error. (c) Phase 12's 300-atom model -> nma_modes
+   --nmodes 3 -> pdb_nma_deform with planted amplitudes (exact) ->
+   nma_alignment_vol (the amplitudes recovered), and models.nma's
+   fit_mode_amplitudes by Adam and by COBYQA on the card; 8 views of the
+   model deformed by their own amplitudes -> nma_alignment, with
+   --projMatch (K4) and flexible_alignment: the amplitudes' RMS error and
+   the mean CC. (d) 8 wedge-masked subtomograms at 64^3 ->
+   forward_zernike_subtomos; 8 of two states ->
+   forward_art_zernike3d_subtomos --useZernike --clusters 2; 2 x 400
+   views of two states at 128^2 with CTFs -> art_zernike3d and
+   cuda11_forward_art_zernike3d --ltk --ltv (--useZernike --useCTF
+   --clusters 2; K3): each map's correlation with the phantom, and the
+   clusters splitting the states. Only the ART programs and --projMatch
+   may launch a kernel. Limits planned with tools/plan_flex.py. K3 is
+   held against its plain version at one art_zernike3d pass (a cluster's
+   400 views), K4 at one trial of --projMatch's scan. A `flex {...}` line
+   gives each program's wall, phases, untimed rest, launches and peak
+   device memory, and the quality.
+16. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
    with phase 10's ML2D launches; K2 at a pSART block and a SIRT pass as
    tri_scatter_art_block and tri_scatter_sirt_pass, K3 at WBP's launch as
    kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches; K4 at
    the aligneability shape as cross_spectrum_aligneability, with phase
    12's aligneability launches; K3 and K2 at the first splits' shapes as
    kb_scatter_3ch_first_split and tri_scatter_first_split3, with phase
-   13's launches) and, last,
+   13's launches; K3 at an art_zernike3d pass and K4 at a --projMatch
+   trial as kb_scatter_3ch_art_zernike3d and cross_spectrum_nma_projmatch,
+   with phase 15's launches) and, last,
    {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
@@ -371,7 +404,7 @@ from beside itself (from any working directory), builds every kernel from
 the checkout's sources and writes its data under chip_smoke_data/ in the
 checkout, which it removes at the end. Without a card, or without the
 package beside it, it exits 2 and prints no result. (`chip_smoke.py
---mesh-rank <program> <args>` is a rank of phases 5 and 9-12: it runs
+--mesh-rank <program> <args>` is a rank of phases 5, 9-13 and 15: it runs
 one program and prints its launch counts, phase seconds and peak
 memory.)
 """
@@ -442,6 +475,9 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call line)
                                    "xmipp3_tpu/ops/pallas_scatter_kb.py:258"),
     "tri_scatter_first_split3": ("xmipp3_tpu_torch/csrc/scatter_tri.cu",
                                  "xmipp3_tpu/ops/pallas_scatter_tri.py:234"),
+    "kb_scatter_3ch_art_zernike3d": (
+        "xmipp3_tpu_torch/csrc/scatter_kb.cu",
+        "xmipp3_tpu/ops/pallas_scatter_kb.py:258"),
 }
 WIDE_BLOB = ("2.5", "0", "10")   # radius, order, alpha: 160 taps a sample
 RUNS = (("kb", (), "kb_scatter_3ch"), ("tri+kb", (), "tri_scatter"),
@@ -5747,6 +5783,552 @@ def misc_and_volumes(seed, root: Path, classify: Path, clean4, poses4):
     limit.check()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: Zernike3D and NMA flexibility
+# ---------------------------------------------------------------------------
+
+FX_L1, FX_L2 = 3, 2            # Zernike depths: 13 basis functions x 3
+FX_VOL_COEFF = 1.5             # std of (a)'s planted coefficients
+FX_PARTICLES = 16              # (b)'s views (planned on 16 at N=64)
+FX_PART_COEFF = 0.6            # std of each view's planted coefficients
+FX_JITTER = (1.5, 0.5)         # rows' angles (deg) and shifts (px) off the truth
+FX_NOISE = 0.3                 # noise sigma, x the clean views' std
+FX_TS = 2.0                    # A/px of (b)'s and (d)'s CTF views
+FX_NMA_ATOMS = 300             # phase 12's synthetic model
+FX_NMA_AMPS = (4.0, -3.0, 2.0)  # pdb_nma_deform's planted amplitudes (A)
+FX_NMA_VIEWS = 8               # nma_alignment's views
+FX_NMA_AMP = 4.0               # their amplitudes: uniform in +-FX_NMA_AMP
+FX_NMA_STEP = 10.0             # --projMatch's --discrAngStep
+FX_SUB_N = 64                  # (d)'s subtomograms
+FX_SUBTOMOS = 8
+FX_WEDGE = (-60.0, 60.0)       # their missing wedge (tilt range about y)
+FX_ART_VIEWS = 400             # views of each of art_zernike3d's 2 states
+# the mesh run against the serial one: Adam's normalised steps carry the
+# float32 roundoff of other batch shapes and of the gather's atomic
+# backward (1e-3 of the coefficients' max, 1e-2 degrees or px)
+FX_MESH_TOL, FX_MESH_POSE = 1e-3, 1e-2
+FX_APPLY_TOL = 1e-4            # the apply program against the script's warp
+# limits: twice the shortfall of an NCC or correlation r (1 - 2 (1 - r)),
+# twice an error, of what tools/plan_flex.py read of the reference on the
+# CPU ((a) at 128^3, the rest at N=64; rounded outward). The per-particle
+# coefficient errors near 1 are the reference's own: at these step counts
+# it recovers little of each view's planted deformation (PERF.md §6)
+FX_LIMITS = {
+    "deform_ncc": 0.99966, "deform_field_err_px": 0.1517,
+    "forward_volume_ncc": 0.99984,
+    "sph": {"mean_cc": 0.9411, "coeff_err": 1.832, "pose_err_deg": 2.490},
+    "fzi": {"mean_cc": 0.9432, "coeff_err": 1.972, "pose_err_deg": 2.442},
+    "fzi_priors": {"mean_cc": 0.9432, "coeff_err": 2.094,
+                   "pose_err_deg": 2.415},
+    "nma_vol": {"amp_err": 0.6386, "ncc": 0.99497},
+    "nma_alignment": {"amp_rms_err": 0.7454, "mean_cc": 0.98716},
+    "nma_alignment_projmatch": {"amp_rms_err": 19.46, "mean_cc": 0.8348},
+    "flexible_alignment": {"amp_rms_err": 0.7454, "mean_cc": 0.98716},
+    "subtomos": {"mean_cc": 0.99869, "coeff_err": 1.474},
+    "art_subtomos": {"corr": 0.98295}, "art_zernike3d": {"corr": 0.8380},
+    "cuda11_forward_art_zernike3d": {"corr": 0.8411}}
+
+
+def fx_coeff_err(got, want) -> float:
+    """||got - want|| / ||want|| over every coefficient."""
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64).reshape(want.shape)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def fx_field_err(basis, c_got, c_want, weight) -> float:
+    """The RMS, over the weight's mass, of the difference of two
+    Zernike3D displacement fields (px; host numpy)."""
+    dc = (np.asarray(c_got, np.float64).reshape(3, -1)
+          - np.reshape(c_want, (3, -1)))
+    d = np.einsum("ck,kzyx->czyx", dc.astype(np.float32), basis)
+    w = np.asarray(weight, np.float64) / np.sum(weight)
+    return float(np.sqrt((w * (d.astype(np.float64) ** 2).sum(0)).sum()))
+
+
+def fx_angle_err(rows, rot, tilt, psi) -> float:
+    """The median angle (degrees) between each row's rotation and the
+    true one."""
+    from xmipp3_tpu_torch.core.geometry import euler_matrix
+    col = lambda k: np.array([float(r[k]) for r in rows])
+    A = np.asarray(euler_matrix(col("angleRot"), col("angleTilt"),
+                                col("anglePsi")), np.float64)
+    B = np.asarray(euler_matrix(rot, tilt, psi), np.float64)
+    cos = (np.einsum("nij,nij->n", A, B) - 1) / 2
+    return float(np.median(np.degrees(np.arccos(np.clip(cos, -1, 1)))))
+
+
+def flex_readings(seed, root: Path, run, device, n: int = N,
+                  vol_n: int = N, sub_n: int = FX_SUB_N,
+                  particles: int = FX_PARTICLES,
+                  art_views: int = FX_ART_VIEWS, mesh=None, nma_fit=None):
+    """Phase 15's 16 programs on its recipes: run(label, program, args)
+    runs one program (the port's on the card in this script, the
+    reference's on the CPU in tools/plan_flex.py) and returns it; the data
+    are made with the port's host functions and on `device`. (a) runs at
+    vol_n^3, the rest at n. mesh(label, program, args) runs the --mesh dp
+    twin of angular_sph_alignment (on the card only); nma_fit(vol_ref,
+    vol_t, coords, modes, optimizer) runs the package's
+    fit_mode_amplitudes. Returns (readings, the inputs of the phase's
+    kernel checks)."""
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.pdb import (AtomicModel, rasterize, read_pdb,
+                                           write_pdb)
+    from xmipp3_tpu_torch.ops.forward_zernike import (forward_splat_volume,
+                                                      masked_voxel_basis)
+    from xmipp3_tpu_torch.ops.fourier_filter import wedge_mask_3d
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    from xmipp3_tpu_torch.ops.zernike import deform_volume, \
+        zernike_basis_grid
+    f = lambda name: str(root / name)
+    load = lambda name: np.squeeze(Image(f(name)).data)
+    rng = np.random.default_rng(seed + 31)
+    q, extra = {}, {}
+    col = lambda rows, k: np.stack([np.asarray(r[k], np.float64)
+                                    for r in rows])
+
+    # (a) Zernike3D on volumes at vol_n^3
+    va = phantom(vol_n, scaled_blobs(BLOBS8, vol_n))
+    save_image(f("vol_a.vol"), va)
+    basis = zernike_basis_grid(vol_n, FX_L1, FX_L2)
+    K = basis.shape[0]
+    c_vol = rng.normal(0, FX_VOL_COEFF, (3, K)).astype(np.float32)
+    deformed = deform_volume(va, basis, c_vol,
+                             device=device).cpu().numpy()
+    save_image(f("def.vol"), deformed)
+    MetaData.fromRows([{"sphCoefficients": c_vol.ravel().astype(np.float64),
+                        "image": f("vol_a.vol")}]).write(f("clnm.xmd"))
+    q["deform_ncc0"] = real_corr(va, deformed)
+    prog = run("volume_deform_sph", "volume_deform_sph", [
+        "-i", f("vol_a.vol"), "-r", f("def.vol"), "-o", f("sph_fit.vol"),
+        "--oroot", f("sph_fit"), "--analyzeStrain"])
+    c_fit = col(MetaData(f("sph_fit.xmd")).iterRows(), "sphCoefficients")
+    q["deform_ncc"] = float(prog.ncc)
+    q["deform_field_err_px"] = fx_field_err(basis, c_fit, c_vol, va)
+    q["deform_strain_finite"] = bool(
+        np.isfinite(load("sph_fit_strain.vol")).all()
+        and np.isfinite(load("sph_fit_rotation.vol")).all()
+        and load("sph_fit_strain.vol").shape == (vol_n,) * 3)
+    run("volume_apply_coefficient_zernike3d",
+        "volume_apply_coefficient_zernike3d",
+        ["-i", f("vol_a.vol"), "--clnm", f("clnm.xmd"), "-o", f("app.vol")])
+    app = load("app.vol")
+    q["apply_vs_warp"] = float(np.abs(app - deformed).max()
+                               / np.abs(deformed).max())
+    prog = run("forward_zernike_volume", "forward_zernike_volume", [
+        "-i", f("vol_a.vol"), "-r", f("def.vol"), "-o", f("fwd.vol"),
+        "--oroot", f("fwd")])
+    q["forward_volume_ncc"] = float(prog.ncc)
+    q["forward_volume_field_err_px"] = fx_field_err(
+        basis, col(MetaData(f("fwd.xmd")).iterRows(), "sphCoefficients"),
+        c_vol, va)
+    del va, basis, deformed, app
+    vol = phantom(n, scaled_blobs(BLOBS8, n))
+    save_image(f("vol.vol"), vol)
+    basis = zernike_basis_grid(n, FX_L1, FX_L2)
+
+    # (b) per-particle fits on n^2 views of the phantom, each deformed by
+    # its own planted coefficients, with CTFs, poses of phase 4's draw and
+    # rows a little off
+    P = particles
+    p4, _ = cycle_poses(seed)
+    rot, tilt, psi = (p4[k][:P].astype(np.float32)
+                      for k in ("rot", "tilt", "psi"))
+    c_part = rng.normal(0, FX_PART_COEFF, (P, 3, K)).astype(np.float32)
+    dfu, dfv, az = ctf_recipe()
+    views = np.empty((P, n, n), np.float32)
+    for i in range(P):
+        dv = deform_volume(vol, basis, c_part[i], device=device)
+        proj = FourierProjector(dv, device=device).project_euler(
+            rot[i:i + 1], tilt[i:i + 1], psi[i:i + 1])[0].cpu().numpy()
+        g = i % len(dfu)
+        views[i] = np.fft.irfft2(np.fft.rfft2(proj) * plant_ctf(
+            n, FX_TS, dfu[g], dfv[g], az[g]), s=(n, n))
+    views += rng.normal(0, FX_NOISE * views.std(), views.shape).astype(
+        np.float32)
+    save_image(f("views.mrcs"), views)
+    ja, js = FX_JITTER
+    jit = rng.uniform(-1, 1, (P, 5)) * [ja, ja, ja, js, js]
+    MetaData.fromRows({
+        "image": f"{i + 1}@{f('views.mrcs')}", "itemId": i + 1,
+        "angleRot": float(rot[i] + jit[i, 0]),
+        "angleTilt": float(tilt[i] + jit[i, 1]),
+        "anglePsi": float(psi[i] + jit[i, 2]), "shiftX": float(jit[i, 3]),
+        "shiftY": float(jit[i, 4]), "ctfVoltage": CTF_KV,
+        "ctfSphericalAberration": CTF_CS, "ctfQ0": CTF_Q0,
+        "ctfDefocusU": float(dfu[i % len(dfu)]),
+        "ctfDefocusV": float(dfv[i % len(dfu)]),
+        "ctfDefocusAngle": float(az[i % len(dfu)])}
+        for i in range(P)).write(f("views.xmd"))
+    rows0 = list(MetaData(f("views.xmd")).iterRows())
+    q["pose_err0_deg"] = fx_angle_err(rows0, rot, tilt, psi)
+    part_args = ["-i", f("views.xmd"), "--ref", f("vol.vol"), "--sampling",
+                 FX_TS, "--optimizeAlignment", "--optimizeDeformation"]
+
+    def particle_readings(label, fn):
+        rows = list(MetaData(f(fn)).iterRows())
+        q[label] = {"mean_cc": float(np.mean(col(rows, "maxCC"))),
+                    "coeff_err": fx_coeff_err(
+                        col(rows, "sphCoefficients"), c_part),
+                    "pose_err_deg": fx_angle_err(rows, rot, tilt, psi)}
+        return rows
+
+    run("angular_sph_alignment", "angular_sph_alignment",
+        part_args + ["-o", f("sph.xmd")])
+    serial = particle_readings("sph", "sph.xmd")
+    if mesh is not None:
+        mesh("angular_sph_alignment_mesh", "angular_sph_alignment",
+             part_args + ["-o", f("sph_mesh.xmd")])
+        meshed = list(MetaData(f("sph_mesh.xmd")).iterRows())
+        cs_, cm = (col(r, "sphCoefficients") for r in (serial, meshed))
+        q["sph_mesh_vs_serial"] = {
+            "coeff": float(np.abs(cm - cs_).max() / np.abs(cs_).max()),
+            "pose": max(float(np.abs(col(meshed, k) - col(serial, k)).max())
+                        for k in ("angleRot", "angleTilt", "anglePsi",
+                                  "shiftX", "shiftY")),
+            "images_equal": [r["image"] for r in meshed]
+            == [r["image"] for r in serial]}
+    run("forward_zernike_images", "forward_zernike_images",
+        part_args + ["--useCTF", "-o", f("fzi.xmd")])
+    particle_readings("fzi", "fzi.xmd")
+    run("forward_zernike_images_priors", "forward_zernike_images_priors", [
+        "-i", f("fzi.xmd"), "--ref", f("vol.vol"), "--sampling", FX_TS,
+        "--useCTF", "--optimizeAlignment", "--optimizeDeformation", "-o",
+        f("fzip.xmd")])
+    particle_readings("fzi_priors", "fzip.xmd")
+
+    # (c) NMA of phase 12's synthetic model (centred) at 1 A/px
+    model = synthetic_model(FX_NMA_ATOMS, seed).centered()
+    write_pdb(f("m.pdb"), model)
+    run("nma_modes", "nma_modes", ["-i", f("m.pdb"), "--oroot", f("nm"),
+                                   "--nmodes", len(FX_NMA_AMPS)])
+    modes = np.stack([np.loadtxt(f(f"nm_mode{m + 1:03d}.mod"))
+                      for m in range(len(FX_NMA_AMPS))]).astype(np.float32)
+    with open(f("modes.txt"), "w") as fh:
+        fh.write("\n".join(f(f"nm_mode{m + 1:03d}.mod")
+                           for m in range(len(modes))))
+    run("pdb_nma_deform", "pdb_nma_deform", [
+        "--pdb", f("m.pdb"), "-o", f("def.pdb"), "--nma", f("nm_modes.xmd"),
+        "--deformations", *FX_NMA_AMPS])
+    moved = read_pdb(f("def.pdb"))
+    # the written model (coordinates to 1e-3 A) moved by the plant: the
+    # output's own rounding is left, up to 5e-4 A
+    want = read_pdb(f("m.pdb")).coords + np.einsum(
+        "m,mnk->nk", FX_NMA_AMPS, modes)
+    q["pdb_deform_err_A"] = float(np.abs(moved.coords - want).max())
+    vol_t = rasterize(moved, n, 1.0, sigma_a=2.0)
+    save_image(f("nma_t.vol"), vol_t)
+    prog = run("nma_alignment_vol", "nma_alignment_vol", [
+        "-i", f("nma_t.vol"), "--pdb", f("m.pdb"), "--modes",
+        f("nm_modes.xmd"), "-o", f("nma_vol.xmd")])
+    q["nma_vol"] = {"amp_err": float(np.abs(np.asarray(prog.amplitudes)
+                                            - FX_NMA_AMPS).max()),
+                    "ncc": float(prog.ncc)}
+    if nma_fit is not None:
+        vol_r = rasterize(model, n, 1.0, sigma_a=2.0)
+        for opt in ("adam", "trust"):
+            amp, ncc = nma_fit(vol_r, vol_t, model.coords, modes, opt)
+            q[f"nma_fit_{opt}"] = {
+                "amp_err": float(np.abs(np.asarray(amp)
+                                        - FX_NMA_AMPS).max()),
+                "ncc": float(ncc)}
+    V = FX_NMA_VIEWS
+    amps = rng.uniform(-FX_NMA_AMP, FX_NMA_AMP, (V, len(modes)))
+    nr, nt, npsi = (p4[k][P:P + V].astype(np.float32)
+                    for k in ("rot", "tilt", "psi"))
+    nviews = np.stack([FourierProjector(rasterize(AtomicModel(
+        model.coords + np.einsum("m,mnk->nk", amps[i], modes),
+        model.elements, model.bfactors, model.occupancies), n, 1.0),
+        device=device).project_euler(nr[i:i + 1], nt[i:i + 1],
+                                     npsi[i:i + 1])[0].cpu().numpy()
+        for i in range(V)])
+    nviews += rng.normal(0, 0.1 * nviews.std(), nviews.shape).astype(
+        np.float32)
+    save_image(f("nma_views.mrcs"), nviews)
+    nj = rng.uniform(-1, 1, (V, 3)) * 2.0
+    MetaData.fromRows({
+        "image": f"{i + 1}@{f('nma_views.mrcs')}", "itemId": i + 1,
+        "angleRot": float(nr[i] + nj[i, 0]),
+        "angleTilt": float(nt[i] + nj[i, 1]),
+        "anglePsi": float(npsi[i] + nj[i, 2])}
+        for i in range(V)).write(f("nma_views.xmd"))
+    nma_args = ["-i", f("nma_views.xmd"), "--pdb", f("m.pdb"), "--modes",
+                f("modes.txt")]
+    for label, name, flags in (
+            ("nma_alignment", "nma_alignment", []),
+            ("nma_alignment_projmatch", "nma_alignment",
+             ["--projMatch", "--discrAngStep", FX_NMA_STEP]),
+            ("flexible_alignment", "flexible_alignment", [])):
+        run(label, name, nma_args + flags + ["-o", f(f"{label}.xmd")])
+        rows = list(MetaData(f(f"{label}.xmd")).iterRows())
+        q[label] = {
+            "amp_rms_err": float(np.sqrt(np.mean(
+                (col(rows, "nmaDisplacements") - amps) ** 2))),
+            "mean_cc": float(np.mean(col(rows, "maxCC"))),
+            "pose_err_deg": fx_angle_err(rows, nr, nt, npsi)}
+    extra["nma"] = (rasterize(model, n, 1.0), nviews)
+
+    # (d) subtomograms at sub_n^3 and ART of two states at n^2
+    vs = phantom(sub_n, scaled_blobs(BLOBS8, sub_n))
+    save_image(f("sub_ref.vol"), vs)
+    cloud = masked_voxel_basis(vs, FX_L1, FX_L2,
+                               value_threshold=float(vs.max()) * 1e-3)
+    wedge = wedge_mask_3d(sub_n, sub_n, sub_n, *FX_WEDGE)
+
+    def subtomos(fn, coeffs, n_sub, extra_row):
+        ang = [rng.uniform(0, 360, n_sub), np.degrees(np.arccos(
+            rng.uniform(-1, 1, n_sub))), rng.uniform(0, 360, n_sub)]
+        ang = [a.astype(np.float32) for a in ang]
+        vols = forward_splat_volume(*cloud, coeffs, *ang, sub_n,
+                                    device=device)[0].cpu().numpy()
+        vols = np.fft.irfftn(np.fft.rfftn(vols, axes=(1, 2, 3)) * wedge,
+                             s=(sub_n,) * 3, axes=(1, 2, 3))
+        rows = []
+        for i in range(n_sub):
+            save_image(f(f"{fn}{i:02d}.vol"), vols[i].astype(np.float32))
+            rows.append(dict(extra_row(i), image=f(f"{fn}{i:02d}.vol"),
+                             itemId=i + 1, angleRot=float(ang[0][i]),
+                             angleTilt=float(ang[1][i]),
+                             anglePsi=float(ang[2][i]), shiftX=0.0,
+                             shiftY=0.0, shiftZ=0.0))
+        MetaData.fromRows(rows).write(f(f"{fn}.xmd"))
+
+    c_sub = rng.normal(0, FX_PART_COEFF, (FX_SUBTOMOS, 3, K)).astype(
+        np.float32)
+    subtomos("sub", c_sub, FX_SUBTOMOS, lambda i: {})
+    run("forward_zernike_subtomos", "forward_zernike_subtomos", [
+        "-i", f("sub.xmd"), "--ref", f("sub_ref.vol"), "-o", f("fzs.xmd"),
+        "--t1", FX_WEDGE[0], "--t2", FX_WEDGE[1]])
+    rows = list(MetaData(f("fzs.xmd")).iterRows())
+    q["subtomos"] = {"mean_cc": float(np.mean(col(rows, "maxCC"))),
+                     "coeff_err": fx_coeff_err(
+                         col(rows, "sphCoefficients"), c_sub)}
+    c_two = rng.normal(0, FX_PART_COEFF, (3, K)).astype(np.float32)
+    state = lambda i: c_two * (1 if i % 2 == 0 else -1)
+    subtomos("artsub", np.stack([state(i) for i in range(FX_SUBTOMOS)]),
+             FX_SUBTOMOS, lambda i: {"sphCoefficients": state(i).ravel()
+                                     .astype(np.float64)})
+    prog = run("forward_art_zernike3d_subtomos",
+               "forward_art_zernike3d_subtomos", [
+                   "-i", f("artsub.xmd"), "-o", f("artsub.vol"),
+                   "--useZernike", "--clusters", 2, "--t1", FX_WEDGE[0],
+                   "--t2", FX_WEDGE[1]])
+    lab = np.asarray(prog.labels)
+    q["art_subtomos"] = {"corr": real_corr(load("artsub.vol"), vs),
+                         "states_split": bool(
+                             len(set(lab[0::2])) == 1
+                             and len(set(lab[1::2])) == 1
+                             and lab[0] != lab[1])}
+    # two states of the n^3 phantom (+-c, a view a state in turn), views at
+    # uniform directions with CTFs, rows carrying their state's coefficients
+    c_art = rng.normal(0, FX_VOL_COEFF / 2, (3, K)).astype(np.float32)
+    A = 2 * art_views
+    ang = [rng.uniform(0, 360, A), np.degrees(np.arccos(
+        rng.uniform(-1, 1, A))), rng.uniform(0, 360, A)]
+    ang = [a.astype(np.float32) for a in ang]
+    aviews = np.empty((A, n, n), np.float32)
+    for s, sign in enumerate((1, -1)):
+        sel = np.arange(s, A, 2)
+        dv = deform_volume(vol, basis, sign * c_art, device=device)
+        aviews[sel] = FourierProjector(dv, device=device).project_euler(
+            *(a[sel] for a in ang)).cpu().numpy()
+    groups = np.arange(A) % len(dfu)
+    for g in range(len(dfu)):
+        sel = groups == g
+        aviews[sel] = np.fft.irfft2(np.fft.rfft2(aviews[sel]) * plant_ctf(
+            n, FX_TS, dfu[g], dfv[g], az[g]), s=(n, n))
+    aviews += rng.normal(0, FX_NOISE * aviews.std(), aviews.shape).astype(
+        np.float32)
+    save_image(f("art.mrcs"), aviews)
+    MetaData.fromRows({
+        "image": f"{i + 1}@{f('art.mrcs')}", "itemId": i + 1,
+        "angleRot": float(ang[0][i]), "angleTilt": float(ang[1][i]),
+        "anglePsi": float(ang[2][i]), "ctfVoltage": CTF_KV,
+        "ctfSphericalAberration": CTF_CS, "ctfQ0": CTF_Q0,
+        "ctfDefocusU": float(dfu[groups[i]]),
+        "ctfDefocusV": float(dfv[groups[i]]),
+        "ctfDefocusAngle": float(az[groups[i]]),
+        "sphCoefficients": (c_art * (1 if i % 2 == 0 else -1)).ravel()
+        .astype(np.float64)} for i in range(A)).write(f("art.xmd"))
+    art_args = ["-i", f("art.xmd"), "--useZernike", "--useCTF",
+                "--sampling", FX_TS, "--clusters", 2]
+    for label, flags in (("art_zernike3d", []),
+                         ("cuda11_forward_art_zernike3d",
+                          ["--ltk", 1e-4, "--ltv", 1e-4])):
+        prog = run(label, label, art_args + flags + ["-o", f(f"{label}.vol")])
+        lab = np.asarray(prog.labels)
+        q[label] = {"corr": real_corr(load(f"{label}.vol"), vol),
+                    "states_split": bool(
+                        len(set(lab[0::2])) == 1 and len(set(lab[1::2])) == 1
+                        and lab[0] != lab[1])}
+    extra["art_cluster_poses"] = [a[0::2] for a in ang]
+    return q, extra
+
+
+def cross_at_trial_shape(name, refs, imgs, max_shift: int = 8):
+    """K4 against its plain version at one trial of match_to_gallery's
+    scan at its defaults (nma_alignment --projMatch's: the views against
+    the --discrAngStep gallery, 31 rings, 64 harmonics, with the mirror);
+    timed beside the plain version and two complex einsums."""
+    import torch
+    from xmipp3_tpu_torch.ops import cross
+    from xmipp3_tpu_torch.ops.match import (_masked_spectra, _prepare,
+                                            _ring_weights, _trial_spectra)
+    refs, imgs, radius_max, trials = _prepare(refs, imgs, max_shift, None,
+                                              None, DEVICE)
+    f_refs, f_all = _trial_spectra(refs, imgs, trials, 2, radius_max, 2, 64)
+    w = _ring_weights(f_refs.shape[1], 2, refs.device)
+    fi, fr, _ = _masked_spectra(f_refs, f_all[0].contiguous(), w)
+    B, nr, K = fi.shape
+    R = fr.shape[0]
+    log(f"phase 15: {name} at B={B}, nr={nr}, R={R}, k={K}, with the "
+        f"mirror ({len(trials)} trials a scan)")
+    got = cross.cross_spectrum(fi, fr, w, mirror=True)
+    want = cross.cross_spectrum_plain(fi, fr, w, mirror=True)
+    torch.cuda.synchronize()
+    err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+    rel = err / max(float(p.abs().max()) for p in want)
+    log(f"  {name}: max|kernel-plain| = {err:.3e}, / max|plain| = {rel:.3e}")
+    check(np.isfinite(rel) and rel <= TOL_CROSS,
+          f"{name}: kernel disagrees with its plain version ({rel:.3e} > "
+          f"{TOL_CROSS})")
+    del got, want
+    ms = time_ms(lambda: cross.cross_spectrum(fi, fr, w, mirror=True),
+                 reps=20)
+    plain_ms = time_ms(lambda: cross.cross_spectrum_plain(fi, fr, w, True),
+                       reps=5, warmup=1)
+    wi = w[None, :, None]
+    library_ms = time_ms(lambda: (
+        torch.einsum("brk,Rrk->bRk", fi * wi, fr.conj()),
+        torch.einsum("brk,Rrk->bRk", fi.conj() * wi, fr.conj())), reps=5,
+        warmup=1)
+    nbytes = 8 * (B + R) * nr * K + 4 * nr + 2 * 8 * B * R * K
+    nops = 8 * B * nr * R * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS * 1e3
+    log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, two complex einsums "
+        f"{library_ms:.4f} ms); bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.4f} GFLOP "
+        f"-> {t_ops:.4f} ms)")
+    src, replaces = KERNELS["cross_spectrum"]
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": [B, nr, R, K]}
+
+
+def flexibility(seed, root: Path):
+    """Phase 15 in root: the 16 programs of the Zernike3D and NMA slice
+    through their CLI on the card (angular_sph_alignment also with --mesh
+    dp over 2 gloo ranks); only art_zernike3d and
+    cuda11_forward_art_zernike3d (K3, a launch for each cluster's start and
+    each SIRT iteration) and nma_alignment --projMatch (K4) may launch a
+    kernel. K3 is held against its plain version at one art_zernike3d pass
+    (a cluster's views), K4 at one trial of --projMatch's scan. Returns
+    the two kernels' entries."""
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.core.sampling import compute_sampling_points
+    from xmipp3_tpu_torch.models.nma import fit_mode_amplitudes
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    root.mkdir(parents=True)
+    report = {}
+    limit = Limits(15)
+    kernel_of = {"art_zernike3d": "kb_scatter_3ch",
+                 "cuda11_forward_art_zernike3d": "kb_scatter_3ch",
+                 "nma_alignment_projmatch": "cross_spectrum"}
+
+    def run(label, name, args):
+        prog = run_program(15, report, label, name, args)
+        got = report[label]["launches"]
+        want = kernel_of.get(label)
+        check(set(got) == ({want} if want else set()),
+              f"phase 15 {label}: launched {got}, expected "
+              f"{want or 'no kernel'}")
+        return prog
+
+    def mesh(label, name, args):
+        for r, rep in enumerate(run_mesh(report, root, label, name, args)):
+            got = {k: v for k, v in rep["launches"].items() if v}
+            check(not got, f"phase 15 {label} rank {r}: launched {got}")
+
+    def nma_fit(vol_r, vol_t, coords, modes, optimizer):
+        return fit_mode_amplitudes(vol_r, vol_t, coords, modes,
+                                   optimizer=optimizer, device=DEVICE)
+
+    start = time.perf_counter()
+    timing.enable_timing(True)
+    try:
+        q, extra = flex_readings(seed, root, run, DEVICE, mesh=mesh,
+                                 nma_fit=nma_fit)
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    report["quality"] = q
+    report["phase_s"] = time.perf_counter() - start
+    # one art_zernike3d pass: a cluster's views gridded with K3
+    k3 = grid_at_views("kb_scatter_3ch_art_zernike3d", "kb",
+                       *extra["art_cluster_poses"], seed, reps=10,
+                       phase=15)
+    k3["launches"] = sum(report[k]["launches"]["kb_scatter_3ch"] for k in
+                         ("art_zernike3d", "cuda11_forward_art_zernike3d"))
+    vol_nma, nviews = extra["nma"]
+    ang = compute_sampling_points(FX_NMA_STEP)
+    gallery = FourierProjector(vol_nma, device=DEVICE).project_euler(
+        ang[:, 0].astype(np.float32), ang[:, 1].astype(np.float32),
+        np.zeros(len(ang), np.float32))
+    k4 = cross_at_trial_shape("cross_spectrum_nma_projmatch", gallery,
+                              nviews)
+    k4["launches"] = report["nma_alignment_projmatch"]["launches"][
+        "cross_spectrum"]
+    report["kernels"] = {k["name"]: {x: k[x] for x in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "launches")}
+        for k in (k3, k4)}
+    log(f"  phase 15 took {report['phase_s']:.2f} s")
+    log("flex " + json.dumps(report))
+    L = FX_LIMITS
+    limit(q["deform_ncc"] >= L["deform_ncc"], f"phase 15 volume_deform_sph: "
+          f"NCC {q['deform_ncc']:.5f} (limit {L['deform_ncc']})")
+    limit(q["deform_field_err_px"] <= L["deform_field_err_px"],
+          f"phase 15 volume_deform_sph: field error "
+          f"{q['deform_field_err_px']:.4f} px")
+    limit(q["deform_strain_finite"], "phase 15 --analyzeStrain: not finite")
+    limit(q["apply_vs_warp"] <= FX_APPLY_TOL, "phase 15 apply: "
+          f"{q['apply_vs_warp']:.2e} off the script's warp")
+    limit(q["forward_volume_ncc"] >= L["forward_volume_ncc"],
+          f"phase 15 forward_zernike_volume: NCC "
+          f"{q['forward_volume_ncc']:.5f}")
+    for k in ("sph", "fzi", "fzi_priors"):
+        limit(q[k]["mean_cc"] >= L[k]["mean_cc"]
+              and q[k]["coeff_err"] <= L[k]["coeff_err"]
+              and q[k]["pose_err_deg"] <= L[k]["pose_err_deg"],
+              f"phase 15 {k}: {q[k]} (limits {L[k]})")
+    m = q["sph_mesh_vs_serial"]
+    limit(m["images_equal"] and m["coeff"] <= FX_MESH_TOL
+          and m["pose"] <= FX_MESH_POSE, f"phase 15 mesh: {m}")
+    limit(q["pdb_deform_err_A"] <= 1e-3, "phase 15 pdb_nma_deform: "
+          f"{q['pdb_deform_err_A']:.2e} A off the planted displacement")
+    for k in ("nma_vol", "nma_fit_adam", "nma_fit_trust"):
+        limit(q[k]["amp_err"] <= L["nma_vol"]["amp_err"]
+              and q[k]["ncc"] >= L["nma_vol"]["ncc"],
+              f"phase 15 {k}: {q[k]} (limits {L['nma_vol']})")
+    for k in ("nma_alignment", "nma_alignment_projmatch",
+              "flexible_alignment"):
+        limit(q[k]["amp_rms_err"] <= L[k]["amp_rms_err"]
+              and q[k]["mean_cc"] >= L[k]["mean_cc"],
+              f"phase 15 {k}: {q[k]} (limits {L[k]})")
+    limit(q["subtomos"]["mean_cc"] >= L["subtomos"]["mean_cc"]
+          and q["subtomos"]["coeff_err"] <= L["subtomos"]["coeff_err"],
+          f"phase 15 subtomos: {q['subtomos']} (limits {L['subtomos']})")
+    for k in ("art_subtomos", "art_zernike3d",
+              "cuda11_forward_art_zernike3d"):
+        limit(q[k]["states_split"] and q[k]["corr"] >= L[k]["corr"],
+              f"phase 15 {k}: {q[k]} (limits {L[k]})")
+    limit.check()
+    return [k3, k4]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--mesh-rank"]:
@@ -5764,6 +6346,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on a CUDA card", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -5826,6 +6409,9 @@ def main(argv=None) -> int:
             "programs")
         misc_and_volumes(args.seed, root / "misc", root / "classify", clean,
                          poses)
+        log("phase 15: Zernike3D and NMA flexibility (volumes, per-particle "
+            "fits, NMA, subtomograms and ART)")
+        flex_kernels = flexibility(args.seed, root / "flex")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -5837,6 +6423,8 @@ def main(argv=None) -> int:
     kernels += art_kernels
     kernels.append(angular_kernel)
     kernels += split_kernels
+    kernels += flex_kernels
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -617,12 +617,6 @@ def test_denoising_tv_matches_the_reference(data):
 
 # -- grammar, aliases, refused flags ----------------------------------------
 
-@pytest.mark.parametrize("name", NEW + NEW_ALIASES)
-def test_grammar_equals_the_reference(name):
-    from test_torch_cli_angular import _signature
-    assert _signature(get_program(name)) == _signature(jax_program(name))
-
-
 @pytest.mark.parametrize("alias", NEW_ALIASES)
 def test_alias_dispatches_to_its_program(alias):
     assert type(get_program(alias)) is type(get_program(ALIASES[alias]))
@@ -632,15 +626,17 @@ def test_alias_dispatches_to_its_program(alias):
 
 def test_the_registry_holds_140_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
+    import test_torch_cli_flex as flex
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
     import test_torch_cli_volume as volume
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
     # the endpoints of later slices (tests/test_torch_cli_micrograph.py,
-    # tests/test_torch_cli_misc.py, tests/test_torch_cli_volume.py) aside
+    # tests/test_torch_cli_misc.py, tests/test_torch_cli_volume.py,
+    # tests/test_torch_cli_flex.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
-                          for m in (micrograph, misc, volume)))
+                          for m in (micrograph, misc, volume, flex)))
     assert len(names - later) == 140 and len(set(ALIASES) - later) == 43
 
 

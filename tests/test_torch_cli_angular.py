@@ -628,24 +628,6 @@ def test_angular_commonline_search(averages):
 
 # -- grammar, aliases, refused flags --------------------------------------------
 
-def _signature(prog):
-    """A program's grammar without its help text."""
-    g = prog._grammar
-
-    def args(defs):
-        return tuple((a.name, a.default, a.is_rest,
-                      tuple((c, args(v)) for c, v in a.choices.items()))
-                     for a in defs)
-    return ([(n, p.optional, tuple(p.aliases), tuple(p.requires),
-              args(p.args)) for n, p in ((n, g.params[n]) for n in g.order)],
-            sorted(g._choice_requires.items()))
-
-
-@pytest.mark.parametrize("name", NEW + NEW_ALIASES)
-def test_grammar_equals_the_reference(name):
-    assert _signature(get_program(name)) == _signature(jax_program(name))
-
-
 @pytest.mark.parametrize("alias", NEW_ALIASES + ["project"])
 def test_alias_dispatches_to_its_program(alias):
     target = ALIASES.get(alias, "phantom_project")
@@ -657,6 +639,7 @@ def test_alias_dispatches_to_its_program(alias):
 def test_the_registry_holds_115_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
     import test_torch_cli_analysis as analysis
+    import test_torch_cli_flex as flex
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
     import test_torch_cli_volume as volume
@@ -664,9 +647,10 @@ def test_the_registry_holds_115_endpoints():
     assert set(NEW) | set(NEW_ALIASES) <= names
     # the endpoints of later slices (tests/test_torch_cli_analysis.py,
     # tests/test_torch_cli_micrograph.py, tests/test_torch_cli_misc.py,
-    # tests/test_torch_cli_volume.py) aside
+    # tests/test_torch_cli_volume.py, tests/test_torch_cli_flex.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
-                          for m in (analysis, micrograph, misc, volume)))
+                          for m in (analysis, micrograph, misc, volume,
+                                    flex)))
     assert len(names - later) == 115 and len(set(ALIASES) - later) == 37
 
 

@@ -29,7 +29,6 @@ import torch
 
 from test_torch_cli_analysis import both, rows, vol
 from test_torch_project import phantom8
-from xmipp3_tpu.programs import get_program as jax_program
 from xmipp3_tpu_torch.core.image import save_image
 from xmipp3_tpu_torch.core.metadata import MetaData
 from xmipp3_tpu_torch.ops.project import FourierProjector
@@ -202,11 +201,3 @@ def test_mode_protocol_matches_the_reference(data):
         np.testing.assert_allclose([r["cost"] for r in got],
                                    [r["cost"] for r in want], atol=1e-3)
     assert (d / "t" / "auto_try_auto_feature_vectors.txt").is_file()
-
-
-# -- grammar ---------------------------------------------------------------------
-
-@pytest.mark.parametrize("name", NEW)
-def test_grammar_equals_the_reference(name):
-    from test_torch_cli_angular import _signature
-    assert _signature(get_program(name)) == _signature(jax_program(name))

@@ -267,12 +267,6 @@ def test_transform_center_image_matches_the_reference(data, flags):
 
 # -- grammar, aliases, refused flags ----------------------------------------
 
-@pytest.mark.parametrize("name", NEW + NEW_ALIASES)
-def test_grammar_equals_the_reference(name):
-    from test_torch_cli_angular import _signature
-    assert _signature(get_program(name)) == _signature(jax_program(name))
-
-
 @pytest.mark.parametrize("alias", NEW_ALIASES)
 def test_alias_dispatches_to_its_program(alias):
     assert type(get_program(alias)) is type(get_program(ALIASES[alias]))

@@ -781,8 +781,15 @@ def _signature(prog):
             sorted(g._choice_requires.items()))
 
 
-@pytest.mark.parametrize("name", NEW + NEW_ALIASES)
+def _every_endpoint():
+    from xmipp3_tpu_torch.programs import list_programs
+    return list_programs()
+
+
+@pytest.mark.parametrize("name", _every_endpoint())
 def test_grammar_equals_the_reference(name):
+    """Every registered endpoint of the port, programs and aliases, parses
+    the reference's grammar: the same flags, defaults and aliases."""
     assert _signature(get_program(name)) == _signature(jax_program(name))
 
 
@@ -797,6 +804,7 @@ def test_the_registry_holds_85_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
     import test_torch_cli_analysis as analysis
     import test_torch_cli_angular as angular
+    import test_torch_cli_flex as flex
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
     import test_torch_cli_volume as volume
@@ -804,10 +812,11 @@ def test_the_registry_holds_85_endpoints():
     assert set(NEW) | set(NEW_ALIASES) <= names
     # the endpoints of later slices (tests/test_torch_cli_angular.py,
     # tests/test_torch_cli_analysis.py, tests/test_torch_cli_micrograph.py,
-    # tests/test_torch_cli_misc.py, tests/test_torch_cli_volume.py) aside
+    # tests/test_torch_cli_misc.py, tests/test_torch_cli_volume.py,
+    # tests/test_torch_cli_flex.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
                           for m in (angular, analysis, micrograph, misc,
-                                    volume)))
+                                    volume, flex)))
     assert len(names - later) == 85 and len(set(ALIASES) - later) == 27
 
 

@@ -275,6 +275,11 @@ from xmipp3_tpu_torch.models import svm
 from xmipp3_tpu_torch.ops import optim, pocs
 from xmipp3_tpu_torch.programs import (micrograph_programs, misc_programs,
                                        volume_programs)
+from xmipp3_tpu_torch.models import nma
+from xmipp3_tpu_torch.ops import forward_zernike, zernike
+from xmipp3_tpu_torch.programs import (flex_misc_ext, nma_programs,
+                                       zernike_programs)
+from xmipp3_tpu_torch.programs import list_programs
 for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "ctf_estimate_from_psd_fast", "ctf_group", "ctf_sort_psds",
              "ctf_enhance_psd", "ctf_estimate_psd_with_arma",
@@ -313,7 +318,7 @@ for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "volume_from_pdb", "volume_center", "volume_align",
              "volume_subtraction", "volume_segment", "transform_mask",
              "transform_symmetrize", "volume_to_pseudoatoms",
-             *ALIASES):
+             *ALIASES, *list_programs()):
     assert get_program(name) is not None, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"

@@ -13,7 +13,9 @@ the continuous refinement and the aligneability scores on the card
 against the same on the CPU, and the continuous refinement's step loop
 without a host sync; K3 and K2 at the shapes of the two first splits, the
 analysis ops (features, TV, FRM, helical map, filter bank, LTSA) on the
-card against the CPU, and the first splits' launches on the card.
+card against the CPU, the first splits' launches on the card, and the
+Zernike3D and NMA warps, the splats and a batched forward fit on the card
+against the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -1224,3 +1226,59 @@ def test_first_splits_launch_their_scatters_on_the_card(tmp_path):
     assert scatter_tri.launches - k2 == 2 * prog3.sweeps_run + 2
     for f in ("fs_v1.vol", "fs_v2.vol", "s3_avg1.vol", "s3_avg2.vol"):
         assert np.isfinite(np.asarray(Image(str(tmp_path / f)).data)).all()
+
+
+@pytest.mark.cuda
+def test_flexibility_ops_on_the_card_match_the_cpu():
+    """The Zernike3D warp (batched) and its gradient, the bilinear and KB
+    splats, a short batched forward fit and the NMA warp on the card
+    against the same code on the CPU: the warps and splats 1e-5 of the
+    max, the gradient 1e-4 (float32 sums in another order), the fit's
+    coefficients 1e-3 of their max and its correlations 1e-4 (Adam's
+    normalised steps carry that roundoff)."""
+    require_cuda()
+    from xmipp3_tpu_torch.models.nma import warp_volume_field
+    from xmipp3_tpu_torch.ops import forward_zernike as fz
+    from xmipp3_tpu_torch.ops.zernike import (deform_volume,
+                                              zernike_basis_grid)
+    rng = np.random.default_rng(0)
+    N = 32
+    z, y, x = np.mgrid[0:N, 0:N, 0:N].astype(np.float32) - N // 2
+    v = sum(a * np.exp(-((z - cz) ** 2 + (y - cy) ** 2 + (x - cx) ** 2)
+                       / (2 * s * s)) for cz, cy, cx, s, a in
+            ((0, 0, 0, 3, 1), (5, -3, 3, 2, .8), (-4, 4, -2, 2.5, .6),
+             (2, 6, -5, 1.8, .9))).astype(np.float32)
+    basis = zernike_basis_grid(N, 3, 2)
+    c = (rng.standard_normal((4, 3, basis.shape[0])) * 0.6).astype(
+        np.float32)
+    pos, vals, Z = fz.masked_voxel_basis(v, 3, 2, value_threshold=1e-3)
+    prof, nt = fz.blob_splat_profile(1.5)
+    imgs = fz.forward_splat_project(pos, vals, Z, c[:3], [10., 50., 90.],
+                                    [40., 80., 120.], [0., 30., 60.], N,
+                                    device="cpu")[0].numpy()
+    field = rng.normal(0, 1.0, (3, N, N, N)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        o = {"warp": deform_volume(v, basis, c, device=dev).cpu().numpy()}
+        ct = torch.tensor(c[0], device=dev, requires_grad=True)
+        deform_volume(torch.as_tensor(v, device=dev),
+                      torch.as_tensor(basis, device=dev),
+                      ct).square().sum().backward()
+        o["grad"] = ct.grad.cpu().numpy()
+        o["kb"] = fz.forward_splat_project(
+            pos, vals, Z, c[0], 20.0, 70.0, 5.0, N, blob_profile=prof,
+            n_taps=nt, device=dev)[0].cpu().numpy()
+        fit = fz.fit_forward_zernike_batch(
+            pos, vals, Z, imgs, [10., 50., 90.], [40., 80., 120.],
+            [0., 30., 60.], np.zeros((3, 3, Z.shape[0]), np.float32), 0.01,
+            N, 5, device=dev)
+        o["fit_c"], o["fit_cc"] = (fit[0].cpu().numpy(),
+                                   fit[2].cpu().numpy())
+        o["nma"] = warp_volume_field(v, field, device=dev).cpu().numpy()
+        out[dev] = o
+    c_, g = out["cpu"], out["cuda"]
+    for k in ("warp", "kb", "nma"):
+        assert rel_err(g[k], c_[k]) <= 1e-5, k
+    assert rel_err(g["grad"], c_["grad"]) <= 1e-4
+    assert rel_err(g["fit_c"], c_["fit_c"]) <= 1e-3
+    assert np.abs(g["fit_cc"] - c_["fit_cc"]).max() <= 1e-4

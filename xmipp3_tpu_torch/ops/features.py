@@ -304,39 +304,57 @@ def tv_denoise_spg(imgs, max_iter: int = 200, return_rounds: bool = False,
     step (is any image searching?), and one more after each LS_ROUNDS
     masked rounds while some image still searches. With return_rounds,
     also the (max_iter, B) int tensor of each image's line-search rounds."""
-    imgs = as_tensor(imgs, device)
+    spg = TVSPG(imgs, device)
+    state = spg.start()
+    rounds = torch.zeros((max_iter, len(spg.y)), dtype=torch.int32,
+                         device=spg.y.device)
+    for it in range(max_iter):
+        state, rounds[it] = spg.step(state)
+    return (state[0], rounds) if return_rounds else state[0]
+
+
+class TVSPG:
+    """The SPG TV problem of a (B,H,W) stack: its VST-domain data, energy
+    and gradient, and one iteration of the reference's scan. A state is
+    the scan's carry (x, gradient, direction, energy) of the reference's
+    _tv_spg_one, batched."""
+
     lam, sigmag, g, q = 1.0, 5.8, 0.0, 255.0
     mu, gamma, s1, s2 = 0.03, 1e-4, 0.1, 0.9
     thetamin, thetamax = 1e-3, 1e3
     beta2 = 1e-5 ** 2
-    col = lambda v: v[:, None, None]
 
-    K1a = (3.0 / 8.0) * lam * lam + sigmag * sigmag - lam * g
-    xm = col(imgs.amin(dim=(1, 2)))
-    xs = 255.0 / (col(imgs.amax(dim=(1, 2))) - xm)
-    x = (imgs - xm) * xs
-    x = 2.0 / lam * torch.sqrt(torch.clamp(lam * x + K1a, min=0.0))
-    s = col(x.amax(dim=(1, 2)))
-    xold = x / s
-    y = xold                                     # degraded input
+    def __init__(self, imgs, device=None):
+        imgs = as_tensor(imgs, device)
+        lam, q = self.lam, self.q
+        col = lambda v: v[:, None, None]
+        K1a = (3.0 / 8.0) * lam * lam + self.sigmag * self.sigmag \
+            - lam * self.g
+        xm = col(imgs.amin(dim=(1, 2)))
+        xs = 255.0 / (col(imgs.amax(dim=(1, 2))) - xm)
+        x = (imgs - xm) * xs
+        x = 2.0 / lam * torch.sqrt(torch.clamp(lam * x + K1a, min=0.0))
+        s = self.s = col(x.amax(dim=(1, 2)))
+        self.y = x / s                           # degraded input
+        self.K1 = K1a / (s * s)
+        self.K2e = lam * (q / (s * s))           # energy K2
+        self.K2g = lam * (q / s * s)             # gradient K2 (sic, cpp:4034)
+        self.K3e = 2.0 / lam
+        self.K3g = (2.0 / (lam * lam)) * (q / (s * s)) * lam
 
-    K1 = K1a / (s * s)
-    K2e = lam * (q / (s * s))                    # energy K2
-    K2g = lam * (q / s * s)                      # gradient K2 (sic, cpp:4034)
-    K3e = 2.0 / lam
-    K3g = (2.0 / (lam * lam)) * (q / (s * s)) * lam
-
-    def energy(X):
+    def energy(self, X):
         dXx = torch.roll(X, -1, dims=2) - X
         dXy = torch.roll(X, -1, dims=1) - X
-        tv = torch.sqrt(dXx * dXx + dXy * dXy + beta2).sum(dim=(1, 2))
-        msq = K3e * torch.sqrt(torch.clamp(K2e * X + K1, min=0.0)) - y
-        return 0.5 * (msq * msq).sum(dim=(1, 2)) + mu * tv
+        tv = torch.sqrt(dXx * dXx + dXy * dXy + self.beta2).sum(dim=(1, 2))
+        msq = self.K3e * torch.sqrt(torch.clamp(self.K2e * X + self.K1,
+                                                min=0.0)) - self.y
+        return 0.5 * (msq * msq).sum(dim=(1, 2)) + self.mu * tv
 
-    def gradient(X):
+    def gradient(self, X):
+        s, q, K1 = self.s, self.q, self.K1
         dXx = torch.roll(X, -1, dims=2) - X
         dXy = torch.roll(X, -1, dims=1) - X
-        d = 1.0 / torch.sqrt(dXx * dXx + dXy * dXy + beta2)
+        d = 1.0 / torch.sqrt(dXx * dXx + dXy * dXy + self.beta2)
         d_left = torch.roll(d, 1, dims=2)
         d_up = torch.roll(d, 1, dims=1)
         dTV = (X * (2.0 * d + d_left + d_up)
@@ -344,46 +362,55 @@ def tv_denoise_spg(imgs, max_iter: int = 200, return_rounds: bool = False,
                - torch.roll(X, 1, dims=1) * d_up
                - d * (torch.roll(X, -1, dims=2) + torch.roll(X, -1, dims=1)))
         dE = torch.where(
-            K2g * X + K1 > 0,
-            K3g - (q / (s * s)) * y
-            / torch.sqrt(torch.clamp(X * (q / (s * s)) * lam + K1,
+            self.K2g * X + K1 > 0,
+            self.K3g - (q / (s * s)) * self.y
+            / torch.sqrt(torch.clamp(X * (q / (s * s)) * self.lam + K1,
                                      min=1e-30)),
             0.0)
-        return dE + mu * dTV
+        return dE + self.mu * dTV
 
+    @staticmethod
     def proj(X, G, theta):
         return torch.clamp(X - G * theta, 0.0, 1.0) - X
 
-    fold = energy(xold)
-    grold = gradient(xold)
-    dold = proj(xold, grold, 1.0)
-    rounds = torch.zeros((max_iter, len(imgs)), dtype=torch.int32,
-                         device=imgs.device)
-    for it in range(max_iter):
+    def start(self):
+        """The state before the first iteration."""
+        x = self.y
+        g = self.gradient(x)
+        return x, g, self.proj(x, g, 1.0), self.energy(x)
+
+    def step(self, state):
+        """One iteration from `state`; returns (state, (B,) line-search
+        rounds)."""
+        xold, grold, dold, fold = state
+        col = lambda v: v[:, None, None]
         xnew = xold + dold
         delta = (grold * dold).sum(dim=(1, 2))
-        fnew = energy(xnew)
+        fnew = self.energy(xnew)
         ksi = torch.ones_like(fnew)
-        searching = fnew > fold + gamma * ksi * delta
+        rounds = torch.zeros(len(fnew), dtype=torch.int32, device=fnew.device)
+        searching = fnew > fold + self.gamma * ksi * delta
         while bool(searching.any()):
             for _ in range(LS_ROUNDS):
                 ksitsl = -0.5 * (ksi * ksi) * delta \
                     / (fnew - fold - ksi * delta)
-                k2 = torch.where((ksitsl >= s1) & (ksitsl <= s2 * ksi),
+                k2 = torch.where((ksitsl >= self.s1)
+                                 & (ksitsl <= self.s2 * ksi),
                                  ksitsl, ksi / 2.0)
                 xn = xold + col(k2) * dold
-                fn = energy(xn)
+                fn = self.energy(xn)
                 ksi = torch.where(searching, k2, ksi)
                 xnew = torch.where(col(searching), xn, xnew)
                 fnew = torch.where(searching, fn, fnew)
-                rounds[it] += searching.int()
-                searching = searching & (fnew > fold + gamma * ksi * delta)
-        grnew = gradient(xnew)
+                rounds += searching.int()
+                searching = searching & (fnew > fold
+                                         + self.gamma * ksi * delta)
+        grnew = self.gradient(xnew)
         xij = xnew - xold
         p = (xij * (grnew - grold)).sum(dim=(1, 2))
         ss2 = (xij * xij).sum(dim=(1, 2))
-        theta = torch.where(p <= 0, thetamax,
-                            torch.clamp(ss2 / p, thetamin, thetamax))
-        dold = proj(xnew, grnew, col(theta))
-        xold, grold, fold = xnew, grnew, fnew
-    return (xold, rounds) if return_rounds else xold
+        theta = torch.where(p <= 0, self.thetamax,
+                            torch.clamp(ss2 / p, self.thetamin,
+                                        self.thetamax))
+        return (xnew, grnew, self.proj(xnew, grnew, col(theta)),
+                fnew), rounds

@@ -27,7 +27,8 @@ def prepare_fourier_volume(vol, pad_factor: float = 2.0, device=None):
 
     Returns (vf, pad_n): vf is the centered full FFT of the padded volume,
     with fftshift applied on all axes and the phase convention arranged so
-    that gathered slices invert directly to centered projections."""
+    that gathered slices invert directly to centered projections. A
+    (B, N, N, N) stack gives (B, P, P, P) cubes."""
     vol = as_tensor(vol, device)
     N = vol.shape[-1]
     pad_n = int(round(N * pad_factor))
@@ -37,19 +38,22 @@ def prepare_fourier_volume(vol, pad_factor: float = 2.0, device=None):
     hi = p - lo
     volp = torch.nn.functional.pad(vol, (lo, hi, lo, hi, lo, hi))
     # center the volume origin at array origin for FFT phase: ifftshift
-    vf = torch.fft.fftshift(torch.fft.fftn(torch.fft.ifftshift(volp)))
+    dims = (-3, -2, -1)
+    vf = torch.fft.fftshift(torch.fft.fftn(torch.fft.ifftshift(
+        volp, dim=dims), dim=dims), dim=dims)
     return vf, pad_n
 
 
 def extract_central_slices(vf, mats, out_n: int):
     """Gather rotated central slices from the centered FFT cube.
 
-    vf: (P,P,P) complex64 centered FFT; mats: (B,3,3) Euler matrices
-    (rows = projection plane basis in volume coords); out_n: output image size
-    (its frequency grid is scaled to the padded cube).
+    vf: (P,P,P) complex64 centered FFT, or (B,P,P,P) cubes, one for each
+    matrix; mats: (B,3,3) Euler matrices (rows = projection plane basis in
+    volume coords); out_n: output image size (its frequency grid is scaled
+    to the padded cube).
 
     Returns (B, out_n, out_n//2+1) complex64 rfft-layout slices."""
-    P = vf.shape[0]
+    P = vf.shape[-1]
     c = P // 2
     dev = vf.device
     mats = as_tensor(mats, dev)
@@ -65,6 +69,8 @@ def extract_central_slices(vf, mats, out_n: int):
     z0, y0, x0 = (torch.floor(a).to(torch.int64) for a in (zi, yi, xi))
     fz, fy, fx = zi - z0, yi - y0, xi - x0
     flat = vf.reshape(-1)
+    base = 0 if vf.dim() == 3 else (
+        torch.arange(len(vf), device=dev) * P ** 3)[:, None, None]
     out = torch.zeros(zi.shape, dtype=vf.dtype, device=dev)
     for dz in range(2):
         wz = fz if dz else 1 - fz
@@ -77,7 +83,7 @@ def extract_central_slices(vf, mats, out_n: int):
                           & (xj >= 0) & (xj < P))
                 w = torch.where(inside, wz * wy * wx, 0.0)
                 idx = ((zj.clamp(0, P - 1) * P + yj.clamp(0, P - 1)) * P
-                       + xj.clamp(0, P - 1))
+                       + xj.clamp(0, P - 1)) + base
                 out = out + w * flat[idx]
     return out
 

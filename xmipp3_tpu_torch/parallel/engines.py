@@ -1,7 +1,7 @@
 """Mesh engines of the remaining program families (counterpart of the
-reference package's parallel/engines.py: `parallel_pca_components`,
-`parallel_refine_defocus`, `parallel_class_sums` and
-`parallel_filter_bank`).
+reference package's parallel/engines.py: `shard_batch`,
+`parallel_pca_components`, `parallel_refine_defocus`,
+`parallel_class_sums` and `parallel_filter_bank`).
 
 The reference expresses each engine's data parallelism as an input
 sharding that XLA partitions. Here every rank of the process group takes
@@ -17,6 +17,35 @@ import torch
 
 from xmipp3_tpu_torch.parallel.mesh import (Mesh, all_gather, all_reduce,
                                             pad_to_multiple, shard_rows)
+
+
+def pad_repeat_first(a, multiple: int):
+    """a (n, ...) padded to a multiple of `multiple` rows by repeating row
+    0 (a zero row would make a normalized correlation's gradient NaN at
+    sqrt(0)), as float32 numpy."""
+    a = np.asarray(a, np.float32)
+    rep = (-len(a)) % multiple
+    if rep:
+        a = np.concatenate([a, np.broadcast_to(a[:1], (rep,) + a.shape[1:])])
+    return a
+
+
+def shard_batch(arr, mesh: Mesh, axis_name: str = "data"):
+    """This rank's contiguous rows of axis 0 of `arr` (its length a
+    multiple of the axis size: pad first) as a float32 tensor on the
+    rank's device. The reference device_puts the whole batch with a
+    NamedSharding over axis 0; here each rank holds only its own rows,
+    and the results meet in `gather_batch`."""
+    sl = shard_rows(len(arr), mesh, axis_name)
+    return torch.as_tensor(np.ascontiguousarray(np.asarray(
+        arr, np.float32)[sl]), device=mesh.device)
+
+
+def gather_batch(t: torch.Tensor, mesh: Mesh, n_valid: int,
+                 axis_name: str = "data") -> torch.Tensor:
+    """Every rank's rows of a sharded batch, in row order, with the padded
+    rows after n_valid dropped."""
+    return all_gather(t.contiguous(), mesh, axis_name)[:n_valid]
 
 
 def parallel_pca_components(mesh: Mesh, X, n_eig: int,

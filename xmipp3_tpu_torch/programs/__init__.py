@@ -156,6 +156,28 @@ _REGISTRY: dict[str, str] = {
     "transform_mask": _P + "volume_programs:ProgTransformMask",
     "transform_symmetrize": _P + "volume_programs:ProgTransformSymmetrize",
     "volume_to_pseudoatoms": _P + "volume_programs:ProgVolumeToPseudoatoms",
+    "volume_deform_sph": _P + "zernike_programs:ProgVolumeDeformSph",
+    "volume_apply_coefficient_zernike3d":
+        _P + "zernike_programs:ProgVolumeApplyCoefficientZernike3D",
+    "volume_apply_deform_sph":
+        _P + "zernike_programs:ProgVolumeApplyCoefficientZernike3D",
+    "angular_sph_alignment": _P + "zernike_programs:ProgAngularSphAlignment",
+    "forward_zernike_volume": _P + "zernike_programs:ProgForwardZernikeVolume",
+    "forward_zernike_images": _P + "zernike_programs:ProgForwardZernikeImages",
+    "forward_zernike_images_priors":
+        _P + "zernike_programs:ProgForwardZernikeImagesPriors",
+    "nma_modes": _P + "nma_programs:ProgNMAModes",
+    "nma_alignment_vol": _P + "nma_programs:ProgNMAAlignmentVol",
+    "pdb_nma_deform": _P + "nma_programs:ProgPDBNMADeform",
+    "nma_alignment": _P + "flex_misc_ext:ProgNMAAlignment",
+    "flexible_alignment": _P + "flex_misc_ext:ProgFlexibleAlignment",
+    "forward_zernike_subtomos":
+        _P + "flex_misc_ext:ProgForwardZernikeSubtomos",
+    "art_zernike3d": _P + "flex_misc_ext:ProgArtZernike3D",
+    "forward_art_zernike3d_subtomos":
+        _P + "flex_misc_ext:ProgForwardArtZernike3DSubtomos",
+    "cuda11_forward_art_zernike3d":
+        _P + "flex_misc_ext:ProgCuda11ForwardArtZernike3D",
 }
 
 # the reference's aliases of these programs (programs/registry.py:177,
@@ -208,6 +230,14 @@ ALIASES: dict[str, str] = {
         "transform_adjust_image_grey_levels",
     "mpi_transform_mask": "transform_mask",
     "mpi_transform_symmetrize": "transform_symmetrize",
+    "cuda_volume_deform_sph": "volume_deform_sph",
+    "cuda_angular_sph_alignment": "angular_sph_alignment",
+    "mpi_angular_sph_alignment": "angular_sph_alignment",
+    "mpi_forward_zernike_images": "forward_zernike_images",
+    "mpi_forward_zernike_images_priors": "forward_zernike_images_priors",
+    "mpi_nma_alignment_vol": "nma_alignment_vol",
+    "mpi_nma_alignment": "nma_alignment",
+    "mpi_forward_zernike_subtomos": "forward_zernike_subtomos",
 }
 _REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 

@@ -136,6 +136,7 @@ class ProgResolutionDirectional(XmippProgram):
                            "the preferred (highest-resolution) direction")
         self.addParamsLine("  [--zScoremap <f=\"\">] : Local resolution "
                            "z-score map (|z|>3 = suspicious voxels)")
+        self.addParamsLine("  [--threads <n=4>] : Accepted (device-managed)")
 
     def _opt(self, flag):
         return self.getParam(flag) if self.checkParam(flag) else ""
