@@ -387,7 +387,56 @@ Phases; any failure exits non-zero before the result line is printed:
    400 views), K4 at one trial of --projMatch's scan. A `flex {...}` line
    gives each program's wall, phases, untimed rest, launches and peak
    device memory, and the quality.
-16. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+16. Tomography, the tail of flex_misc_ext and three tilt programs through
+   the CLI. (a) 40 particles of the two states of phase 13 (the 8-blob
+   phantom in a 64^3 box) at rows' random poses on a grid in a 512 x 512
+   x 128 tomogram, 12 gold beads of 80 A at 8 A/px between them ->
+   tomo_simulate_tilt_series (41 images of 512^2 over +-60 degrees, a run
+   a state with its beads and noise in the first, summed) ->
+   tomo_tiltseries_dose_filter (against numpy), tomo_detect_landmarks
+   (recall and precision within 3 px of the planted beads in each image),
+   tomo_calculate_landmark_residuals (their rms),
+   tomo_detect_misalignment_residuals (the share of images enabled),
+   tomo_misalignment_resid_statistics (against numpy);
+   tomogram_reconstruction --thickness 128 (K3, one launch) of the series
+   with each image transposed (the program tilts about x, the simulator
+   about y: ROADMAP.md section 3, item 25), its correlation with the
+   truth below 0.1 cycles/px once back in the truth's frame ->
+   tomo_detect_missing_wedge and image_peak_high_contrast on the whole
+   reconstruction (both fitted planes and the beads found against what
+   the reference's programs read on the card's reconstruction: neither
+   plane is an edge of the wedge and none of the 12 is a bead,
+   ROADMAP.md section 3, items 26-27), image_peak_high_contrast on the
+   simulated tomogram (recall and precision against the planted beads),
+   tomo_filter_coordinates
+   (against numpy), tomo_extract_subtomograms --invertContrast,
+   tomo_average_subtomos of the first state (its correlation with the
+   particle), tomo_map_back --method highlight (the painted mass),
+   subtomo_subtraction --sub on 4 subtomograms (the energy left),
+   tomo_ctf_wiener2d_correction of the series through planted CTFs
+   (closer to the series than the raw), tomo_project (against
+   FourierProjector), tomo_extract_particlestacks (each patch against a
+   numpy crop). (b) classify_CLTomo_prog --nref 2 on 1,000 wedge-masked
+   subtomograms at 64^3 of the two states (purity); classify_FTTRI --nref
+   16 on 2,048 views of phase 10's recipe (purity and directions won),
+   serially and with --mesh dp over 2 gloo ranks (the same classes). (c)
+   volume_initial_simulated_annealing at its defaults on 1,000 of phase
+   4's views (K3 in its SIRT passes, K4 in its greedy matching) ->
+   volume_align --frm --consider_mirror: the map's correlation with the
+   phantom. (d) image_assignment_tilt_pair on 200 planted 0/45-degree
+   pairs with 20 spare points (recall, precision), image_align_tilt_pairs
+   on 200 tilted views with planted shifts (the shift error, the share
+   enabled), phantom_transform of phase 12's 300-atom model (against
+   numpy), volume_to_web (against numpy), resolution_pdb_bfactor on a
+   radial resolution map (against numpy), performance_test and
+   write_test (their figures). Only the reconstruction and the annealing
+   may launch a kernel. Limits planned with tools/plan_tomo.py. K3 is
+   held against its plain version at the tomogram's launch (41 views at
+   N=512, P=1024; the plain version and the tap count in parts of 4 M
+   samples), K4 at one trial of the annealing's greedy scan. A `tomo
+   {...}` line gives each program's wall, phases, untimed rest, launches
+   and peak device memory, and the quality.
+17. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
    with phase 10's ML2D launches; K2 at a pSART block and a SIRT pass as
    tri_scatter_art_block and tri_scatter_sirt_pass, K3 at WBP's launch as
    kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches; K4 at
@@ -396,7 +445,9 @@ Phases; any failure exits non-zero before the result line is printed:
    kb_scatter_3ch_first_split and tri_scatter_first_split3, with phase
    13's launches; K3 at an art_zernike3d pass and K4 at a --projMatch
    trial as kb_scatter_3ch_art_zernike3d and cross_spectrum_nma_projmatch,
-   with phase 15's launches) and, last,
+   with phase 15's launches; K3 at the tomogram's launch and K4 at an
+   annealing trial as kb_scatter_3ch_tomogram and
+   cross_spectrum_initial_volume, with phase 16's launches) and, last,
    {"ok": true, "device": {...}}.
 
 It needs one card and the checkout around it: it imports xmipp3_tpu_torch
@@ -404,13 +455,16 @@ from beside itself (from any working directory), builds every kernel from
 the checkout's sources and writes its data under chip_smoke_data/ in the
 checkout, which it removes at the end. Without a card, or without the
 package beside it, it exits 2 and prints no result. (`chip_smoke.py
---mesh-rank <program> <args>` is a rank of phases 5, 9-13 and 15: it runs
-one program and prints its launch counts, phase seconds and peak
-memory.)
+--mesh-rank` is a rank of phases 5, 9-13, 15 and 16: it imports torch and
+the package, then reads `{"argv": [<program>, <args>], "env": {...},
+"log": <file>}` from stdin, runs the program and prints its launch
+counts, phase seconds and peak memory. Two such ranks are started ahead
+of each mesh run, so that their imports overlap the work before it.)
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import shutil
@@ -478,6 +532,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel's pallas_call line)
     "kb_scatter_3ch_art_zernike3d": (
         "xmipp3_tpu_torch/csrc/scatter_kb.cu",
         "xmipp3_tpu/ops/pallas_scatter_kb.py:258"),
+    "kb_scatter_3ch_tomogram": ("xmipp3_tpu_torch/csrc/scatter_kb.cu",
+                                "xmipp3_tpu/ops/pallas_scatter_kb.py:258"),
 }
 WIDE_BLOB = ("2.5", "0", "10")   # radius, order, alpha: 160 taps a sample
 RUNS = (("kb", (), "kb_scatter_3ch"), ("tri+kb", (), "tri_scatter"),
@@ -1294,14 +1350,26 @@ MESH_RUNS = (  # (program, mode, ranks)
     ("angular_projection_matching", "tp", 2))
 
 
-def mesh_rank(argv) -> int:
-    """One rank of phases 5, 9-12: run the program of argv with every
+def mesh_rank() -> int:
+    """One rank of the mesh runs: import torch and the package, wait for
+    the command line on stdin ({argv, env, log}; none: exit 0), send
+    stdout and stderr to the log, run the program of argv with every
     launch count at 0 and phase timing on, then print a line RANK {rc,
     wall_s, launches, phases_s, peak_device_GB} with the program's local
     shift field (`field`) where it keeps one."""
     import torch
     from xmipp3_tpu_torch.core import timing
     from xmipp3_tpu_torch.programs import get_program
+    line = sys.stdin.readline()
+    if not line:
+        return 0
+    cmd = json.loads(line)
+    argv = cmd["argv"]
+    os.environ.update(cmd["env"])
+    fd = os.open(cmd["log"], os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
     timing.enable_timing(True)
     launch_counts(reset=True)
     t0 = time.perf_counter()
@@ -1325,36 +1393,75 @@ def free_port() -> int:
         return sk.getsockname()[1]
 
 
+WARM_RANKS = []   # two ranks of the next 2-rank mesh run, started ahead
+
+
+def rank_process(n: int):
+    """A mesh_rank process of a run of n ranks (its host threads shared
+    out among them, as torchrun does), waiting for its command."""
+    env = {**os.environ, "OMP_NUM_THREADS": str(max(1, os.cpu_count() // n))}
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank"],
+        stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL, cwd=ROOT, env=env, text=True)
+
+
+def stop_warm_ranks():
+    """End the ranks started ahead: at the end of their input they exit."""
+    for p in WARM_RANKS:
+        p.stdin.close()
+    for p in WARM_RANKS:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    WARM_RANKS.clear()
+
+
+atexit.register(stop_warm_ranks)
+
+
+def warm_ranks():
+    """Start the next 2-rank mesh run's ranks now."""
+    while len(WARM_RANKS) < 2:
+        WARM_RANKS.append(rank_process(2))
+
+
 def run_ranks(program, args, n, logs: Path, env_rendezvous=False):
-    """Start n ranks of `program args` in a gloo group on cuda:0, wait at
-    most RANK_TIMEOUT_S for all, stop every one that is left, and return
-    (wall seconds, each rank's RANK report); fails on any rank's failure.
-    The ranks meet through --dist_coordinator/--dist_nprocs/--dist_procid,
-    or with env_rendezvous (a program without those flags) through
-    torchrun's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)."""
+    """Run n ranks of `program args` in a gloo group on cuda:0 (a 2-rank
+    run takes the ranks started ahead, and starts the next run's), wait
+    at most RANK_TIMEOUT_S for all, stop every one that is left, and
+    return (wall seconds, each rank's RANK report); fails on any rank's
+    failure. The ranks meet through --dist_coordinator/--dist_nprocs/
+    --dist_procid, or with env_rendezvous (a program without those flags)
+    through torchrun's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
+    RANK)."""
     port = free_port()
     procs = []
-    # host threads shared out among the ranks, as torchrun does
-    env = {**os.environ, "OMP_NUM_THREADS": str(max(1, os.cpu_count() // n))}
     t0 = time.perf_counter()
     try:
         for r in range(n):
             if env_rendezvous:
-                rank_env = dict(env, MASTER_ADDR="127.0.0.1",
-                                MASTER_PORT=str(port), WORLD_SIZE=str(n),
-                                RANK=str(r))
+                env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           WORLD_SIZE=str(n), RANK=str(r))
                 flags = []
             else:
-                rank_env = env
+                env = {}
                 flags = ["--dist_coordinator", f"127.0.0.1:{port}",
                          "--dist_nprocs", str(n), "--dist_procid", str(r)]
-            with open(logs / f"rank{r}.log", "w") as out:
-                procs.append(subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"),
-                     "--mesh-rank", program, *args, *flags, "--device",
-                     DEVICE, "-v", "1"],
-                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
-                    env=rank_env))
+            p = WARM_RANKS.pop() if n == 2 and WARM_RANKS else \
+                rank_process(n)
+            procs.append(p)
+            try:
+                p.stdin.write(json.dumps({
+                    "argv": [program, *args, *flags, "--device", DEVICE,
+                             "-v", "1"], "env": env,
+                    "log": str(logs / f"rank{r}.log")}) + "\n")
+                p.stdin.close()
+            except BrokenPipeError:
+                pass   # it died on its imports: its exit code fails below
+        warm_ranks()
         for p in procs:
             left = RANK_TIMEOUT_S - (time.perf_counter() - t0)
             try:
@@ -1370,7 +1477,8 @@ def run_ranks(program, args, n, logs: Path, env_rendezvous=False):
     wall = time.perf_counter() - t0
     reports = []
     for r, p in enumerate(procs):
-        text = (logs / f"rank{r}.log").read_text()
+        log_file = logs / f"rank{r}.log"
+        text = log_file.read_text() if log_file.is_file() else ""
         check(p.returncode == 0, f"{program} rank {r} of {n} exited with "
               f"{p.returncode}:\n{text[-3000:]}")
         line = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
@@ -3476,11 +3584,11 @@ def fourier_crop_f64(imgs, oh: int, ow: int):
 
 
 def grid_at_views(name, interp, rot, tilt, psi, seed, chunk=None,
-                  reps=20, max_freq=0.5, phase=11):
+                  reps=20, max_freq=0.5, phase=11, n=N, p=P):
     """K2 (interp "tri") or K3 ("kb") against its plain version at the
     sample count of one launch on a phase's path: the slice coordinates of
-    the given poses at N, P within max_freq in one stream, and three value
-    streams. With
+    the given poses at n, p (N, P by default) within max_freq in one
+    stream, and three value streams. With
     `chunk` set, the plain version and the bound's tap count run over
     parts of `chunk` samples (the whole tap expansion would not fit on the
     card), and no single library call exists to time. `reps`: the
@@ -3495,7 +3603,7 @@ def grid_at_views(name, interp, rot, tilt, psi, seed, chunk=None,
     mats = torch.as_tensor(euler_matrix(rot, tilt, psi), dtype=torch.float32,
                            device=DEVICE)
     zi, yi, xi = (a.reshape(-1).contiguous()
-                  for a in _slice_tap_coords(mats, N, P, max_freq))
+                  for a in _slice_tap_coords(mats, n, p, max_freq))
     del mats
     M = zi.numel()
     rng = np.random.default_rng(seed + 12)
@@ -3508,14 +3616,14 @@ def grid_at_views(name, interp, rot, tilt, psi, seed, chunk=None,
     if interp == "tri":
         # per sample floor, fractions and 1-f (9); per live corner the
         # weight (2), three products and three adds (6)
-        kernel = lambda *c: scatter_tri.tri_scatter(*c, *samples, P=P)
-        expand = lambda part: scatter_tri.tri_expand(*part, P)
+        kernel = lambda *c: scatter_tri.tri_scatter(*c, *samples, P=p)
+        expand = lambda part: scatter_tri.tri_expand(*part, p)
         costs = (24, 8, 9)
     else:
         # per sample floor and fractions (6); per live tap the distance
         # (8), the degree-7 Horner polynomial (14), three products and
         # three adds (6)
-        kb = dict(P=P, radius=BLOB_RADIUS, alpha=BLOB_ALPHA,
+        kb = dict(P=p, radius=BLOB_RADIUS, alpha=BLOB_ALPHA,
                   order=BLOB_ORDER)
         kernel = lambda *c: scatter_kb.kb_scatter_3ch(*c, *samples, **kb)
         expand = lambda part: scatter_kb.kb_expand(*part, **kb)
@@ -3527,7 +3635,7 @@ def grid_at_views(name, interp, rot, tilt, psi, seed, chunk=None,
                 samples)), taps, *costs, M,
             library=lambda *c: [a.index_add_(0, taps[0], u)
                                 for a, u in zip(c, taps[1:])],
-            kernel_reps=reps)
+            size=p ** 3, kernel_reps=reps)
         del taps
     else:
         parts = lambda: (expand(tuple(a[s:s + chunk] for a in samples))
@@ -3535,7 +3643,7 @@ def grid_at_views(name, interp, rot, tilt, psi, seed, chunk=None,
         got = compare(
             name, kernel, lambda *c: [scatter_add_3ch_plain(*c, *t)
                                       for t in parts()],
-            parts, *costs, M, kernel_reps=reps, plain_reps=1)
+            parts, *costs, M, size=p ** 3, kernel_reps=reps, plain_reps=1)
         got["plain_chunk_samples"] = chunk
     got["views"] = len(rot)
     del samples
@@ -6182,7 +6290,7 @@ def cross_at_trial_shape(name, refs, imgs, max_shift: int = 8):
     fi, fr, _ = _masked_spectra(f_refs, f_all[0].contiguous(), w)
     B, nr, K = fi.shape
     R = fr.shape[0]
-    log(f"phase 15: {name} at B={B}, nr={nr}, R={R}, k={K}, with the "
+    log(f"{name} at B={B}, nr={nr}, R={R}, k={K}, with the "
         f"mirror ({len(trials)} trials a scan)")
     got = cross.cross_spectrum(fi, fr, w, mirror=True)
     want = cross.cross_spectrum_plain(fi, fr, w, mirror=True)
@@ -6329,10 +6437,752 @@ def flexibility(seed, root: Path):
     return [k3, k4]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: tomography, the tail of flex_misc_ext and three tilt programs
+# ---------------------------------------------------------------------------
+
+TM_SIZE, TM_Z, TM_BOX = 512, 128, 64   # tomogram X = Y, thickness; particle box
+TM_TILTS = (-60.0, 60.0, 3.0)          # 41 tilt images
+TM_PARTICLES = 40                      # half of each state
+TM_FIDUCIALS = 12
+TM_TS = 8.0                            # A/px: a K2/K3 series binned to 512^2
+TM_FID_A = 80.0                        # gold bead diameter (A): 10 px
+TM_NOISE = 4.0                         # the simulator's --sigmaNoise
+TM_DOSE = 3.0                          # e/A^2 per tilt image
+TM_CTF_DEFOCUS = (30000.0, 45000.0)    # A: the planted CTFs' span over the tilts
+TM_WITHIN = 3.0                        # px: a landmark this close is a hit
+TM_LOWPASS = 0.1                       # cycles/px: the tomogram's correlation
+TM_FILTER_RADIUS = 25                  # --radius (the reference's ball: r2 <= it)
+TM_SUBTRACT = 4                        # subtomograms through subtomo_subtraction
+TM_SUB_N, TM_SUBTOMOS = 64, 1000       # classify_CLTomo_prog's set
+TM_SUB_SHIFT, TM_SUB_NOISE = 2, 1.0    # voxels; x the states' std
+TM_FTTRI_VIEWS = 2048                  # of phase 10's recipe
+TM_ANNEAL_VIEWS = 1000                 # of phase 4's views
+TM_PAIRS, TM_PAIR_TILT = 200, 45.0     # tilt-pair positions, degrees
+TM_PAIR_SHIFT = 3.0                    # px: planted shifts of the tilted views
+TM_TRANSFORM = (30.0, 20.0, 10.0)      # phantom_transform rotate_euler
+TM_TOL = 1e-4                          # numpy checks
+TM_MD_TOL = 1e-5                       # host numbers read back from metadata
+# limits: what tools/plan_tomo.py read of the reference on the CPU (the
+# tomogram at 256 x 256 x 96 with 8 particles, the rest at N=64): twice
+# the shortfall of a correlation, recall, precision or share r, or half
+# of r where that is higher; half the directions won; twice an error;
+# rounded inward
+TM_LIMITS = {
+    "landmarks": {"recall": 0.7805, "precision": 0.2684},
+    "beads_truth": {"recall": 1.0, "precision": 0.0572},
+    "pairs": {"recall": 1.0, "precision": 1.0},
+    "residuals_rms_px": 2.0816, "misalignment_enabled": 0.7561,
+    "tomogram_corr": 0.4826,
+    "average_corr": 0.2018, "map_back_mass": 1.072e-5,
+    "subtraction_energy": 0.001234, "cltomo_purity": 1.0,
+    "fttri_purity": 0.1705, "fttri_won": 6, "anneal_corr": 0.2645,
+    "align_pairs": {"enabled": 1.0, "shift_err_px": 1.3006}}
+# what the reference's tomo_detect_missing_wedge and
+# image_peak_high_contrast read on the card's reconstruction (tools/
+# plan_tomo.py --tomogram, on tools/phase_alone.py 16 --keep's float16
+# copy; the port on the CPU read the same): the planes' (rot, tilt) and
+# the beads' (x, y, z). With numpy's noise of 1e-3 of its std added the
+# port read the same beads and the first plane's normal 0.37 degrees off:
+# twice that, and the same beads within a voxel
+TM_REF_WEDGE_PLANES = ((180.0, -89.9537037037), (270.0, 90.0))
+TM_WEDGE_PLANE_TOL = 0.74
+TM_REF_BEADS = ((45, 474, 43), (181, 46, 48), (105, 402, 53), (406, 106, 58),
+                (113, 102, 69), (462, 409, 69), (473, 337, 70), (458, 326, 72),
+                (179, 39, 76), (37, 402, 88), (22, 110, 96), (45, 47, 105))
+
+
+def tomo_geometry(seed: int, size: int, thickness: int, box: int,
+                  particles: int, fiducials: int, fid_px: int):
+    """The planted particles (x, y, z centred voxels; rot, tilt, psi; state
+    0/1) on a jittered grid of cells a box and an eighth apart, and the
+    fiducials (x, y, z) between its cells (numpy's draws)."""
+    rng = np.random.default_rng(seed + 41)
+    lim = size // 2 - box // 2 - box // 8
+    g = np.linspace(-lim, lim, int(2 * lim // (box + box // 8)) + 1)
+    gx = gy = g
+    cells = np.array([(x, y) for y in gy for x in gx])
+    check(len(cells) >= particles, f"phase 16: {len(cells)} cells for "
+          f"{particles} particles")
+    pick = rng.permutation(len(cells))[:particles]
+    xy = np.rint(cells[pick] + rng.uniform(-box / 16, box / 16,
+                                           (particles, 2))).astype(int)
+    zlim = thickness // 2 - box // 2 - 2
+    z = rng.integers(-zlim, zlim + 1, particles)
+    ang = np.stack([rng.uniform(0, 360, particles),
+                    np.degrees(np.arccos(rng.uniform(-1, 1, particles))),
+                    rng.uniform(0, 360, particles)], axis=1)
+    state = np.arange(particles) % 2
+    mid = np.array([((a + b) / 2, (c + d) / 2)
+                    for a, b in zip(gx[:-1], gx[1:])
+                    for c, d in zip(gy[:-1], gy[1:])])
+    fxy = np.rint(mid[rng.permutation(len(mid))[:fiducials]]).astype(int)
+    fz = rng.integers(-(thickness // 2 - fid_px), thickness // 2 - fid_px + 1,
+                      len(fxy))
+    return (np.column_stack([xy, z]), ang, state,
+            np.column_stack([fxy, fz]))
+
+
+def tilt_pair_coordinates(seed: int, n: int, tilt: float, size: float = 4096):
+    """n untilted positions in a size^2 micrograph and their tilted
+    partners (x compressed by cos(tilt), rotated 10 degrees, shifted, 0.5
+    px of noise), with 10 % spare points on each side; returns (u, t,
+    truth: t's index of each u, -1 for a spare)."""
+    rng = np.random.default_rng(seed + 43)
+    u = rng.uniform(0.05 * size, 0.95 * size, (n, 2))
+    a = np.deg2rad(10.0)
+    R = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+    A = R @ np.diag([np.cos(np.deg2rad(tilt)), 1.0])
+    t = u @ A.T + [0.2 * size, 0.05 * size] + rng.normal(0, 0.5, (n, 2))
+    spare = n // 10
+    u = np.concatenate([u, rng.uniform(0.05 * size, 0.95 * size,
+                                       (spare, 2))])
+    t = np.concatenate([t, rng.uniform(0.05 * size, 0.95 * size,
+                                       (spare, 2))])
+    order = rng.permutation(len(t))
+    inv = np.argsort(order)
+    truth = np.concatenate([inv[:n], -np.ones(spare, int)])
+    return u, t[order], truth
+
+
+def hits(found, planted, within: float):
+    """(recall: the share of planted points with a found one within
+    `within`, precision: the share of found points with a planted one)."""
+    from scipy.spatial import cKDTree
+    found = np.asarray(found, np.float64).reshape(-1, planted.shape[1])
+    if not len(found):
+        return 0.0, 0.0
+    recall = float((cKDTree(found).query(planted)[0] <= within).mean())
+    precision = float((cKDTree(planted).query(found)[0] <= within).mean())
+    return recall, precision
+
+
+def zyz64(rot: float, tilt: float, psi: float):
+    """The ZYZ Euler matrix of angles in degrees, in float64 numpy
+    (core.geometry's formula, written out here)."""
+    a, b, g = np.deg2rad([rot, tilt, psi])
+    c1, s1, c2, s2, c3, s3 = (np.cos(a), np.sin(a), np.cos(b), np.sin(b),
+                              np.cos(g), np.sin(g))
+    return np.array([
+        [c3 * c2 * c1 - s3 * s1, c3 * c2 * s1 + s3 * c1, -c3 * s2],
+        [-s3 * c2 * c1 - c3 * s1, -s3 * c2 * s1 + c3 * c1, s3 * s2],
+        [s2 * c1, s2 * s1, c2]])
+
+
+def lowpass_nd(vol, cutoff: float):
+    """vol (any 3-D shape) without the frequencies above `cutoff`."""
+    f = [np.fft.fftfreq(n) for n in vol.shape[:-1]] + \
+        [np.fft.rfftfreq(vol.shape[-1])]
+    r2 = sum(np.reshape(a, [-1 if i == k else 1 for i in range(3)]) ** 2
+             for k, a in enumerate(f))
+    return np.fft.irfftn(np.fft.rfftn(vol) * (r2 <= cutoff * cutoff),
+                         s=vol.shape, axes=(0, 1, 2))
+
+
+def bead_readings(run, label, tomogram: str, fiducials, fid_px: int):
+    """image_peak_high_contrast on the tomogram (z, y, x in the
+    simulator's frame): the beads found, and their recall and precision
+    against the fiducials (x, y, z voxel indices) within a bead's
+    diameter."""
+    out = str(Path(tomogram).with_name(f"{label}.xmd"))
+    run(label, "image_peak_high_contrast", [
+        "--vol", tomogram, "-o", out, "--samplingRate", TM_TS,
+        "--fiducialSize", TM_FID_A, "--boxSize", 4 * fid_px])
+    beads = [(b["xcoor"], b["ycoor"], b["zcoor"]) for b in md_rows(out)]
+    rec_, prec_ = hits(beads, np.asarray(fiducials, np.float64), fid_px)
+    return {"found": len(beads), "recall": rec_, "precision": prec_,
+            "xyz": [[int(a) for a in b] for b in beads]}
+
+
+def wedge_and_beads(run, tomogram: str, fiducials, fid_px: int) -> dict:
+    """tomo_detect_missing_wedge (its wedge and both planes' rot, tilt)
+    and bead_readings on the tomogram."""
+    prog = run("wedge", "tomo_detect_missing_wedge", ["-i", tomogram])
+    return {"wedge": [float(v) for v in prog.wedge],
+            "wedge_planes": [[float(a) for a in p] for p in prog.planes],
+            "beads": bead_readings(run, "beads", tomogram, fiducials,
+                                   fid_px)}
+
+
+def plane_angle(a, b) -> float:
+    """Degrees between two planes through the origin given as (rot,
+    tilt): their normals' angle, either sign."""
+    n = [np.array([np.sin(t) * np.cos(r), np.sin(t) * np.sin(r), np.cos(t)])
+         for r, t in np.deg2rad([a, b])]
+    return float(np.degrees(np.arccos(min(abs(n[0] @ n[1]), 1.0))))
+
+
+def tomo_readings(seed, root: Path, run, device, size: int = TM_SIZE,
+                  thickness: int = TM_Z, box: int = TM_BOX,
+                  particles: int = TM_PARTICLES, sub_n: int = TM_SUB_N,
+                  subtomos: int = TM_SUBTOMOS,
+                  fttri_views: int = TM_FTTRI_VIEWS, n: int = N,
+                  anneal_views: int = TM_ANNEAL_VIEWS, mesh=None):
+    """Phase 16's 28 programs on its recipes: run(label, program, args)
+    runs one program (the port's on the card in this script, the
+    reference's on the CPU in tools/plan_tomo.py) and returns it; the data
+    are made with numpy and the port's host functions, the views on
+    `device`. (a) runs at size x size x thickness with particles of
+    box^3, (b) CLTomo at sub_n^3 and FTTRI and (c), (d) at n. mesh(label,
+    program, args) runs classify_FTTRI's --mesh dp twin (on the card
+    only). Returns (quality readings, what the kernels' checks need)."""
+    import torch
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.pdb import write_pdb
+    from xmipp3_tpu_torch.core.sampling import compute_sampling_points
+    from xmipp3_tpu_torch.ops.geo import apply_affine_2d
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    f = lambda name: str(root / name)
+    load = lambda name: np.squeeze(Image(f(name)).data)
+    stack = lambda name: np.asarray(Image.read_stack(f(name)))
+    q, extra = {}, {}
+
+    def rows_of(name):
+        return md_rows(f(name))
+
+    # (a) a tomogram and its tilt series
+    t0 = time.perf_counter()
+    fid_px = max(int(round(TM_FID_A / TM_TS)), 3)
+    tilts = np.arange(TM_TILTS[0], TM_TILTS[1] + 1e-6, TM_TILTS[2])
+    pos, ang, state, fid = tomo_geometry(seed, size, thickness, box,
+                                         particles, TM_FIDUCIALS, fid_px)
+    states = analysis_states(box)
+    parts = [phantom(box, b) for b in states]
+    for k, v in enumerate(parts):
+        save_image(f(f"part{k}.vol"), v)
+    for k in (0, 1):
+        sel = state == k
+        MetaData.fromRows(
+            {"xcoor": int(x), "ycoor": int(y), "zcoor": int(z),
+             "angleRot": float(a[0]), "angleTilt": float(a[1]),
+             "anglePsi": float(a[2])} for (x, y, z), a in
+            zip(pos[sel], ang[sel])).write(f(f"coords{k}.xmd"))
+    MetaData.fromRows({"xcoor": int(x), "ycoor": int(y), "zcoor": int(z)}
+                      for x, y, z in fid).write(f("fid.xmd"))
+    q["data_s"] = time.perf_counter() - t0
+    tilt_args = ["--minTilt", TM_TILTS[0], "--maxTilt", TM_TILTS[1],
+                 "--tiltStep", TM_TILTS[2]]
+    for k in (0, 1):
+        run(f"simulate_{k}", "tomo_simulate_tilt_series", [
+            "--coordinates", f(f"coords{k}.xmd"), "--vol", f(f"part{k}.vol"),
+            "--tiltseries", f(f"ts{k}.mrcs"), "--tomogram",
+            f(f"tomo{k}.mrc"), "--xdim", size, "--ydim", size,
+            "--thickness", thickness, *tilt_args, "--sampling", TM_TS]
+            + (["--fiducialCoordinates", f("fid.xmd"), "--fiducialDiameter",
+                TM_FID_A, "--sigmaNoise", TM_NOISE] if k == 0 else []))
+    # the two states' runs summed: one tomogram of both (the noise and the
+    # beads come with the first)
+    t0 = time.perf_counter()
+    series = stack("ts0.mrcs") + stack("ts1.mrcs")
+    truth = load("tomo0.mrc") + load("tomo1.mrc")
+    check(series.shape == (len(tilts), size, size)
+          and truth.shape == (thickness, size, size),
+          f"phase 16 simulator: {series.shape}, {truth.shape}")
+    save_image(f("ts.mrcs"), series)
+    save_image(f("tomo.mrc"), truth)
+    ts_rows = [dict(r, image=r["image"].replace("ts0.mrcs", "ts.mrcs"))
+               for r in rows_of("ts0.xmd")]
+    MetaData.fromRows(ts_rows).write(f("ts.xmd"))
+    # the reconstruction tilts about x (ROADMAP.md section 3, item 25): it
+    # reads the series with each image transposed
+    save_image(f("ts_xtilt.mrcs"),
+               np.ascontiguousarray(series.transpose(0, 2, 1)))
+    MetaData.fromRows(dict(r, image=r["image"].replace("ts.mrcs",
+                                                       "ts_xtilt.mrcs"))
+                      for r in ts_rows).write(f("ts_xtilt.xmd"))
+    # the planted beads in each tilt image (the simulator's paste), the
+    # planted points in the tomogram's index frame
+    ct, st = np.cos(np.deg2rad(tilts)), np.sin(np.deg2rad(tilts))
+    beads2d = np.array([(k, int(x * ct[k] + z * st[k]) + size // 2,
+                         y + size // 2) for k in range(len(tilts))
+                        for x, y, z in fid], np.float64)
+    to_index = lambda p: p + [size // 2, size // 2, thickness // 2]
+    MetaData.fromRows({"xcoor": int(x), "ycoor": int(y), "zcoor": int(z)}
+                      for x, y, z in fid + [size // 2, size // 2, 0]
+                      ).write(f("fid3d.xmd"))
+    MetaData.fromRows({"xcoor": int(x), "ycoor": int(y), "zcoor": int(z)}
+                      for x, y, z in to_index(pos)).write(f("parts3d.xmd"))
+    q["data_s"] += time.perf_counter() - t0
+
+    run("dose_filter", "tomo_tiltseries_dose_filter", [
+        "-i", f("ts.xmd"), "-o", f("dose.mrcs"), "--dosePerImage", TM_DOSE,
+        "--sampling", TM_TS])
+    k = np.sqrt(np.fft.fftfreq(size)[:, None] ** 2
+                + np.fft.rfftfreq(size)[None, :] ** 2) / TM_TS
+    Nc = 0.24499 * np.maximum(k, 1e-6) ** -1.6649 + 2.8141
+    some = [0, len(tilts) // 2, len(tilts) - 1]
+    want = np.stack([np.fft.irfft2(np.fft.rfft2(series[i].astype(np.float64))
+                                   * np.exp(-TM_DOSE * (i + 1) / (2 * Nc)),
+                                   s=(size, size)) for i in some])
+    q["dose_vs_numpy"] = float(np.abs(stack("dose.mrcs")[some] - want).max()
+                               / np.abs(want).max())
+
+    run("landmarks", "tomo_detect_landmarks", [
+        "-i", f("ts.xmd"), "-o", f("lm.xmd"), "--samplingRate", TM_TS,
+        "--fiducialSize", TM_FID_A])
+    lm = rows_of("lm.xmd")
+    found = [(r["frameId"] - 1, r["xcoor"], r["ycoor"]) for r in lm]
+    # a hit lies in the right frame: frames sit 10 * size apart
+    sep = lambda p: np.asarray(p, np.float64).reshape(-1, 3) * [
+        10.0 * size, 1.0, 1.0]
+    rec_, prec_ = hits(sep(found), sep(beads2d), TM_WITHIN)
+    q["landmarks"] = {"found": len(lm), "recall": rec_, "precision": prec_}
+
+    run("residuals", "tomo_calculate_landmark_residuals", [
+        "-i", f("ts.xmd"), "--tlt", f("ts.xmd"), "--inputCoord",
+        f("fid3d.xmd"), "-o", f("res.xmd"), "--samplingRate", TM_TS,
+        "--fiducialSize", TM_FID_A])
+    res = rows_of("res.xmd")
+    r = np.array([np.hypot(x["shiftX"], x["shiftY"]) for x in res])
+    q["residuals"] = {"rows": len(res), "rms_px": float(np.sqrt(
+        (r ** 2).mean())), "zero": float((r == 0).mean())}
+    run("misalignment", "tomo_detect_misalignment_residuals", [
+        "--inputResInfo", f("res.xmd"), "-o", f("verdict.xmd")])
+    q["misalignment_enabled"] = float(np.mean(
+        [x["enabled"] == 1 for x in rows_of("verdict.xmd")]))
+    run("resid_statistics", "tomo_misalignment_resid_statistics", [
+        "-i", f("res.xmd"), "-o", f("stats.xmd")])
+    frames = np.array([x["frameId"] for x in res])
+    stats = rows_of("stats.xmd")
+    q["statistics_vs_numpy"] = max(
+        abs(s["avg"] - r[frames == s["frameId"]].mean())
+        + abs(s["max"] - r[frames == s["frameId"]].max()) for s in stats)
+    q["statistics_frames"] = len(stats)
+
+    run("reconstruct", "tomogram_reconstruction", [
+        "-i", f("ts_xtilt.xmd"), "-o", f("rec.mrc"), "--thickness",
+        thickness])
+    rec = load("rec.mrc")
+    check(rec.shape == (thickness, size, size) and np.isfinite(rec).all(),
+          f"phase 16 tomogram: {rec.shape}")
+    # back to the simulator's frame: x and y swapped, z reversed
+    save_image(f("rec_truth.mrc"),
+               np.ascontiguousarray(rec[::-1].transpose(0, 2, 1)))
+    rec_t = load("rec_truth.mrc")
+    q["tomogram_corr"] = real_corr(lowpass_nd(rec_t, TM_LOWPASS),
+                                   lowpass_nd(truth, TM_LOWPASS))
+    extra["tomogram"] = (np.full(len(tilts), 90.0), tilts,
+                         np.full(len(tilts), -90.0))
+
+    q.update(wedge_and_beads(run, f("rec_truth.mrc"), to_index(fid),
+                             fid_px))
+    q["beads_truth"] = bead_readings(run, "beads_truth", f("tomo.mrc"),
+                                     to_index(fid), fid_px)
+
+    # the program keeps a coordinate whose z lies --radius inside the
+    # tomogram: the radius scales with the thickness
+    radius = TM_FILTER_RADIUS * thickness // TM_Z
+    run("filter_coordinates", "tomo_filter_coordinates", [
+        "--coordinates", f("parts3d.xmd"), "-o", f("filt.xmd"), "--inTomo",
+        f("rec_truth.mrc"), "--radius", radius])
+    rr = int(np.floor(np.sqrt(radius))) + 1
+    off = np.mgrid[-rr:rr + 1, -rr:rr + 1, -rr:rr + 1]
+    ball = (off ** 2).sum(0) <= radius
+    errs = []
+    for row in rows_of("filt.xmd"):
+        x, y, z = (int(row[k]) for k in ("xcoor", "ycoor", "zcoor"))
+        v = rec_t.astype(np.float64)[z + off[0][ball], y + off[1][ball],
+                                     x + off[2][ball]]
+        errs.append(max(abs(row["avg"] - v.mean()) / abs(v).max(),
+                        abs(row["stddev"] - v.std()) / v.std()))
+    q["filter"] = {"kept": len(errs), "vs_numpy": max(errs, default=1.0)}
+
+    # dark particles: the subtomograms are cut with their contrast
+    # inverted, to be held against the particles' positive densities
+    run("extract", "tomo_extract_subtomograms", [
+        "--tomogram", f("rec_truth.mrc"), "--coordinates", f("parts3d.xmd"),
+        "--boxsize", box, "-o", f("sub"), "--invertContrast"])
+    subs = rows_of("sub.xmd")
+    q["extracted"] = len(subs)
+    # the simulator rotates a particle by euler(psi, tilt, rot) of its
+    # row: the average undoes it with those angles swapped
+    key = {tuple(int(r[k]) for k in ("xcoor", "ycoor", "zcoor")): r
+           for r in subs}
+    posed = [[], []]
+    for p, a, s in zip(to_index(pos), ang, state):
+        r = key.get(tuple(int(v) for v in p))
+        if r is not None:
+            posed[s].append(dict(r, angleRot=float(a[2]),
+                                 angleTilt=float(a[1]),
+                                 anglePsi=float(a[0])))
+    MetaData.fromRows(posed[0]).write(f("posed0.xmd"))
+    run("average", "tomo_average_subtomos", [
+        "-i", f("posed0.xmd"), "-o", f("avg.mrc")])
+    q["average_corr"] = real_corr(load("avg.mrc"), parts[0])
+    before = load("rec_truth.mrc")
+    run("map_back", "tomo_map_back", [
+        "-i", f("rec_truth.mrc"), "-o", f("mapback.mrc"), "--geom",
+        f("posed0.xmd"), "--ref", f("part0.vol"), "--method",
+        "highlight", 1])
+    painted = load("mapback.mrc") - before
+    q["map_back_mass"] = float(painted.sum() / (len(posed[0])
+                                                * parts[0].sum()))
+    # the subtraction on the first subtomograms of the same state cut from
+    # the simulated tomogram, whose particles are the posed reference
+    run("extract_truth", "tomo_extract_subtomograms", [
+        "--tomogram", f("tomo.mrc"), "--coordinates", f("parts3d.xmd"),
+        "--boxsize", box, "-o", f("subt"), "--invertContrast"])
+    truth_subs = {tuple(int(r[k]) for k in ("xcoor", "ycoor", "zcoor")):
+                  r["subtomoName"] for r in rows_of("subt.xmd")}
+    MetaData.fromRows(
+        dict(r, subtomoName=truth_subs[tuple(int(r[k]) for k in (
+            "xcoor", "ycoor", "zcoor"))])
+        for r in posed[0][:TM_SUBTRACT]).write(f("sub4.xmd"))
+    run("subtract", "subtomo_subtraction", [
+        "-i", f("sub4.xmd"), "--ref", f("part0.vol"), "--oroot",
+        f("ss"), "--sub", "--saveV1", f("ss_v1.mrc"), "--saveV2",
+        f("ss_v2.mrc")])
+    e_in = sum(float((np.squeeze(Image(r["subtomoName"]).data) ** 2).sum())
+               for r in rows_of("sub4.xmd"))
+    e_out = sum(float((np.squeeze(Image(r["subtomoName"]).data) ** 2).sum())
+                for r in rows_of("ss.xmd"))
+    q["subtraction_energy"] = e_out / e_in
+
+    defocus = np.interp(np.abs(tilts), [0, abs(TM_TILTS[0])], TM_CTF_DEFOCUS)
+    planted = np.fft.irfft2(np.fft.rfft2(series) * np.stack(
+        [plant_ctf(size, TM_TS, d, d + 500.0, 30.0) for d in defocus]),
+        s=(size, size)).astype(np.float32)
+    save_image(f("ts_ctf.mrcs"), planted)
+    MetaData.fromRows(dict(
+        r, image=r["image"].replace("ts.mrcs", "ts_ctf.mrcs"),
+        ctfDefocusU=float(d), ctfDefocusV=float(d) + 500.0,
+        ctfDefocusAngle=30.0, ctfVoltage=CTF_KV, ctfSphericalAberration=CTF_CS,
+        ctfQ0=CTF_Q0, ctfSamplingRate=TM_TS) for r, d in zip(ts_rows, defocus)
+    ).write(f("ts_ctf.xmd"))
+    run("wiener", "tomo_ctf_wiener2d_correction", [
+        "-i", f("ts_ctf.xmd"), "-o", f("wiener.mrcs"), "--sampling", TM_TS])
+    corr = lambda a: float(np.mean([real_corr(x, y)
+                                    for x, y in zip(a, series)]))
+    q["wiener"] = {"raw": corr(planted), "corrected":
+                   corr(stack("wiener.mrcs"))}
+
+    run("project", "tomo_project", [
+        "-i", f("part0.vol"), "-o", f("proj"), "--tiltRange", *TM_TILTS])
+    want = FourierProjector(parts[0], device=device).project_euler(
+        np.full(len(tilts), 90.0, np.float32), tilts.astype(np.float32),
+        np.full(len(tilts), -90.0, np.float32)).cpu().numpy()
+    q["project_vs_projector"] = float(np.abs(stack("proj.mrcs") - want).max()
+                                      / np.abs(want).max())
+    run("particlestacks", "tomo_extract_particlestacks", [
+        "--tiltseries", f("ts.xmd"), "--coordinates", f("parts3d.xmd"),
+        "--boxsize", box, "-o", f("pst")])
+    pst = rows_of("pst/particlestacks.xmd")
+    bad, stacks = 0, {}
+    for r in pst:
+        idx, fn = r["image"].split("@")
+        if fn not in stacks:
+            stacks[fn] = np.asarray(Image.read_stack(fn))
+        t_ = np.deg2rad(r["tiltAngle"])
+        x = int(round((r["xcoor"] - size / 2) * np.cos(t_)
+                      + r["zcoor"] * np.sin(t_) + size / 2))
+        y = int(r["ycoor"])
+        bad += not np.array_equal(
+            stacks[fn][int(idx) - 1],
+            series[r["frameId"] - 1, y - box // 2:y + box // 2,
+                   x - box // 2:x + box // 2])
+    q["particlestacks"] = {"patches": len(pst), "differ": bad}
+
+    # (b) classification
+    t0 = time.perf_counter()
+    sa, sb = (phantom(sub_n, b) for b in analysis_states(sub_n))
+    rng = np.random.default_rng(seed + 47)
+    fr = np.fft.fftfreq(sub_n)
+    fz, _, fx = np.meshgrid(fr, fr, fr, indexing="ij")
+    wedge = torch.as_tensor(np.abs(fz) <= np.abs(fx) * np.tan(
+        np.deg2rad(TM_TILTS[1])) + 1e-9, device=device)
+    sigma = TM_SUB_NOISE * float(np.std(sa))
+    sub_state = rng.integers(0, 2, subtomos)
+    shifts = rng.integers(-TM_SUB_SHIFT, TM_SUB_SHIFT + 1, (subtomos, 3))
+    src = torch.as_tensor(np.stack([sa, sb]), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 47)
+    for lo in range(0, subtomos, 100):
+        noise = sigma * torch.randn((min(100, subtomos - lo),)
+                                    + (sub_n,) * 3, generator=gen,
+                                    device=device)
+        for j in range(len(noise)):
+            i = lo + j
+            v = torch.roll(src[sub_state[i]], tuple(int(s) for s in shifts[i]),
+                           (0, 1, 2))
+            v = torch.fft.ifftn(torch.fft.fftn(v) * wedge).real + noise[j]
+            save_image(f(f"st{i:04d}.vol"), v.cpu().numpy())
+    MetaData.fromRows({"image": f(f"st{i:04d}.vol"), "itemId": i + 1}
+                      for i in range(subtomos)).write(f("subtomos.xmd"))
+    q["sub_data_s"] = time.perf_counter() - t0
+    prog = run("cltomo", "classify_CLTomo_prog", [
+        "-i", f("subtomos.xmd"), "-o", f("cltomo.xmd"), "--oroot",
+        f("cltomo_"), "--nref", 2])
+    q["cltomo_purity"] = class_purity(prog.labels, sub_state)[0]
+
+    t0 = time.perf_counter()
+    _, clean, noise, crec = classify_views(n, fttri_views, seed, device)
+    write_views(root, "fttri", clean + noise)
+    q["fttri_data_s"] = time.perf_counter() - t0
+    ft_args = ["-i", f("fttri.xmd"), "--oroot", f("ft"), "--nref", CLS_DIRS]
+    prog = run("fttri", "classify_FTTRI", ft_args)
+    q["fttri_purity"], q["fttri_won"] = class_purity(prog.labels,
+                                                    crec["label"])
+    if mesh is not None:
+        mesh("fttri_mesh", "classify_FTTRI",
+             ["-i", f("fttri.xmd"), "--oroot", f("ftm"), "--nref", CLS_DIRS])
+        q["fttri_mesh_equal"] = [r["ref"] for r in rows_of("ftm_classes.xmd")
+                                 ] == [r["ref"] for r in
+                                       rows_of("ft_classes.xmd")]
+
+    # (c) an initial volume from phase 4's views
+    t0 = time.perf_counter()
+    p4, rng4 = cycle_poses(seed)
+    take = slice(0, anneal_views)
+    clean = projections(n, *(p4[k][take] for k in
+                             ("rot", "tilt", "psi", "sx", "sy")),
+                        scaled_blobs(BLOBS8, n), device=device)
+    views = clean + (0.5 * clean.std()) * rng4.standard_normal(
+        clean.shape, dtype=np.float32)
+    write_views(root, "anneal", views)
+    ref = phantom(n, scaled_blobs(BLOBS8, n))
+    save_image(f("phantom.vol"), ref)
+    q["anneal_data_s"] = time.perf_counter() - t0
+    run("anneal", "volume_initial_simulated_annealing", [
+        "-i", f("anneal.xmd"), "--oroot", f("sa")])
+    run("anneal_align", "volume_align", [
+        "--i1", f("phantom.vol"), "--i2", f("sa.vol"), "--frm",
+        "--consider_mirror", "--apply", f("sa_aligned.vol")])
+    q["anneal_corr"] = real_corr(load("sa_aligned.vol"), ref)
+    dirs = compute_sampling_points(20.0)
+    extra["anneal"] = (ref, views, dirs)
+
+    # (d) the tilt pairs, the model programs and the tests
+    u, t, truth_idx = tilt_pair_coordinates(seed, TM_PAIRS, TM_PAIR_TILT)
+    (root / "pairs").mkdir()
+    for name, P_ in (("u.xmd", u), ("t.xmd", t)):
+        MetaData.fromRows({"xcoor": int(x), "ycoor": int(y)} for x, y in P_
+                          ).write(f(name))
+    run("assign_pairs", "image_assignment_tilt_pair", [
+        "--untiltcoor", f("u.xmd"), "--tiltcoor", f("t.xmd"), "--odir",
+        f("pairs"), "--tiltangle", TM_PAIR_TILT])
+    ua = [(r["xcoor"], r["ycoor"]) for r in rows_of("pairs/untilted_assigned.xmd")]
+    ta = [(r["xcoor"], r["ycoor"]) for r in rows_of("pairs/tilted_assigned.xmd")]
+    ui = {(int(x), int(y)): i for i, (x, y) in enumerate(u)}
+    ti = {(int(x), int(y)): j for j, (x, y) in enumerate(t)}
+    right = sum(truth_idx[ui[a]] == ti[b] for a, b in zip(ua, ta))
+    q["pairs"] = {"assigned": len(ua), "recall": right / TM_PAIRS,
+                  "precision": right / max(len(ua), 1)}
+
+    pr = FourierProjector(ref, device=device).project_euler(
+        [0.0], [0.0], [0.0]).cpu().numpy()[0]
+    save_image(f("untilted.xmp"), pr)
+    prng = np.random.default_rng(seed + 45)
+    plant = prng.uniform(-TM_PAIR_SHIFT, TM_PAIR_SHIFT, (TM_PAIRS, 2))
+    cosT = np.cos(np.deg2rad(TM_PAIR_TILT))
+    A = np.tile(np.eye(3, dtype=np.float32), (TM_PAIRS, 1, 1))
+    A[:, 0, 0] = cosT
+    A[:, :2, 2] = plant
+    tilted = apply_affine_2d(np.broadcast_to(pr, (TM_PAIRS, n, n)), A,
+                             device=device).cpu().numpy()
+    tilted += 0.1 * pr.std() * prng.standard_normal(tilted.shape,
+                                                     dtype=np.float32)
+    save_image(f("tilted.mrcs"), tilted)
+    MetaData.fromRows({"image": f("untilted.xmp"),
+                       "imageTilted": f"{i + 1:06d}@{f('tilted.mrcs')}",
+                       "angleTilt": TM_PAIR_TILT} for i in range(TM_PAIRS)
+                      ).write(f("tiltpairs.xmd"))
+    run("align_pairs", "image_align_tilt_pairs", [
+        "-i", f("tiltpairs.xmd"), "-o", f("tiltpairs_al.xmd"), "--ref",
+        f("untilted.xmp")])
+    al = rows_of("tiltpairs_al.xmd")
+    got = np.array([[r["shiftX"], r["shiftY"]] for r in al])
+    q["align_pairs"] = {"enabled": float(np.mean([r["enabled"] for r in al])),
+                        "shift_err_px": float(np.median(np.hypot(
+                            *(got + plant).T)))}
+
+    model = synthetic_model(ANG_PDB_ATOMS, seed)
+    write_pdb(f("model.pdb"), model)
+    run("transform", "phantom_transform", [
+        "-i", f("model.pdb"), "-o", f("moved.pdb"), "--operation",
+        "rotate_euler", *TM_TRANSFORM])
+    M = zyz64(*TM_TRANSFORM)
+    moved = np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])]
+                      for ln in open(f("moved.pdb"))
+                      if ln.startswith(("ATOM", "HETATM"))])
+    orig = np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])]
+                     for ln in open(f("model.pdb"))
+                     if ln.startswith(("ATOM", "HETATM"))])
+    q["transform_err_A"] = float(np.abs(moved - orig @ M.T).max())
+
+    run("web", "volume_to_web", [
+        "-i", f("phantom.vol"), "--central_slices", f("slices.xmp"), 8,
+        "--projections", f("projs.xmp"), "--maxWidth", 3 * (n + 2)])
+    web = load("projs.xmp")
+    want = np.concatenate([ref.sum(axis=a) for a in (0, 1, 2)], axis=1)
+    q["web_vs_numpy"] = float(np.abs(np.delete(web, [n, n + 1, 2 * n + 2,
+                                                     2 * n + 3], axis=1)
+                                     - want).max() / np.abs(want).max())
+
+    bf = np.random.default_rng(seed + 49).uniform(10, 90, ANG_PDB_ATOMS)
+    with open(f("ca.pdb"), "w") as fh:
+        for i, (x, y, z) in enumerate(model.coords):
+            fh.write(f"ATOM  {i + 1:5d}  CA  ALA A{i + 1:4d}    "
+                     f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00{bf[i]:6.2f}"
+                     f"           C\n")
+    g = np.arange(VL_N) - VL_N // 2
+    locres = (2.0 + np.sqrt(g[:, None, None] ** 2 + g[None, :, None] ** 2
+                            + g[None, None, :] ** 2) / 8.0).astype(np.float32)
+    save_image(f("locres.vol"), locres)
+    run("bfactor", "resolution_pdb_bfactor", [
+        "--atmodel", f("ca.pdb"), "--vol", f("locres.vol"), "-o",
+        f("bfactor.xmd"), "--centered", "--sampling", 1])
+    want = {}
+    for i, (x, y, z) in enumerate(model.coords):
+        p = np.array([float(f"{x:8.3f}"), float(f"{y:8.3f}"),
+                      float(f"{z:8.3f}")]) + VL_N // 2
+        iz, iy, ix = (int(round(p[k])) for k in (2, 1, 0))
+        if all(1 <= v < VL_N - 1 for v in (iz, iy, ix)):
+            want[i + 1] = float(np.mean(locres[iz - 1:iz + 2, iy - 1:iy + 2,
+                                               ix - 1:ix + 2]))
+    got = {r["residue"]: r["resolution"] for r in rows_of("bfactor.xmd")}
+    q["bfactor"] = {"residues": len(got), "same_residues": set(got) ==
+                    set(want), "vs_numpy": max((abs(got[k] - want[k]) for k
+                                                in want if k in got),
+                                               default=1.0)}
+
+    prog = run("performance", "performance_test", ["--size", 4 * n,
+                                                   "--batch", 32])
+    q["performance"] = prog.results
+    prog = run("write", "write_test", ["--size", 256, "-o", f("wt.mrcs")])
+    q["write_MB_s"] = prog.mb_per_s
+    return q, extra
+
+
+def tomography(seed, root: Path):
+    """Phase 16 in root: the 28 programs of the tomography slice, the tail
+    of flex_misc_ext and the three tilt programs through their CLI on the
+    card (classify_FTTRI also with --mesh dp over 2 gloo ranks); only
+    tomogram_reconstruction (K3) and volume_initial_simulated_annealing
+    (K3 in its SIRT passes, K4 in its greedy matching) may launch a kernel.
+    K3 is held against its plain version at the tomogram's one launch, K4
+    at one trial of the annealing's greedy scan. Returns the two kernels'
+    entries."""
+    from xmipp3_tpu_torch.core import timing
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    root.mkdir(parents=True)
+    report = {}
+    limit = Limits(16)
+    kernel_of = {"reconstruct": {"kb_scatter_3ch"},
+                 "anneal": {"kb_scatter_3ch", "cross_spectrum"}}
+
+    def run(label, name, args):
+        prog = run_program(16, report, label, name, args)
+        got = set(report[label]["launches"])
+        check(got == kernel_of.get(label, set()),
+              f"phase 16 {label}: launched {got}, expected "
+              f"{kernel_of.get(label) or 'no kernel'}")
+        return prog
+
+    def mesh(label, name, args):
+        for r, rep in enumerate(run_mesh(report, root, label, name, args)):
+            got = {k: v for k, v in rep["launches"].items() if v}
+            check(not got, f"phase 16 {label} rank {r}: launched {got}")
+
+    start = time.perf_counter()
+    timing.enable_timing(True)
+    try:
+        q, extra = tomo_readings(seed, root, run, DEVICE, mesh=mesh)
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    report["quality"] = q
+    report["phase_s"] = time.perf_counter() - start
+    # the tomogram's one launch: every tilt image at N = TM_SIZE
+    k3 = grid_at_views("kb_scatter_3ch_tomogram", "kb", *extra["tomogram"],
+                       seed, chunk=RM_KB_CHUNK, reps=10, phase=16,
+                       n=TM_SIZE, p=2 * TM_SIZE)
+    k3["launches"] = report["reconstruct"]["launches"]["kb_scatter_3ch"]
+    ref, views, dirs = extra["anneal"]
+    gallery = FourierProjector(ref, device=DEVICE).project_euler(
+        dirs[:, 0].astype(np.float32), dirs[:, 1].astype(np.float32),
+        np.zeros(len(dirs), np.float32))
+    k4 = cross_at_trial_shape("cross_spectrum_initial_volume", gallery,
+                              views)
+    k4["launches"] = report["anneal"]["launches"]["cross_spectrum"]
+    report["kernels"] = {k["name"]: {x: k[x] for x in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "launches")}
+        for k in (k3, k4)}
+    log(f"  phase 16 took {report['phase_s']:.2f} s")
+    log("tomo " + json.dumps(report))
+    L = TM_LIMITS
+    n_tilts = len(extra["tomogram"][1])
+    limit(q["dose_vs_numpy"] <= TM_TOL, f"phase 16 dose filter: "
+          f"{q['dose_vs_numpy']:.2e} off numpy")
+    for k in ("landmarks", "beads_truth", "pairs"):
+        limit(q[k]["recall"] >= L[k]["recall"]
+              and q[k]["precision"] >= L[k]["precision"],
+              f"phase 16 {k}: {q[k]} (limits {L[k]})")
+    limit(q["residuals"]["rms_px"] <= L["residuals_rms_px"],
+          f"phase 16 residuals: {q['residuals']}")
+    limit(q["misalignment_enabled"] >= L["misalignment_enabled"],
+          f"phase 16 misalignment: {q['misalignment_enabled']}")
+    limit(q["statistics_vs_numpy"] <= TM_MD_TOL
+          and q["statistics_frames"] == n_tilts,
+          f"phase 16 statistics: {q['statistics_vs_numpy']:.2e}, "
+          f"{q['statistics_frames']} frames")
+    limit(q["tomogram_corr"] >= L["tomogram_corr"], f"phase 16 tomogram: "
+          f"corr {q['tomogram_corr']:.4f} (limit {L['tomogram_corr']})")
+    off = [plane_angle(p, r) for p, r in zip(q["wedge_planes"],
+                                             TM_REF_WEDGE_PLANES)]
+    limit(max(off) <= TM_WEDGE_PLANE_TOL, f"phase 16 missing wedge: planes "
+          f"{q['wedge_planes']} are {off} degrees off the reference's")
+    same = hits(q["beads"]["xyz"], np.array(TM_REF_BEADS, np.float64), 1.0)
+    limit(same == (1.0, 1.0), f"phase 16 beads: {q['beads']['xyz']} against "
+          f"the reference's {TM_REF_BEADS} (recall, precision {same})")
+    limit(q["filter"]["kept"] == TM_PARTICLES
+          and q["filter"]["vs_numpy"] <= TM_MD_TOL, f"phase 16 filter: "
+          f"{q['filter']}")
+    limit(q["extracted"] == TM_PARTICLES, f"phase 16 extracted "
+          f"{q['extracted']} of {TM_PARTICLES}")
+    limit(q["average_corr"] >= L["average_corr"], f"phase 16 average: "
+          f"corr {q['average_corr']:.4f} (limit {L['average_corr']})")
+    limit(abs(q["map_back_mass"] - 1) <= L["map_back_mass"],
+          f"phase 16 map_back: mass ratio {q['map_back_mass']:.4f}")
+    limit(q["subtraction_energy"] <= L["subtraction_energy"],
+          f"phase 16 subtraction: energy ratio "
+          f"{q['subtraction_energy']:.4f}")
+    limit(q["wiener"]["corrected"] > q["wiener"]["raw"],
+          f"phase 16 wiener: {q['wiener']}")
+    limit(q["project_vs_projector"] <= 1e-5, f"phase 16 tomo_project: "
+          f"{q['project_vs_projector']:.2e} off FourierProjector")
+    limit(q["particlestacks"]["patches"] > 0
+          and q["particlestacks"]["differ"] == 0,
+          f"phase 16 particle stacks: {q['particlestacks']}")
+    limit(q["cltomo_purity"] >= L["cltomo_purity"], f"phase 16 CLTomo: "
+          f"purity {q['cltomo_purity']:.4f}")
+    limit(q["fttri_purity"] >= L["fttri_purity"]
+          and q["fttri_won"] >= L["fttri_won"]
+          and q["fttri_mesh_equal"], f"phase 16 FTTRI: purity "
+          f"{q['fttri_purity']:.4f}, {q['fttri_won']} won, mesh equal "
+          f"{q['fttri_mesh_equal']}")
+    limit(q["anneal_corr"] >= L["anneal_corr"], f"phase 16 annealing: "
+          f"corr {q['anneal_corr']:.4f} (limit {L['anneal_corr']})")
+    limit(q["align_pairs"]["enabled"] >= L["align_pairs"]["enabled"]
+          and q["align_pairs"]["shift_err_px"]
+          <= L["align_pairs"]["shift_err_px"],
+          f"phase 16 align_tilt_pairs: {q['align_pairs']}")
+    limit(q["transform_err_A"] <= 1e-3, f"phase 16 phantom_transform: "
+          f"{q['transform_err_A']:.2e} A")
+    limit(q["web_vs_numpy"] <= TM_TOL, f"phase 16 volume_to_web: "
+          f"{q['web_vs_numpy']:.2e}")
+    limit(q["bfactor"]["same_residues"] and q["bfactor"]["vs_numpy"]
+          <= TM_MD_TOL, f"phase 16 resolution_pdb_bfactor: {q['bfactor']}")
+    limit(all(np.isfinite(v) and v > 0 for v in
+              q["performance"].values()) and q["write_MB_s"] > 0,
+          f"phase 16 tests: {q['performance']}, {q['write_MB_s']}")
+    limit.check()
+    return [k3, k4]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--mesh-rank"]:
-        return mesh_rank(argv[1:])
+        return mesh_rank()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -6361,6 +7211,7 @@ def main(argv=None) -> int:
     reports = _cuda_build.build()
     log(f"phase 1: built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s")
+    warm_ranks()
     for name, rep in sorted(reports.items()):
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -6412,6 +7263,9 @@ def main(argv=None) -> int:
         log("phase 15: Zernike3D and NMA flexibility (volumes, per-particle "
             "fits, NMA, subtomograms and ART)")
         flex_kernels = flexibility(args.seed, root / "flex")
+        log("phase 16: tomography, the tail of flex_misc_ext and the tilt "
+            "programs")
+        tomo_kernels = tomography(args.seed, root / "tomo")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -6424,6 +7278,7 @@ def main(argv=None) -> int:
     kernels.append(angular_kernel)
     kernels += split_kernels
     kernels += flex_kernels
+    kernels += tomo_kernels
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,9 @@ Tolerances, relative to the max of the reference's output where not said:
 - compare_views: 5e-5 (correlations of float32 projections);
   resolution_ssnr: the table's ratios 1e-4 relative, its dB columns 1e-3
   dB; the VSSNR, a ratio of power ratios, 1e-4 of its max on all but 0.1 %
-  of the voxels and 5e-3 on every voxel (read: 8 of 32,768 voxels above
-  1e-4, the worst 2.6e-3);
+  of the voxels (read: 6-8 of 32,768 voxels above 1e-4), and every voxel
+  within 64 float32 roundings, scaled by its conditioning, of the same
+  VSSNR in float64 (read: at most 0.38 of that bound; the reference 0.08);
 - angular_commonline: --tryInitial's energy 1e-5; the search the same
   angles for >= 6 of the 8 images (argmax over a candidate grid), the
   energy 1e-3.
@@ -548,6 +549,116 @@ def _table(path):
     return np.loadtxt(str(path), comments=";")
 
 
+# The VSSNR is 10 log10 of a ratio of power ratios; where one of a view's
+# four |FFT|^2 planes is small at a frequency, the quotient amplifies the
+# float32 roundoff of either package's FFTs (the two packages read
+# 5.128e-3 of the max apart on one voxel on one host, 2.6e-3 on another).
+# So each voxel of the port's VSSNR is held to the same VSSNR computed in
+# float64 (_vssnr_f64), within VSSNR_ROUNDINGS * u * cond + 1e-4 of the
+# max: u = 2^-24; cond the voxel's dB change per unit relative error of a
+# plane's |FFT| coefficients, (20 / ln 10) * the sum over the four powers
+# of sqrt(mean power / power), the RMS roundoff of an FFT being spread
+# over the plane; VSSNR_ROUNDINGS = 64 bounds the roundings of u along
+# one coefficient's chain (the padded 64^3 cube's FFT, 18 butterfly
+# stages; the 8-tap gather; irfft2 and fft2, 10 stages each; the
+# residual and the quotient). The port read at most 25 u * cond; the 1e-4
+# floor is what the share check allows a well-conditioned voxel.
+VSSNR_ROUNDINGS = 64
+
+
+def _zyz64(rot, tilt, psi):
+    """ZYZ Euler matrices (B, 3, 3) in float64 (core.geometry's formula)."""
+    a, b, g = (np.deg2rad(np.asarray(x, np.float64)) for x in (rot, tilt, psi))
+    c1, s1, c2, s2, c3, s3 = (np.cos(a), np.sin(a), np.cos(b), np.sin(b),
+                              np.cos(g), np.sin(g))
+    return np.stack([
+        np.stack([c3 * c2 * c1 - s3 * s1, c3 * c2 * s1 + s3 * c1, -c3 * s2], -1),
+        np.stack([-s3 * c2 * c1 - c3 * s1, -s3 * c2 * s1 + c3 * c1, s3 * s2],
+                 -1),
+        np.stack([s2 * c1, s2 * s1, c2], -1)], axis=-2)
+
+
+def _project64(vol, mats):
+    """Fourier central-slice projections in float64: the volume padded
+    twice, its centred FFT, a trilinear gather of each slice, irfft2."""
+    n = vol.shape[-1]
+    lo = n // 2 + n % 2
+    vf = np.fft.fftshift(np.fft.fftn(np.fft.ifftshift(np.pad(
+        vol.astype(np.float64), [(lo, n - lo)] * 3))))
+    P, c = 2 * n, n
+    kx = (np.fft.rfftfreq(n) * P)[None, None, :]
+    ky = (np.fft.fftfreq(n) * P)[None, :, None]
+    M = mats[:, :, :, None, None]
+    pos = [kx * M[:, 0, a] + ky * M[:, 1, a] + c for a in (2, 1, 0)]
+    p0 = [np.floor(p).astype(np.int64) for p in pos]
+    fr = [p - q for p, q in zip(pos, p0)]
+    out = 0.0
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                q = [p0[0] + dz, p0[1] + dy, p0[2] + dx]
+                w = np.ones_like(fr[0])
+                for f, dd in zip(fr, (dz, dy, dx)):
+                    w = w * (f if dd else 1 - f)
+                ok = np.all([(a >= 0) & (a < P) for a in q], axis=0)
+                q = [np.clip(a, 0, P - 1) for a in q]
+                out = out + np.where(ok, w, 0.0) * vf[q[0], q[1], q[2]]
+    return np.fft.fftshift(np.fft.irfft2(out, s=(n, n)), axes=(-2, -1))
+
+
+def _vssnr_f64(fn_signal, fn_noise, fn_sel_s, fn_sel_n, min_power=1e-10):
+    """The VSSNR of resolution_ssnr --gen_VSSNR in float64 numpy: per view
+    10 log10(max(issnr / alpha - 1, 0) + 1) of the four |FFT|^2 planes,
+    trilinearly scattered into the centred 3-D grid and averaged."""
+    vS = np.squeeze(Image(str(fn_signal)).data)
+    vN = np.squeeze(Image(str(fn_noise)).data)
+    rs, rn = rows(fn_sel_s), rows(fn_sel_n)
+    ang = [np.array([float(r.get(k, 0.0)) for r in rs], np.float32)
+           for k in ("angleRot", "angleTilt", "anglePsi")]
+    mats = _zyz64(*ang)
+    load = lambda rr: np.stack([np.squeeze(Image(r["image"]).data)
+                                for r in rr]).astype(np.float64)
+    pS, pN = _project64(vS, mats), _project64(vN, mats)
+    pw = lambda x: np.abs(np.fft.fft2(x)) ** 2
+    S2s, N2s = pw(pS), pw(load(rs) - pS)
+    S2n, N2n = pw(pN), pw(load(rn) - pN)
+    issnr = np.where(N2s > min_power, S2s / np.maximum(N2s, 1e-300), 0.0)
+    alpha = np.where(N2n > min_power, S2n / np.maximum(N2n, 1e-300), 0.0)
+    ssnr = np.where(alpha > min_power, np.maximum(
+        issnr / np.maximum(alpha, 1e-30) - 1.0, 0.0), 0.0)
+    maps = 10.0 * np.log10(ssnr + 1.0)
+    # dB per unit relative error of a plane's |FFT| (u = 1): 20/ln 10 times
+    # the sum over the four powers of sqrt(mean power / power)
+    cond = (20.0 / np.log(10.0)) * sum(
+        np.sqrt(m / np.maximum(x, 1e-30 * m))
+        for x in (S2s, N2s, S2n, N2n)
+        for m in [x.mean(axis=(1, 2), keepdims=True)])
+    B, n, _ = maps.shape
+    f = np.fft.fftfreq(n) * n
+    fy, fx = np.meshgrid(f, f, indexing="ij")
+    p = (fx.reshape(1, -1, 1) * mats[:, None, 0]
+         + fy.reshape(1, -1, 1) * mats[:, None, 1] + n // 2).reshape(-1, 3)
+    v = maps.reshape(-1)
+    k = cond.reshape(-1)
+    p0 = np.floor(p).astype(np.int64)
+    fr = p - p0
+    sums, ksum, wsum = np.zeros(n ** 3), np.zeros(n ** 3), np.zeros(n ** 3)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                q = p0 + np.array([dx, dy, dz])
+                w = (np.abs(1 - dx - fr[:, 0]) * np.abs(1 - dy - fr[:, 1])
+                     * np.abs(1 - dz - fr[:, 2]))
+                w = np.where(((q >= 0) & (q < n)).all(axis=1), w, 0.0)
+                q = np.clip(q, 0, n - 1)
+                idx = (q[:, 2] * n + q[:, 1]) * n + q[:, 0]
+                np.add.at(sums, idx, w * v)
+                np.add.at(ksum, idx, w * k)
+                np.add.at(wsum, idx, w)
+    wsum = np.maximum(wsum, 1e-12)
+    return (sums / wsum).reshape(n, n, n), (ksum / wsum).reshape(n, n, n)
+
+
 def test_resolution_ssnr_matches_the_reference(data):
     d = data
     noise = np.random.default_rng(4).standard_normal((B, N, N)) \
@@ -576,7 +687,12 @@ def test_resolution_ssnr_matches_the_reference(data):
     # small, float32 roundoff moves a few voxels by more
     v_t, v_j = stack(d / "t" / "vssnr.vol"), stack(d / "j" / "vssnr.vol")
     err = np.abs(v_t - v_j) / np.abs(v_j).max()
-    assert (err > 1e-4).mean() <= 1e-3 and err.max() <= 5e-3
+    assert (err > 1e-4).mean() <= 1e-3
+    # so each voxel is held to the float64 VSSNR within its conditioning
+    want, cond = _vssnr_f64(d / "vol.vol", d / "noise.vol", d / "exact.xmd",
+                            d / "noise.xmd")
+    bound = VSSNR_ROUNDINGS * 2.0 ** -24 * cond + 1e-4 * np.abs(want).max()
+    assert (np.abs(v_t - want) <= bound).all()
     both("resolution_ssnr", lambda t: [
         "--radial_avg", "--VSSNR", str(d / "j" / "vssnr.vol"), "-o",
         str(d / t / "radial.txt"), "--ring", "2"])
@@ -640,17 +756,21 @@ def test_the_registry_holds_115_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
     import test_torch_cli_analysis as analysis
     import test_torch_cli_flex as flex
+    import test_torch_cli_flex_tail as flex_tail
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
+    import test_torch_cli_tomo as tomo
     import test_torch_cli_volume as volume
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
     # the endpoints of later slices (tests/test_torch_cli_analysis.py,
     # tests/test_torch_cli_micrograph.py, tests/test_torch_cli_misc.py,
-    # tests/test_torch_cli_volume.py, tests/test_torch_cli_flex.py) aside
+    # tests/test_torch_cli_volume.py, tests/test_torch_cli_flex.py,
+    # tests/test_torch_cli_flex_tail.py, tests/test_torch_cli_tomo.py)
+    # aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
                           for m in (analysis, micrograph, misc, volume,
-                                    flex)))
+                                    flex, flex_tail, tomo)))
     assert len(names - later) == 115 and len(set(ALIASES) - later) == 37
 
 

@@ -260,11 +260,13 @@ def test_eighteen_aliases_and_six_programs_are_registered():
     import test_torch_cli_analysis as analysis
     import test_torch_cli_angular as angular
     import test_torch_cli_flex as flex
+    import test_torch_cli_flex_tail as flex_tail
     import test_torch_cli_misc as misc
+    import test_torch_cli_tomo as tomo
     import test_torch_cli_volume as volume
     later |= set().union(*(set(m.NEW_ALIASES)
                            for m in (angular, analysis, misc, volume,
-                                     flex)))
+                                     flex, flex_tail, tomo)))
     assert len(set(ALIASES) - {"ctf_correct_phase",
                                "cuda_movie_alignment_correlation"}
                - later) == 18

@@ -805,18 +805,21 @@ def test_the_registry_holds_85_endpoints():
     import test_torch_cli_analysis as analysis
     import test_torch_cli_angular as angular
     import test_torch_cli_flex as flex
+    import test_torch_cli_flex_tail as flex_tail
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
+    import test_torch_cli_tomo as tomo
     import test_torch_cli_volume as volume
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
     # the endpoints of later slices (tests/test_torch_cli_angular.py,
     # tests/test_torch_cli_analysis.py, tests/test_torch_cli_micrograph.py,
     # tests/test_torch_cli_misc.py, tests/test_torch_cli_volume.py,
-    # tests/test_torch_cli_flex.py) aside
+    # tests/test_torch_cli_flex.py, tests/test_torch_cli_flex_tail.py,
+    # tests/test_torch_cli_tomo.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
                           for m in (angular, analysis, micrograph, misc,
-                                    volume, flex)))
+                                    volume, flex, flex_tail, tomo)))
     assert len(names - later) == 85 and len(set(ALIASES) - later) == 27
 
 

@@ -346,16 +346,21 @@ def test_alias_dispatches_to_its_program(alias):
 
 def test_the_registry_holds_161_endpoints():
     import test_torch_cli_flex as flex
+    import test_torch_cli_flex_tail as flex_tail
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
+    import test_torch_cli_tomo as tomo
     from xmipp3_tpu_torch.programs import list_programs
     names = set(list_programs())
     new = set(NEW) | set(micrograph.NEW) | set(misc.NEW)
     aliases = set(NEW_ALIASES) | set(misc.NEW_ALIASES)
     assert len(new) == 18 and len(aliases) == 3
     assert new | aliases <= names
-    # the endpoints of the later slice (tests/test_torch_cli_flex.py) aside
-    later = set(flex.NEW) | set(flex.NEW_ALIASES)
+    # the endpoints of the later slices (tests/test_torch_cli_flex.py,
+    # tests/test_torch_cli_flex_tail.py, tests/test_torch_cli_tomo.py)
+    # aside
+    later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
+                          for m in (flex, flex_tail, tomo)))
     assert len(names - later) == 161 and len(set(ALIASES) - later) == 46
 
 

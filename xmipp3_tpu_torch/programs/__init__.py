@@ -178,6 +178,45 @@ _REGISTRY: dict[str, str] = {
         _P + "flex_misc_ext:ProgForwardArtZernike3DSubtomos",
     "cuda11_forward_art_zernike3d":
         _P + "flex_misc_ext:ProgCuda11ForwardArtZernike3D",
+    "classify_FTTRI": _P + "flex_misc_ext:ProgClassifyFTTRI",
+    "classify_CLTomo_prog": _P + "flex_misc_ext:ProgClassifyCLTomo",
+    "volume_initial_simulated_annealing":
+        _P + "flex_misc_ext:ProgVolumeInitialSimulatedAnnealing",
+    "phantom_transform": _P + "flex_misc_ext:ProgPhantomTransform",
+    "volume_to_web": _P + "flex_misc_ext:ProgVolumeToWeb",
+    "resolution_pdb_bfactor": _P + "flex_misc_ext:ProgResolutionPdbBfactor",
+    "performance_test": _P + "flex_misc_ext:ProgPerformanceTest",
+    "write_test": _P + "flex_misc_ext:ProgWriteTest",
+    "tomo_project": _P + "tomo_programs:ProgTomoProject",
+    "project_tomography": _P + "tomo_programs:ProgTomoProject",
+    "tomo_simulate_tilt_series":
+        _P + "tomo_programs:ProgTomoSimulateTiltSeries",
+    "tomo_extract_subtomograms":
+        _P + "tomo_programs:ProgTomoExtractSubtomograms",
+    "tomo_average_subtomos": _P + "tomo_programs:ProgTomoAverageSubtomos",
+    "tomo_tiltseries_dose_filter":
+        _P + "tomo_programs:ProgTomoTiltseriesDoseFilter",
+    "tomo_detect_missing_wedge":
+        _P + "tomo_programs:ProgTomoDetectMissingWedge",
+    "tomogram_reconstruction": _P + "tomo_misc:ProgTomogramReconstruction",
+    "tomo_detect_landmarks": _P + "tomo_misc:ProgTomoDetectLandmarks",
+    "tomo_filter_coordinates": _P + "tomo_misc:ProgTomoFilterCoordinates",
+    "tomo_map_back": _P + "tomo_misc:ProgTomoMapBack",
+    "tomo_ctf_wiener2d_correction":
+        _P + "tomo_misc:ProgTomoCtfWiener2DCorrection",
+    "subtomo_subtraction": _P + "tomo_misc:ProgSubtomoSubtraction",
+    "tomo_calculate_landmark_residuals":
+        _P + "tomo_landmark_residuals:ProgTomoCalculateLandmarkResiduals",
+    "tomo_detect_misalignment_residuals":
+        _P + "tomo_landmark_residuals:ProgTomoDetectMisalignmentResiduals",
+    "tomo_extract_particlestacks":
+        _P + "tomo_landmark_residuals:ProgTomoExtractParticlestacks",
+    "image_align_tilt_pairs": _P + "align_tilt_pairs:ProgAlignTiltPairs",
+    "tomo_misalignment_resid_statistics":
+        _P + "scripts_misc:ProgTomoMisalignmentResidStatistics",
+    "image_peak_high_contrast": _P + "final_batch:ProgImagePeakHighContrast",
+    "image_assignment_tilt_pair":
+        _P + "final_batch:ProgImageAssignmentTiltPair",
 }
 
 # the reference's aliases of these programs (programs/registry.py:177,
@@ -238,6 +277,11 @@ ALIASES: dict[str, str] = {
     "mpi_nma_alignment_vol": "nma_alignment_vol",
     "mpi_nma_alignment": "nma_alignment",
     "mpi_forward_zernike_subtomos": "forward_zernike_subtomos",
+    "mpi_classify_FTTRI": "classify_FTTRI",
+    "mpi_classify_CLTomo_prog": "classify_CLTomo_prog",
+    "mpi_performance_test": "performance_test",
+    "mpi_write_test": "write_test",
+    "mpi_subtomo_subtraction": "subtomo_subtraction",
 }
 _REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 
