@@ -436,7 +436,49 @@ Phases; any failure exits non-zero before the result line is printed:
    samples), K4 at one trial of the annealing's greedy scan. A `tomo
    {...}` line gives each program's wall, phases, untimed rest, launches
    and peak device memory, and the quality.
-17. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+17. The long tail through the CLI: the 39 endpoints of the deep programs,
+   the rest of final_batch and scripts_misc, matlab_bridge and the infra
+   programs, all but sync_data (a network fetch), and compile only where
+   the host has g++; no kernel may launch in it. (a) The deep programs
+   train with --train on numpy recipes and score held-out data:
+   deep_consensus on 500 particle and 500 noise boxes at 64^2 (views of
+   the 8-blob phantom, noise of 1 sigma; 10 epochs; 1,000 candidates
+   scored), deep_global_assignment on 1,000 views at 64^2 without psi or
+   shifts (15 epochs) and _predict on 500 more (the median angular
+   error), deep_micrograph_cleaner on a 4096^2 micrograph of phase 14's
+   recipe with a 1,024-column carbon strip (250 + 250 training patches,
+   10 epochs; --boxSize 64; the mask's pixel accuracy), deep_hand on 4
+   random blob sets at 64^3 x 8 augmentations (10 epochs; a held-out set
+   and its mirror),
+   deepRes_resolution on 8 maps at 64^3 low-passed to 3-10 A (--patch 16)
+   applied to a 128^3 map of two zones (4 and 8 A; each zone's median),
+   deep_misalignment_detection on 400 + 400 subtomograms at 32^3 (aligned
+   within 1 px, or turned; held-out accuracy), deep_volume_postprocessing
+   on 4 blurred, noisy pairs at 64^3 applied to a 128^3 map (its
+   correlation with the clean map, above the input's). Each trained
+   model's predictions on the card are held against the port's CPU
+   forward on the same weights (1e-4 * max). (b) compare_density of a blob
+   and the blob with a satellite at 128^3 (--degstep 10),
+   ctf_correct_wiener3d of two CTF groups of the 8-blob map at 128^3,
+   transform_adjust_volume_grey_levels --optimize on 500 planted views
+   (a, b recovered), volume_consensus of three noisy copies,
+   volumeset_align of 8 maps at 64^3 turned by planted rotations on its
+   --step 30 grid, the PDB programs on phase 12's 300-atom model (against
+   scipy and numpy), a 4096^2 micrograph of phase 14's recipe with a noisy
+   band through coordinates_noisy_zones_filter, coordinates_consensus,
+   pick_noise, preprocess_mics (against numpy), extract_particles (against
+   numpy crops), metadata_selfile_create and metadata_xml;
+   swiftalign_wiener_2d (against numpy) and
+   swiftalign_aligned_2d_classification on 2,000 views of 16 directions
+   at 64^2, cl2d_clustering on 64 class averages, align_pca_2d on 2,000
+   views of one direction, metadata_split_3D, graph_max_cut on two planted
+   communities of 200 nodes; every matlab_bridge function at 128^2 and
+   64^3 (those that run on the card also with --device cpu: 1e-4 * max,
+   align2d's pose to 0.05), test_script_importing_module and compile.
+   Limits planned with tools/plan_tail.py. A `tail {...}` line gives each
+   program's wall, phases, untimed rest, launches and peak device memory,
+   and the quality.
+18. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
    with phase 10's ML2D launches; K2 at a pSART block and a SIRT pass as
    tri_scatter_art_block and tri_scatter_sirt_pass, K3 at WBP's launch as
    kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches; K4 at
@@ -7179,6 +7221,1063 @@ def tomography(seed, root: Path):
     return [k3, k4]
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the long tail (deep programs, final_batch, scripts_misc,
+# matlab_bridge, infra)
+# ---------------------------------------------------------------------------
+
+TL_N = 64                      # views, boxes and subtomogram-free 2-D inputs
+# the deep recipes are cut to keep the script inside its 1,200 s on a slow
+# host: at 1,000 boxes and candidates, 2,000 views, 500 patches and 20-30
+# epochs it took 1,141.1 s there (PERF.md section 4)
+TL_BOXES = 500                 # deep_consensus: particle and noise boxes each
+TL_CANDIDATES = 500            # ... and of each kind among the scored
+TL_NOISE = 1.0                 # boxes' noise, x the views' std
+TL_GA_VIEWS = 1000             # deep_global_assignment's training views
+TL_GA_TEST = 500               # ... and its held-out views
+TL_GA_NOISE = 0.5
+TL_MIC = 4096                  # the micrograph of the cleaner, preprocess and
+TL_MIC_VIEWS = 300             # extraction: views planted in its clean part
+TL_CARBON = 1024               # columns x < TL_CARBON are carbon
+TL_PATCHES = 250               # the cleaner's good and bad training patches
+TL_HAND_N, TL_HAND_VOLS = 64, 4
+TL_HAND_BLOBS = 12
+TL_RES = (3.0, 10.0, 8)        # deepRes: training resolutions (A at 1 A/px)
+TL_RES_TRAIN_N = 64
+TL_RES_ZONES = (4.0, 8.0)      # the applied map: inner and outer resolution
+TL_SUB_N, TL_SUBTOMOS = 32, 200  # misalignment: per class, train and test
+TL_SUB_NOISE = 0.5
+TL_POST_N, TL_POST_PAIRS = 64, 4
+TL_POST_BLUR = 0.15            # the inputs' low-pass (cycles/px) ...
+TL_POST_NOISE = 0.3            # ... and noise, x the clean map's std
+TL_BIG_N = 128                 # compare_density, Wiener 3-D, grey levels,
+TL_DEGSTEP = 10.0              # deepRes's and the postprocessing's maps
+TL_WIENER_DEFOCUS = (10000.0, 20000.0)
+TL_WIENER_TS = 2.0
+TL_GREY_AB = (1.5, 0.3)
+TL_GREY_VIEWS = 500
+TL_SET_N, TL_SET_VOLS = 64, 8
+TL_SET_STEP = 30.0             # volumeset_align --step: the planted rotations
+                               # lie on its sphere grid
+TL_VIEWS = 2000                # swiftalign, align_pca_2d
+TL_DIRS = 16                   # directions of the classification views
+TL_AVG_COPIES = 4              # cl2d_clustering: noisy copies of each
+TL_GRAPH = 400                 # graph_max_cut's nodes (two communities)
+TL_EPOCHS = {"consensus": 10, "ga": 15, "cleaner": 10, "hand": 10,
+             "deepres": 20, "misalign": 20, "post": 20}
+TL_TOL = 1e-4                  # numpy checks and card against CPU
+TL_DEVICE_BRIDGE = ("rotate", "scale", "scale_pyramid", "normalize",
+                    "ctf_correct_phase", "psd_enhance", "periodogram",
+                    "ctf_generate_filter", "resolution", "align2d")
+
+# twice the shortfall of the reference's readings on the CPU
+# (tools/plan_tail.py, the same recipes), or half the reading where that is
+# higher; twice an error. A trained classifier's held-out accuracy counts
+# its shortfall as at least one held-out sample (a perfect reading on n
+# cannot tell a shortfall below 1/n); the misalignment detector's is the
+# worst of its recipe's draw and four more (`tools/plan_tail.py --part
+# misalign`: 0.9975; 0.9975, 0.995, 1.0, 0.995). volumeset_align's planted
+# rotations lie on its grid, where the reference read float32 noise
+# (0.006 degrees): its limit is half a grid step.
+TL_LIMITS = {
+    "consensus_acc": 1 - 2 / (2 * TL_CANDIDATES),   # read 1.0
+    "ga_median_err_deg": 69.546,          # read 34.773
+    "cleaner_acc": 0.99915,               # read 0.99957
+    "hand_p": 0.2520,                     # read 0.5040 (no hand learned)
+    "hand_p_mirror": 0.7521,              # read 0.5041
+    "deepres_err_A": 3.7248,              # read 1.8624 (zones 5.862, 7.319)
+    "misalign_acc": 0.99,                 # read 0.9975, 0.995 at worst
+    "post_corr": 0.78487,                 # read 0.89243 (input 0.81514)
+    "compare_positive": 1.0,              # read 1.0
+    "wiener_corr": 0.98123,               # read 0.99061
+    "grey_err": 1.6212e-5,                # read 8.106e-6
+    "consensus_corr": 0.98229,            # read 0.99114
+    "volumeset_err_deg": TL_SET_STEP / 2,
+    "zones_band_removed": 1.0,            # read 1.0
+    "zones_clear_kept": 0.96139,          # read 0.98069
+    "swift_purity": 0.672,                # read 0.836
+    "cl2d_purity": 0.9375,                # read 0.96875
+    "pca_avg_corr": 0.99849,              # read 0.99925
+    "maxcut_agree": 1.0,                  # read 1.0
+    "bridge_defocus_err": 2.6786e-3,      # read 1.339e-3
+}
+
+
+def mic_views(size: int, n: int) -> int:
+    """The views planted in a size^2 micrograph of picking_micrographs:
+    TL_MIC_VIEWS, or half its cells where that is fewer."""
+    return min(TL_MIC_VIEWS, (size // (PK_CELL * n // N)) ** 2 // 2)
+
+
+def blob_volumes(n: int, centres, sigma: float, device):
+    """(V, n, n, n) float32 numpy: volume v the sum of unit Gaussians of
+    width sigma at centres[v] ((V, K, 3) as (z, y, x) from the centre),
+    on `device` in float32."""
+    import torch
+    c = torch.arange(n, dtype=torch.float32, device=device) - n // 2
+    out = np.zeros((len(centres), n, n, n), np.float32)
+    for v, cs in enumerate(np.asarray(centres, np.float32)):
+        acc = torch.zeros((n, n, n), dtype=torch.float32, device=device)
+        for cz, cy, cx in cs:
+            acc += torch.exp(-((c[:, None, None] - float(cz)) ** 2
+                               + (c[None, :, None] - float(cy)) ** 2
+                               + (c[None, None, :] - float(cx)) ** 2)
+                             / (2 * sigma * sigma))
+        out[v] = acc.cpu().numpy()
+    return out
+
+
+def lowpass_stack(x, cutoff: float):
+    """Each image or volume of x (numpy) low-passed at `cutoff` cycles/px
+    (a hard sphere, numpy float64)."""
+    axes = tuple(range(1, x.ndim))
+    f = np.meshgrid(*[np.fft.fftfreq(s) for s in x.shape[1:-1]],
+                    np.fft.rfftfreq(x.shape[-1]), indexing="ij")
+    keep = sum(g * g for g in f) <= cutoff * cutoff
+    return np.fft.irfftn(np.fft.rfftn(x, axes=axes) * keep,
+                         s=x.shape[1:], axes=axes).astype(np.float32)
+
+
+def rotation_matrices(rng, k: int):
+    """k uniform random rotations (numpy float64, (k, 3, 3))."""
+    q = rng.standard_normal((k, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                  2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                  1 - 2 * (x * x + y * y)], -1)], 1)
+
+
+def accuracy(pred, truth) -> float:
+    return float(np.mean(np.asarray(pred) == np.asarray(truth)))
+
+
+def view_set(rng, n: int, views: int, noise: float, device, psi=True,
+             shift=3.0):
+    """Noisy views of BLOBS8 at n: uniform directions, random psi (or 0)
+    and shifts in +-shift px; numpy's draws, the views on `device`.
+    Returns (noisy, clean, (rot, tilt, psi, sx, sy))."""
+    rot = rng.uniform(0, 360, views)
+    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, views)))
+    ps = rng.uniform(0, 360, views) if psi else np.zeros(views)
+    sx, sy = rng.uniform(-shift, shift, (2, views))
+    clean = projections(n, rot, tilt, ps, sx, sy, scaled_blobs(BLOBS8, n),
+                        device=device)
+    sigma = float(clean.std())
+    noisy = clean + np.float32(noise * sigma) * rng.standard_normal(
+        clean.shape, dtype=np.float32)
+    return noisy, clean, (rot, tilt, ps, sx, sy)
+
+
+def write_stack_md(root: Path, name: str, imgs, extra=None):
+    """imgs as root/name.mrcs with a metadata root/name.xmd (its rows'
+    extra labels from `extra`, a dict of per-row sequences)."""
+    from xmipp3_tpu_torch.core.image import save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    stk = str(root / f"{name}.mrcs")
+    save_image(stk, np.asarray(imgs, np.float32))
+    extra = extra or {}
+    MetaData.fromRows(
+        {"image": f"{i + 1}@{stk}", "itemId": i + 1,
+         **{k: (v[i].item() if hasattr(v[i], "item") else v[i])
+            for k, v in extra.items()}}
+        for i in range(len(imgs))).write(str(root / f"{name}.xmd"))
+    return str(root / f"{name}.xmd")
+
+
+def write_volume_md(root: Path, name: str, vols, extra=None):
+    from xmipp3_tpu_torch.core.image import save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    rows = []
+    for i, v in enumerate(vols):
+        fn = str(root / f"{name}_{i:03d}.mrc")
+        save_image(fn, np.asarray(v, np.float32))
+        rows.append({"image": fn, **{k: float(x[i]) for k, x in
+                                     (extra or {}).items()}})
+    MetaData.fromRows(rows).write(str(root / f"{name}.xmd"))
+    return str(root / f"{name}.xmd")
+
+
+def misalign_readings(rng, root: Path, run, device,
+                      subtomos: int = TL_SUBTOMOS,
+                      epochs: int = TL_EPOCHS["misalign"]):
+    """deep_misalignment_detection trained on 2 x subtomos subtomograms at
+    TL_SUB_N^3 (the 8-blob phantom at its pose within 1 px, or turned by a
+    random rotation; noise of TL_SUB_NOISE x the std; numpy's draws from
+    rng) and scored on 2 x subtomos more. Returns (held-out accuracy,
+    seconds making the data, the held-out volumes)."""
+    t0 = time.perf_counter()
+    sn = TL_SUB_N
+    base = np.array([(cz, cy, cx) for cz, cy, cx, _, _ in
+                     scaled_blobs(BLOBS8, sn)], np.float64)
+    k2 = 4 * subtomos
+    R = rotation_matrices(rng, k2)
+    # aligned: jitter of <= 1 px; misaligned: a random rotation
+    cen = np.empty((k2, len(base), 3))
+    lab = np.arange(k2) % 2
+    for i in range(k2):
+        cen[i] = base @ R[i].T if lab[i] == 0 else \
+            base + rng.uniform(-1, 1, 3)
+    sv = blob_volumes(sn, cen, 2.0, device)
+    sv += np.float32(TL_SUB_NOISE * sv.std()) * rng.standard_normal(
+        sv.shape, dtype=np.float32)
+    tr = slice(0, 2 * subtomos)
+    te = slice(2 * subtomos, k2)
+    f = lambda name: str(root / name)
+    good_md = write_volume_md(root, "sub_good", sv[tr][lab[tr] == 1])
+    bad_md = write_volume_md(root, "sub_bad", sv[tr][lab[tr] == 0])
+    test_md = write_volume_md(root, "sub_test", sv[te])
+    data_s = time.perf_counter() - t0
+    run("deep_misalignment_detection", "deep_misalignment_detection", [
+        "-i", test_md, "-o", f("sub_scored.xmd"), "--goodTrain", good_md,
+        "--badTrain", bad_md, "--train", "--epochs", epochs,
+        "--model", f("misalign.pkl")])
+    got = [r["enabled"] for r in md_rows(f("sub_scored.xmd"))]
+    return (accuracy(got, np.where(lab[te] == 1, 1, -1)), data_s,
+            sv[te])
+
+
+def tail_deep_readings(seed, root: Path, run, device, n: int = TL_N,
+                       boxes: int = TL_BOXES,
+                       candidates: int = TL_CANDIDATES,
+                       ga_views: int = TL_GA_VIEWS, mic: int = TL_MIC,
+                       hand_n: int = TL_HAND_N, big_n: int = TL_BIG_N,
+                       subtomos: int = TL_SUBTOMOS, epochs=None):
+    """Phase 17's deep programs on their recipes (part (a)): each trains
+    through its CLI with --train and scores held-out data; run(label,
+    program, args) runs one program (the port's on the card in this
+    script, the reference's on the CPU in tools/plan_tail.py). Returns
+    (quality readings, {label: (model file, kind, n_out, inputs)} for the
+    card-against-CPU check)."""
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    f = lambda name: str(root / name)
+    load = lambda name: np.squeeze(Image(f(name)).data)
+    ep = {**TL_EPOCHS, **(epochs or {})}
+    rng = np.random.default_rng(seed + 171)
+    q, models = {}, {}
+    nrm = lambda x: (x - x.mean(axis=tuple(range(1, x.ndim)), keepdims=True)
+                     ) / np.maximum(x.std(axis=tuple(range(1, x.ndim)),
+                                          keepdims=True), 1e-8)
+
+    # consensus: particle boxes against noise boxes, then held-out ones
+    t0 = time.perf_counter()
+    views, _, _ = view_set(rng, n, 2 * boxes + candidates, TL_NOISE, device)
+    sigma = float(views.std())
+    noise = lambda k: np.float32(sigma) * rng.standard_normal(
+        (k, n, n), dtype=np.float32)
+    pos = write_stack_md(root, "pos", views[:boxes])
+    neg = write_stack_md(root, "neg", noise(boxes))
+    cand_imgs = np.concatenate([views[2 * boxes:], noise(candidates)])
+    cand = write_stack_md(root, "cand", cand_imgs)
+    q["data_s"] = time.perf_counter() - t0
+    run("deep_consensus", "deep_consensus", [
+        "-i", cand, "-o", f("cand_scored.xmd"), "--posTrain", pos,
+        "--negTrain", neg, "--train", "--epochs", ep["consensus"],
+        "--model", f("consensus.pkl")])
+    got = [r["enabled"] for r in md_rows(f("cand_scored.xmd"))]
+    q["consensus_acc"] = accuracy(got, [1] * candidates + [-1] * candidates)
+    models["deep_consensus"] = ("consensus.pkl", "ConvNet2D", 2,
+                                nrm(cand_imgs[::8]))
+
+    # global assignment: directions of views without psi or shifts
+    t0 = time.perf_counter()
+    gv, _, (rot, tilt, *_) = view_set(rng, n, ga_views + TL_GA_TEST,
+                                      TL_GA_NOISE, device, psi=False,
+                                      shift=0.0)
+    ext = {"angleRot": rot, "angleTilt": tilt}
+    train = write_stack_md(root, "ga_train", gv[:ga_views],
+                           {k: v[:ga_views] for k, v in ext.items()})
+    test = write_stack_md(root, "ga_test", gv[ga_views:])
+    q["data_s"] += time.perf_counter() - t0
+    run("deep_global_assignment", "deep_global_assignment", [
+        "-i", train, "--epochs", ep["ga"], "--model", f("ga.pkl")])
+    run("deep_global_assignment_predict", "deep_global_assignment_predict",
+        ["-i", test, "-o", f("ga_pred.xmd"), "--model", f("ga.pkl")])
+    pr = md_rows(f("ga_pred.xmd"))
+    unit = lambda r, t: np.stack([np.sin(t) * np.cos(r),
+                                  np.sin(t) * np.sin(r), np.cos(t)], -1)
+    u_got = unit(np.radians([x["angleRot"] for x in pr]),
+                 np.radians([x["angleTilt"] for x in pr]))
+    u_want = unit(np.radians(rot[ga_views:]), np.radians(tilt[ga_views:]))
+    q["ga_median_err_deg"] = float(np.median(np.degrees(np.arccos(
+        np.clip((u_got * u_want).sum(-1), -1, 1)))))
+    models["deep_global_assignment"] = ("ga.pkl", "ConvNet2D", 3,
+                                        nrm(gv[ga_views::4]))
+
+    # micrograph cleaner: carbon (a smooth strong texture) on the left
+    t0 = time.perf_counter()
+    mics, xy, _ = picking_micrographs(n, mic, mic_views(mic, n), seed,
+                                      device)
+    m = mics[0]
+    carbon_w = TL_CARBON * mic // TL_MIC
+    tex = lowpass_stack(rng.standard_normal((1, mic, carbon_w + 2 * n),
+                                            dtype=np.float32), 0.02)[0]
+    tex *= np.float32(3 * m.std() / tex.std())
+    m[:, :carbon_w] += tex[:, :carbon_w]
+    save_image(f("mic.mrc"), m)
+    # training patches from the other micrograph: clean ice, and carbon
+    m2 = mics[1]
+    py, px = rng.integers(0, mic - n, (2, TL_PATCHES))
+    good = np.stack([m2[y:y + n, x:x + n] for y, x in zip(py, px)])
+    tx = rng.integers(0, tex.shape[1] - n, TL_PATCHES)
+    bad = np.stack([m2[y:y + n, x:x + n] + tex[y:y + n, t:t + n]
+                    for y, x, t in zip(py, px, tx)])
+    gmd = write_stack_md(root, "good", good)
+    bmd = write_stack_md(root, "bad", bad)
+    q["data_s"] += time.perf_counter() - t0
+    run("deep_micrograph_cleaner", "deep_micrograph_cleaner", [
+        "-i", f("mic.mrc"), "-o", f("mic_mask.mrc"), "--boxSize", n,
+        "--goodTrain", gmd, "--badTrain", bmd, "--train", "--epochs",
+        ep["cleaner"], "--model", f("cleaner.pkl")])
+    mask = load("mic_mask.mrc")
+    truth = np.ones_like(mask, bool)
+    truth[:, :carbon_w] = False
+    q["cleaner_acc"] = float(((mask > 0.5) == truth).mean())
+    models["deep_micrograph_cleaner"] = ("cleaner.pkl", "ConvNet2D", 2,
+                                         nrm(np.concatenate([good[:64],
+                                                             bad[:64]])))
+
+    # handedness: random blob sets and their mirrors
+    t0 = time.perf_counter()
+    cen = rng.uniform(-hand_n / 4, hand_n / 4,
+                      (TL_HAND_VOLS + 1, TL_HAND_BLOBS, 3))
+    hv = blob_volumes(hand_n, cen, hand_n / 24, device)
+    vols_md = write_volume_md(root, "hand", hv[:TL_HAND_VOLS])
+    save_image(f("hand_test.mrc"), hv[-1])
+    save_image(f("hand_mirror.mrc"), np.ascontiguousarray(hv[-1][:, :, ::-1]))
+    q["data_s"] += time.perf_counter() - t0
+    run("deep_hand", "deep_hand", [
+        "-i", f("hand_test.mrc"), "-o", f("hand.txt"), "--trainVols",
+        vols_md, "--train", "--epochs", ep["hand"], "--model",
+        f("hand.pkl")])
+    run("deep_hand_mirror", "deep_hand", [
+        "-i", f("hand_mirror.mrc"), "-o", f("hand_mirror.txt"), "--model",
+        f("hand.pkl")])
+    q["hand_p"] = float(open(f("hand.txt")).read())
+    q["hand_p_mirror"] = float(open(f("hand_mirror.txt")).read())
+    models["deep_hand"] = ("hand.pkl", "ConvNet3D", 2, nrm(np.stack(
+        [np.rot90(hv[-1], k, axes=(1, 2)) for k in range(4)])))
+
+    # deepRes: densities low-passed to planted resolutions (1 A/px)
+    t0 = time.perf_counter()
+    lo, hi, k = TL_RES
+    res = np.linspace(lo, hi, k)
+    rn = TL_RES_TRAIN_N
+    dens = blob_volumes(rn, rng.uniform(-rn / 3, rn / 3, (k, 60, 3)), 1.5,
+                        device)
+    train = np.concatenate([lowpass_stack(dens[i:i + 1], 1.0 / r)
+                            for i, r in enumerate(res)])
+    res_md = write_volume_md(root, "res", train, {"resolution": res})
+    big = blob_volumes(big_n, rng.uniform(-big_n / 3, big_n / 3,
+                                          (1, 240, 3)), 1.5, device)
+    c = np.arange(big_n, dtype=np.float32) - big_n // 2
+    r = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2
+                + c[None, None, :] ** 2)
+    inner, outer = r < big_n * 0.2, r > big_n * 0.32
+    zoned = np.where(r < big_n * 0.26,
+                     lowpass_stack(big, 1 / TL_RES_ZONES[0])[0],
+                     lowpass_stack(big, 1 / TL_RES_ZONES[1])[0])
+    save_image(f("res_map.mrc"), zoned.astype(np.float32))
+    q["data_s"] += time.perf_counter() - t0
+    run("deepRes_resolution", "deepRes_resolution", [
+        "-i", f("res_map.mrc"), "-o", f("res_out.mrc"), "--trainVols",
+        res_md, "--patch", 16, "--train", "--epochs", ep["deepres"],
+        "--model", f("deepres.pkl")])
+    rm = load("res_out.mrc")
+    q["deepres_zone_A"] = [float(np.median(rm[inner])),
+                           float(np.median(rm[outer]))]
+    q["deepres_err_A"] = float(max(abs(q["deepres_zone_A"][0]
+                                       - TL_RES_ZONES[0]),
+                                   abs(q["deepres_zone_A"][1]
+                                       - TL_RES_ZONES[1])))
+    # the alias, on the trained model
+    run("deep_res_resolution", "deep_res_resolution", [
+        "-i", f("res_map.mrc"), "-o", f("res_out_alias.mrc"), "--patch", 16,
+        "--model", f("deepres.pkl")])
+    q["deepres_alias_same"] = bool(np.abs(load("res_out_alias.mrc") - rm)
+                                   .max() <= 1e-6 * np.abs(rm).max())
+    models["deepRes_resolution"] = ("deepres.pkl", "ConvNet3D", 1, nrm(
+        zoned[None, 40:56, 40:56, 40:56].repeat(2, 0)))
+
+    # misalignment: the phantom at its pose against turned copies (a
+    # Generator of its own: its draws do not move with the recipes above)
+    q["misalign_acc"], data_s, test = misalign_readings(
+        np.random.default_rng(seed + 173), root, run, device, subtomos,
+        ep["misalign"])
+    q["data_s"] += data_s
+    models["deep_misalignment_detection"] = ("misalign.pkl", "ConvNet3D",
+                                             2, nrm(test[:32]))
+
+    # postprocessing: blurred, noisy densities against the clean ones
+    t0 = time.perf_counter()
+    pn = TL_POST_N
+
+    def degrade(v):
+        out = lowpass_stack(v, TL_POST_BLUR)
+        return out + np.float32(TL_POST_NOISE * v.std()) * \
+            rng.standard_normal(v.shape, dtype=np.float32)
+
+    clean = blob_volumes(pn, rng.uniform(-pn / 3, pn / 3,
+                                         (TL_POST_PAIRS, 60, 3)), 1.5, device)
+    pairs = []
+    for i, v in enumerate(clean):
+        a, b = f(f"post_in_{i}.mrc"), f(f"post_ref_{i}.mrc")
+        save_image(a, degrade(v[None])[0])
+        save_image(b, v)
+        pairs.append({"image": a, "imageRef": b})
+    MetaData.fromRows(pairs).write(f("post_pairs.xmd"))
+    bigin = degrade(big)[0]
+    save_image(f("post_map.mrc"), bigin)
+    q["data_s"] += time.perf_counter() - t0
+    run("deep_volume_postprocessing", "deep_volume_postprocessing", [
+        "-i", f("post_map.mrc"), "-o", f("post_out.mrc"), "--trainPairs",
+        f("post_pairs.xmd"), "--train", "--epochs", ep["post"], "--model",
+        f("post.pkl")])
+    q["post_corr"] = real_corr(load("post_out.mrc"), big[0])
+    q["post_input_corr"] = real_corr(bigin, big[0])
+    models["deep_volume_postprocessing"] = ("post.pkl", "UNet3DLite", None,
+                                            nrm(bigin[None, :64, :64, :64]))
+    return q, models
+
+
+def tail_misc_readings(seed, root: Path, run, device, n: int = TL_N,
+                       big_n: int = TL_BIG_N, set_n: int = TL_SET_N,
+                       views: int = TL_VIEWS, mic_size: int = TL_MIC):
+    """Phase 17's final_batch, scripts_misc, matlab_bridge and infra
+    programs on their recipes (part (b)); run as in tail_deep_readings.
+    Returns (quality readings, the bridge's (function, input, output)
+    triples for the card-against-CPU check)."""
+    import shutil as _shutil
+    from scipy.io import loadmat, savemat
+    from xmipp3_tpu_torch.core.image import Image, save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.core.pdb import read_pdb, write_pdb
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription
+    from xmipp3_tpu_torch.ops.geo import apply_affine_3d
+    from xmipp3_tpu_torch.ops.project import project_real_space
+    from xmipp3_tpu_torch.programs.volume_programs import ProgVolumeAlign
+    f = lambda name: str(root / name)
+    load = lambda name: np.squeeze(Image(f(name)).data)
+    rng = np.random.default_rng(seed + 172)
+    q = {"data_s": 0.0}
+
+    # (b1) maps at big_n: compare_density, Wiener 3-D, grey levels,
+    # volume_consensus
+    t0 = time.perf_counter()
+    blobs = scaled_blobs(BLOBS8, big_n)
+    v = phantom(big_n, blobs)
+    save_image(f("v.vol"), v)
+    # compare_density: a blob, and the blob with a satellite (the pair of
+    # the reference's tests/test_final_batch.py, at big_n)
+    k = big_n / 64
+    main = phantom(big_n, [(0.0, 0.0, 0.0, np.sqrt(20.0) * k, 1.0)])
+    sat = phantom(big_n, [(22 * k, 22 * k, 0.0, np.sqrt(7.0) * k, 1.0)])
+    save_image(f("cd_main.vol"), main)
+    save_image(f("cd_sat.vol"), main + sat)
+    q["data_s"] += time.perf_counter() - t0
+    run("compare_density", "compare_density", [
+        "-v1", f("cd_sat.vol"), "-v2", f("cd_main.vol"), "-o", f("cd.xmp"),
+        "--degstep", TL_DEGSTEP])
+    cc = load("cd.xmp")
+    nz = cc[cc != 0]
+    q["compare_density"] = {"shape": list(cc.shape), "nonzero": float(
+        (cc != 0).mean()), "positive": float((nz > 0).mean()) if len(nz)
+        else 0.0}
+
+    t0 = time.perf_counter()
+    groups = []
+    for g, dfu in enumerate(TL_WIENER_DEFOCUS):
+        ctf = CTFDescription(sampling_rate=TL_WIENER_TS, voltage=300.0,
+                             defocusU=dfu, defocusV=dfu, Cs=2.7, Q0=0.1)
+        fz = np.fft.fftfreq(big_n)[:, None, None]
+        fy = np.fft.fftfreq(big_n)[None, :, None]
+        fx = np.fft.rfftfreq(big_n)[None, None, :]
+        rr = (np.sqrt(fz ** 2 + fy ** 2 + fx ** 2) / TL_WIENER_TS).astype(
+            np.float32)
+        c = ctf.pure_at(rr, np.zeros_like(rr), device="cpu").numpy()
+        gv = np.fft.irfftn(np.fft.rfftn(v) * c, s=v.shape)
+        gv = gv + 0.1 * gv.std() * rng.standard_normal(gv.shape)
+        save_image(f(f"group{g}.vol"), gv.astype(np.float32))
+        ctf.to_metadata().write(f(f"group{g}.ctfparam"))
+        groups.append({"image": f(f"group{g}.vol"),
+                       "ctfModel": f(f"group{g}.ctfparam"),
+                       "classCount": 100 * (g + 1)})
+    MetaData.fromRows(groups).write(f("groups.xmd"))
+    q["data_s"] += time.perf_counter() - t0
+    run("ctf_correct_wiener3d", "ctf_correct_wiener3d", [
+        "-i", f("groups.xmd"), "--oroot", f("wiener"), "--wienerConstant",
+        0.01])
+    q["wiener_corr"] = real_corr(load("wiener_deconvolved.vol"), v)
+    q["wiener_group_corr"] = max(real_corr(load(f"group{g}.vol"), v)
+                                 for g in range(2))
+
+    t0 = time.perf_counter()
+    a, b = TL_GREY_AB
+    rot = rng.uniform(0, 360, TL_GREY_VIEWS).astype(np.float32)
+    tilt = np.degrees(np.arccos(rng.uniform(-1, 1, TL_GREY_VIEWS))).astype(
+        np.float32)
+    psi = rng.uniform(0, 360, TL_GREY_VIEWS).astype(np.float32)
+    P = project_real_space(v, rot, tilt, psi, device=device).cpu().numpy()
+    T = project_real_space(np.ones_like(v), rot, tilt, psi,
+                           device=device).cpu().numpy()
+    grey_md = write_stack_md(root, "grey", a * P + b * T, {
+        "angleRot": rot, "angleTilt": tilt, "anglePsi": psi})
+    q["data_s"] += time.perf_counter() - t0
+    prog = run("adjust_volume_grey_levels",
+               "transform_adjust_volume_grey_levels", [
+                   "-i", f("v.vol"), "-m", grey_md, "-o", f("v_grey.vol"),
+                   "--optimize", "--probb_eval", 0.5, "--seed", seed])
+    ga, gb = prog.ab
+    q["grey_err"] = float(max(abs(ga - a) / a, abs(gb - b) / b))
+
+    t0 = time.perf_counter()
+    cons = []
+    for k in range(3):
+        cons.append(f(f"cons{k}.vol"))
+        save_image(cons[-1], (v + 0.3 * v.std() * rng.standard_normal(
+            v.shape)).astype(np.float32))
+    with open(f("cons.txt"), "w") as fh:
+        fh.write("\n".join(cons))
+    q["data_s"] += time.perf_counter() - t0
+    run("volume_consensus", "volume_consensus", ["-i", f("cons.txt"),
+                                                 "-o", f("cons.vol")])
+    q["consensus_corr"] = real_corr(load("cons.vol"), v)
+    q["consensus_input_corr"] = float(np.mean(
+        [real_corr(np.squeeze(Image(c).data), v) for c in cons]))
+
+    # (b2) volumeset_align on set_n maps turned by planted rotations, drawn
+    # from its --step search's grid
+    from xmipp3_tpu_torch.core.sampling import compute_sampling_points
+    t0 = time.perf_counter()
+    vs = phantom(set_n, scaled_blobs(BLOBS8, set_n))
+    save_image(f("set_ref.vol"), vs)
+    pts = compute_sampling_points(TL_SET_STEP)
+    psis = np.arange(-180.0, 180.0, TL_SET_STEP)
+    planted = []
+    rows = []
+    for i in range(TL_SET_VOLS):
+        r_, t_ = pts[rng.integers(len(pts))]
+        ang = (r_, t_, psis[rng.integers(len(psis))])
+        A = ProgVolumeAlign._trial_matrix(1.0, *ang, 1.0, 0, 0, 0)
+        moved = apply_affine_3d(vs, np.linalg.inv(A)[None, :3, :4].astype(
+            np.float32), device=device)[0].cpu().numpy()
+        save_image(f(f"set_{i}.vol"), moved)
+        planted.append(A)
+        rows.append({"image": f(f"set_{i}.vol"), "itemId": i + 1})
+    MetaData.fromRows(rows).write(f("set.xmd"))
+    q["data_s"] += time.perf_counter() - t0
+    run("volumeset_align", "volumeset_align", [
+        "-i", f("set.xmd"), "--ref", f("set_ref.vol"), "-o",
+        f("set_al.xmd"), "--step", TL_SET_STEP])
+    # the mpi_ alias resumes the finished run: every volume is skipped
+    run("mpi_volumeset_align", "mpi_volumeset_align", [
+        "-i", f("set.xmd"), "--ref", f("set_ref.vol"), "-o",
+        f("set_al.xmd"), "--step", TL_SET_STEP, "--resume"])
+    errs = []
+    for r, A in zip(md_rows(f("set_al.xmd")), planted):
+        B = ProgVolumeAlign._trial_matrix(1.0, r["angleRot"], r["angleTilt"],
+                                          r["anglePsi"], 1.0, 0, 0, 0)
+        errs.append(rotation_angle_deg(B, A))
+    q["volumeset_err_deg"] = float(max(errs))
+
+    # (b3) atomic models: analysis, labels, reduction, deformation, centre,
+    # selection
+    t0 = time.perf_counter()
+    model = synthetic_model(ANG_PDB_ATOMS, seed)
+    write_pdb(f("model.pdb"), model)
+    q["data_s"] += time.perf_counter() - t0
+    run("pdb_analysis", "pdb_analysis", [
+        "-i", f("model.pdb"), "--operation", "distance_histogram",
+        f("hist.txt"), 3, -1])
+    from scipy.spatial import cKDTree
+    c64 = read_pdb(f("model.pdb")).coords
+    d, _ = cKDTree(c64).query(c64, k=4)
+    hist = np.loadtxt(f("hist.txt"))
+    want, _ = np.histogram(d[:, 1:].ravel(), bins=200)
+    q["pdb_hist_diff"] = int(np.abs(hist[:, 1] - want).sum())
+    lab_vol = np.full((64, 64, 64), 2.5, np.float32)
+    save_image(f("lab.vol"), lab_vol)
+    run("pdb_label_from_volume", "pdb_label_from_volume", [
+        "--pdb", f("model.pdb"), "--vol", f("lab.vol"), "-o", f("lab.pdb"),
+        "--origin", 32, 32, 32, "--sampling", 1.0, "--md", f("lab.xmd")])
+    occ = np.asarray(read_pdb(f("lab.pdb")).occupancies)
+    inside = np.abs(c64).max(axis=1) < 30      # atoms inside the box
+    q["pdb_label_err"] = float(np.abs(occ[inside] - 2.5).max())
+    run("pdb_reduce_pseudoatoms", "pdb_reduce_pseudoatoms", [
+        "-i", f("model.pdb"), "-o", f("reduced.pdb"), "--num", 50])
+    q["pdb_reduced_atoms"] = len(read_pdb(f("reduced.pdb")))
+    MetaData.fromRows([{"sphCoefficients": np.zeros(3 * 13)}]).write(
+        f("clnm0.xmd"))
+    run("pdb_sph_deform", "pdb_sph_deform", [
+        "--pdb", f("model.pdb"), "-o", f("deformed.pdb"), "--clnm",
+        f("clnm0.xmd"), "--boxsize", 64, "--sr", 1.0])
+    q["pdb_deform_zero_A"] = float(np.abs(read_pdb(f("deformed.pdb")).coords
+                                          - c64).max())
+    run("pdb_center", "pdb_center", ["-i", f("model.pdb"),
+                                     "-o", f("centered.pdb")])
+    q["pdb_center_A"] = float(np.abs(read_pdb(f("centered.pdb")).coords
+                                     .mean(axis=0)).max())
+    run("pdb_select", "pdb_select", ["-i", f("model.pdb"),
+                                     "-o", f("selected.pdb"), "--atom", "N"])
+    q["pdb_selected"] = len(read_pdb(f("selected.pdb")))
+    q["pdb_selected_want"] = int(sum(e == "N" for e in model.elements))
+
+    # (b4) a micrograph: coordinates, noisy zones, preprocessing,
+    # extraction
+    t0 = time.perf_counter()
+    mics, xy, _ = picking_micrographs(n, mic_size, mic_views(mic_size, n),
+                                      seed + 1, device)
+    mic = mics[0]
+    band = mic_size // 8
+    mic[:, -band:] *= 6.0               # a noisy band on the right
+    save_image(f("mic.mrc"), mic)
+    pos = xy[0]
+    MetaData.fromRows({"xcoor": int(x), "ycoor": int(y), "itemId": i + 1}
+                      for i, (x, y) in enumerate(pos)).write(f("pos.xmd"))
+    # three pickers: all, the first two thirds jittered, the last two thirds
+    k3 = len(pos) // 3
+    MetaData.fromRows({"xcoor": int(x) + 2, "ycoor": int(y) - 1}
+                      for x, y in pos[:2 * k3]).write(f("pick2.xmd"))
+    np.savetxt(f("pick3.txt"), pos[k3:], fmt="%d")
+    with open(f("pickers.txt"), "w") as fh:
+        fh.write("\n".join([f("pos.xmd"), f("pick2.xmd"), f("pick3.txt")]))
+    MetaData.fromRows([{"micrograph": f("mic.mrc"),
+                        "coordinates": f("pos.xmd"),
+                        "ctfModel": f("group0.ctfparam")}]).write(
+        f("mics.xmd"))
+    q["data_s"] += time.perf_counter() - t0
+    run("coordinates_noisy_zones_filter", "coordinates_noisy_zones_filter", [
+        "--pos", f("pos.xmd"), "--mic", f("mic.mrc"), "-o", f("zones.xmd"),
+        "--patchSize", n, "--zmax", 3])
+    kept = {r["itemId"] for r in md_rows(f("zones.xmd"))}
+    in_band = {i + 1 for i, (x, _) in enumerate(pos)
+               if x >= mic_size - band + n // 2}
+    clear = {i + 1 for i, (x, _) in enumerate(pos)
+             if x < mic_size - band - n // 2}
+    q["zones"] = {"band_removed": len(in_band - kept) / max(len(in_band), 1),
+                  "clear_kept": len(clear & kept) / max(len(clear), 1)}
+    run("coordinates_consensus", "coordinates_consensus", [
+        "-i", f("pickers.txt"), "-s", n, "-c", 2, "-o", f("cons.xmd")])
+    got = np.array([(r["xcoor"], r["ycoor"]) for r in md_rows(f("cons.xmd"))])
+    q["consensus_picks"] = {"found": len(got), "want": len(pos)}
+    run("pick_noise", "pick_noise", ["-i", f("mic.mrc"), "-c", f("pos.xmd"),
+                                     "-o", f("noise.xmd"), "-s", n, "-n",
+                                     200, "--seed", seed])
+    nz = np.array([(r["xcoor"], r["ycoor"]) for r in md_rows(f("noise.xmd"))])
+    dmin = np.hypot(nz[:, None, 0] - pos[None, :, 0],
+                    nz[:, None, 1] - pos[None, :, 1]).min()
+    q["pick_noise"] = {"picked": len(nz), "min_dist_box": float(dmin / n)}
+    run("preprocess_mics", "preprocess_mics", [
+        "-i", f("mics.xmd"), "-s", TL_WIENER_TS, "-o", f("pre"), "-d", 2,
+        "--invert_contrast", "--phase_flip"])
+    # numpy: phase flip by the CTF's sign, the centred crop of the full
+    # spectrum to half the size, contrast inverted, normalised
+    ctf0 = CTFDescription.from_metadata(f("group0.ctfparam"))
+    fy = np.fft.fftfreq(mic_size)[:, None] / ctf0.sampling_rate
+    fx = np.fft.rfftfreq(mic_size)[None, :] / ctf0.sampling_rate
+    sgn = np.sign(ctf0.pure_at(fx.astype(np.float32), fy.astype(np.float32),
+                               damped=False, device="cpu").numpy())
+    flipped = np.fft.irfft2(np.fft.rfft2(mic.astype(np.float64)) * sgn,
+                            s=mic.shape)
+    h = mic_size // 2
+    spec = np.fft.fftshift(np.fft.fft2(flipped))
+    lo_ = mic_size // 2 - h // 2
+    crop = spec[lo_:lo_ + h, lo_:lo_ + h]
+    want = -np.fft.ifft2(np.fft.ifftshift(crop)).real * (h * h) \
+        / mic_size ** 2
+    want = (want - want.mean()) / want.std()
+    q["preprocess_vs_numpy"] = float(np.abs(load("pre/mic.mrc") - want).max()
+                                     / np.abs(want).max())
+    run("extract_particles", "extract_particles", [
+        "-i", f("mics.xmd"), "-s", n, "-o", f("ex")])
+    ex = np.asarray(Image.read_stack(f("ex/mic_particles.mrcs")))
+    exr = md_rows(f("ex/particles.xmd"))
+    crops = np.stack([mic[r["ycoor"] - n // 2:r["ycoor"] + n // 2,
+                          r["xcoor"] - n // 2:r["xcoor"] + n // 2]
+                      for r in exr])
+    q["extract"] = {"boxes": len(exr), "want": len(pos),
+                    "differ": int((ex != crops).sum())}
+    sel = root / "sel"
+    sel.mkdir()
+    for k in range(3):
+        _shutil.copy(f("grey.mrcs"), str(sel / f"s{k}.mrcs"))
+    run("metadata_selfile_create", "metadata_selfile_create", [
+        "-p", str(sel / "*.mrcs"), "-o", f("sel.xmd"), "-s"])
+    hdr = Image()
+    hdr.read(str(sel / "s0.mrcs"), header_only=True)
+    q["selfile_rows"] = {"got": len(md_rows(f("sel.xmd"))),
+                         "want": 3 * hdr.header.shape[0]}
+    run("metadata_xml", "metadata_xml", ["-i", f("ex/particles.xmd"),
+                                         "-o", f("parts.xml"),
+                                         "--extractParticlesMD"])
+    q["xml_coordinates"] = open(f("parts.xml")).read().count("<coordinate ")
+
+    # (b5) views at n: swiftalign, align_pca_2d, cl2d_clustering,
+    # metadata_split_3D
+    t0 = time.perf_counter()
+    dirs = rng.uniform(0, 1, (TL_DIRS, 2))
+    drot = 360 * dirs[:, 0]
+    dtilt = np.degrees(np.arccos(1 - 2 * dirs[:, 1]))
+    lab = rng.integers(0, TL_DIRS, views)
+    psi = rng.uniform(0, 360, views)
+    sx, sy = rng.uniform(-2, 2, (2, views))
+    clean = projections(n, drot[lab], dtilt[lab], psi, sx, sy,
+                        scaled_blobs(BLOBS8, n), device=device)
+    sig = float(clean.std())
+    noisy = clean + np.float32(0.5 * sig) * rng.standard_normal(
+        clean.shape, dtype=np.float32)
+    dfu = rng.uniform(8000, 20000, views)
+    sw_md = write_stack_md(root, "sw", noisy, {
+        "anglePsi": psi, "shiftX": sx, "shiftY": sy,
+        "ctfDefocusU": dfu, "ctfDefocusV": dfu + 300, "ctfDefocusAngle":
+        rng.uniform(0, 180, views), "ctfVoltage": np.full(views, 300.0)})
+    one = projections(n, np.full(views, 30.0), np.full(views, 60.0), psi,
+                      sx, sy, scaled_blobs(BLOBS8, n), device=device)
+    one_noisy = one + np.float32(0.5 * float(one.std())) * \
+        rng.standard_normal(one.shape, dtype=np.float32)
+    save_image(f("one.mrcs"), one_noisy)
+    ref_view = projections(n, np.array([30.0]), np.array([60.0]),
+                           np.zeros(1), np.zeros(1), np.zeros(1),
+                           scaled_blobs(BLOBS8, n), device=device)[0]
+    avg_lab = np.repeat(np.arange(TL_DIRS), TL_AVG_COPIES)
+    base = projections(n, drot, dtilt, np.zeros(TL_DIRS), np.zeros(TL_DIRS),
+                       np.zeros(TL_DIRS), scaled_blobs(BLOBS8, n),
+                       device=device)
+    avgs = base[avg_lab] + np.float32(0.1 * sig) * rng.standard_normal(
+        (len(avg_lab), n, n), dtype=np.float32)
+    save_image(f("avgs.mrcs"), avgs)
+    q["data_s"] += time.perf_counter() - t0
+    run("swiftalign_wiener_2d", "swiftalign_wiener_2d", [
+        "-i", sw_md, "-o", f("sw_wiener.mrcs"), "--sampling", 2.0, "--wc",
+        0.1])
+    wien = np.asarray(Image.read_stack(f("sw_wiener.mrcs")))
+    # numpy: the first 16 rows' Wiener filters
+    wrows = md_rows(sw_md)[:16]
+    err = 0.0
+    for i, r in enumerate(wrows):
+        ctf = CTFDescription(sampling_rate=2.0, voltage=300.0,
+                             defocusU=r["ctfDefocusU"],
+                             defocusV=r["ctfDefocusV"],
+                             azimuthal_angle=r["ctfDefocusAngle"], Cs=2.7,
+                             Q0=0.07)
+        c = ctf.generate_2d(n, n, device="cpu").numpy().astype(np.float64)
+        w = np.fft.irfft2(np.fft.rfft2(noisy[i]) * c / (c * c + 0.1),
+                          s=(n, n))
+        err = max(err, float(np.abs(wien[i] - w).max() / np.abs(w).max()))
+    q["wiener2d_vs_numpy"] = err
+    run("swiftalign_classification", "swiftalign_aligned_2d_classification", [
+        "-i", sw_md, "-o", f("swc"), "--nClasses", TL_DIRS])
+    got = np.array([r["ref"] for r in md_rows(f("swc/classes.xmd"))])
+    q["swift_purity"] = class_purity(got - 1, lab)[0]
+    run("cl2d_clustering", "cl2d_clustering", [
+        "-i", f("avgs.mrcs"), "-o", f("cl"), "-m", TL_DIRS - 4, "-M",
+        TL_DIRS + 4])
+    got = np.array([r["ref"] for r in md_rows(f("cl/clusters.xmd"))])
+    q["cl2d_clusters"] = int(got.max())
+    q["cl2d_purity"] = class_purity(got - 1, avg_lab)[0]
+    run("align_pca_2d", "align_pca_2d", ["-i", f("one.mrcs"), "-o",
+                                         f("pca"), "--iter", 3,
+                                         "--ncomp", 5])
+    # the average is in the frame of the set's first average: registered
+    # to the clean view before the correlation
+    from xmipp3_tpu_torch.ops.align import iterative_align
+    al = iterative_align(ref_view, load("pca/average.mrc")[None],
+                         device=device)[4]
+    q["pca_avg_corr"] = real_corr(al[0].cpu().numpy(), ref_view)
+    save_image(f("one_few.mrcs"), one_noisy[:200])
+    run("alignPCA_2D", "alignPCA_2D", ["-i", f("one_few.mrcs"), "-o",
+                                       f("pca_alias"), "--iter", 1,
+                                       "--ncomp", 2])
+    q["pca_alias_rows"] = len(md_rows(f("pca_alias/pca.xmd")))
+    eig = np.asarray(Image.read_stack(f("pca/eigenimages.mrcs")))
+    q["pca_eigen_finite"] = bool(np.isfinite(eig).all() and eig.shape[0] == 5)
+    split_md = write_stack_md(root, "split", noisy[:500], {
+        "angleRot": drot[lab[:500]], "angleTilt": dtilt[lab[:500]],
+        "imageIndex": lab[:500], "maxCC": rng.uniform(0, 1, 500)})
+    run("metadata_split_3D", "metadata_split_3D", [
+        "-i", split_md, "--oroot", f("split"), "--angSampling", 15])
+    up, lo = (md_rows(f(f"split_{s}.xmd")) for s in ("upper", "lower"))
+    q["split_rows"] = len([r for r in up + lo if r.get("image")])
+
+    # (b6) graph_max_cut on two planted communities
+    g = TL_GRAPH
+    side = np.arange(g) % 2
+    W = np.where(side[:, None] != side[None, :], rng.uniform(0.6, 1.0, (g, g)),
+                 rng.uniform(0.0, 0.4, (g, g)))
+    W = 0.5 * (W + W.T)
+    np.fill_diagonal(W, 0.0)
+    np.savetxt(f("w.txt"), W, fmt="%.6f")
+    run("graph_max_cut", "graph_max_cut", ["-i", f("w.txt"),
+                                           "-o", f("cut.txt")])
+    cut = np.loadtxt(f("cut.txt")).astype(int)
+    q["maxcut_agree"] = float(max((cut == side).mean(), (cut != side).mean()))
+
+    # (b7) matlab_bridge: every function
+    bridge = []
+    img = noisy[0].astype(np.float64)
+    vol64 = vs.astype(np.float64)
+    ctf_st = {"DeltafU": 12000.0, "DeltafV": 11000.0, "AzimuthalAngle": 30.0,
+              "kV": 300.0, "Cs": 2.0, "Q0": 0.1, "K": 1.0,
+              "objectPixelSize": 2.0}
+    big2 = np.asarray(Image.read_stack(f("avgs.mrcs")))[0]
+    img128 = np.kron(big2, np.ones((2, 2))).astype(np.float64)
+    nma = root / "nma"
+    nma.mkdir()
+    MetaData.fromRows({"image": f"{k + 1}@s.mrcs",
+                       "nmaDisplacements": np.array([0.5 * k, -k, 2.0]),
+                       "cost": 0.1 * k} for k in range(4)).write(
+        str(nma / "images.xmd"))
+    psd = np.abs(np.fft.fftshift(np.fft.fft2(img128))) ** 2
+    args = {
+        "read": dict(filename=f("set_ref.vol")),
+        "write": dict(array=vol64, filename=f("bridge_w.vol")),
+        "rotate": dict(img=img128, angs=33.0, axis=[], align_z=[],
+                       gridding=False, wrap=True),
+        "scale": dict(img=vol64, outsize=[48, 48, 48], gridding=True),
+        "scale_pyramid": dict(img=img128, operation="reduce", levels=1),
+        "mirror": dict(img=vol64, flipstring="xz"),
+        "mirt3D_mexinterp": dict(input_image=vol64,
+                                 XI=rng.uniform(1, 64, 100),
+                                 YI=rng.uniform(1, 64, 100),
+                                 ZI=rng.uniform(1, 64, 100)),
+        "mask": dict(msize=[64, 64, 64], type="circular", params=[20.0],
+                     inner=False),
+        "morphology": dict(img=(img128 > img128.mean()).astype(float),
+                           operation="opening", neig=8, ksize=1, count=0),
+        "normalize": dict(img=img128 + 3, method="NewXmipp", mask=[]),
+        "adjust_ctf": None,
+        "ctf_correct_phase": dict(img=img128, st=ctf_st, method="leave",
+                                  epsilon=0.0),
+        "psd_enhance": dict(img=psd, center=True, take_log=True,
+                            filter_w1=0.05, filter_w2=0.2, decay_width=0.02,
+                            mask_w1=0.025, mask_w2=0.2),
+        "periodogram": dict(image=mic[:mic_size // 4, :mic_size // 4],
+                            sz=256),
+        "ctf_generate_filter": dict(Xdim=128, Tm=2.0, DeltafU=12000.0,
+                                    DeltafV=10000.0, AzimuthalAngle=15.0,
+                                    kV=300.0, Cs=2.0, Q0=0.1, K=1.0),
+        "align2d": dict(img=np.roll(img128, (3, -2), (0, 1)), ref=img128,
+                        mode="complete", max_shift=8, Rin=2, Rout=60),
+        "resolution": dict(img=img128, ref=np.kron(
+            np.asarray(Image.read_stack(f("avgs.mrcs")))[1],
+            np.ones((2, 2))), objectpixelsize=2.0),
+        "volume_segment": dict(vol=vol64, sampling=1.0, mass=20000.0,
+                               type="voxels", enable_threshold=False),
+        "read_metadata": dict(filename=f("pos.xmd")),
+        "nma_read_alignment": dict(NMAdirectory=str(nma)),
+        "nma_save_cluster": dict(NMAdirectory=str(nma), clusterName="c1",
+                                 inCluster=[1.0, 0.0, 1.0, 1.0]),
+        "read_structure_factor": dict(rundir=f("sf.xmd")),
+    }
+    MetaData.fromRows({"resolutionFreq": 0.01 * (k + 1),
+                       "resolutionLogStructure": -0.1 * k}
+                      for k in range(40)).write(f("sf.xmd"))
+    # adjust_ctf on a planted 256^2 PSD (1.5 A/px, defocus 15,000 /
+    # 14,000 A at 20 degrees)
+    Ts = 1.5
+    true = CTFDescription(sampling_rate=Ts, voltage=300, Cs=2.7, Q0=0.07,
+                          defocusU=15000, defocusV=14000,
+                          azimuthal_angle=20.0, K=1.0)
+    fy = np.fft.fftfreq(256).astype(np.float32)[:, None] / Ts
+    fx = np.fft.rfftfreq(256).astype(np.float32)[None, :] / Ts
+    half = true.pure_at(fx, fy, device="cpu").numpy() ** 2 + 0.05
+    full = np.concatenate([half, half[:, -2:0:-1]], axis=1)[:, :256]
+    args["adjust_ctf"] = dict(psd=np.fft.fftshift(full), Dz=14000.0,
+                              voltage=300.0, objectPixelSize=Ts,
+                              ctfmodelSize=0, Cs=2.7, min_freq=0.03,
+                              max_freq=0.35, Ca=2.0)
+    finite = {}
+    for func, a_ in args.items():
+        fin, fout = f(f"bridge_{func}_in.mat"), f(f"bridge_{func}.mat")
+        savemat(fin, a_)
+        run(f"bridge_{func}", "matlab_bridge", ["--func", func, "-i", fin,
+                                                "-o", fout])
+        out = loadmat(fout, squeeze_me=True)
+        finite[func] = all(np.isfinite(np.asarray(v, np.float64)).all()
+                           for k, v in out.items() if not k.startswith("__")
+                           and np.asarray(v).dtype.kind in "fiu"
+                           and func != "mirt3D_mexinterp")
+        bridge.append((func, fin, fout))
+    q["bridge_finite"] = finite
+    out = loadmat(f("bridge_adjust_ctf.mat"), squeeze_me=True)
+    q["bridge_defocus_err"] = float(max(
+        abs(float(out["DeltafU"]) - 15000) / 15000,
+        abs(float(out["DeltafV"]) - 14000) / 14000))
+
+    # (b8) infra: the example modules, and a user program built against
+    # the native library where g++ is present
+    import contextlib
+    import io as _io
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run("test_script_importing_module", "test_script_importing_module",
+            [])
+    printed = buf.getvalue().splitlines()
+    log("\n".join(ln for ln in printed if not ln.startswith("[")))
+    q["import_ok"] = "[       OK ] test_script_importing_module" in printed
+    if _shutil.which("g++") and _shutil.which("make"):
+        with open(f("hello.cpp"), "w") as fh:
+            fh.write('#include <cstdio>\nextern "C" int mrc_read_slices('
+                     'const char*, const long*, long, float*, int);\n'
+                     'int main() { std::printf("%d\\n", mrc_read_slices('
+                     '"none.mrc", nullptr, 0, nullptr, 1) != 0); }\n')
+        with contextlib.redirect_stdout(_io.StringIO()):
+            run("compile", "compile", ["-i", f("hello.cpp"),
+                                       "-o", f("hello")])
+        out = subprocess.run([f("hello")], capture_output=True, text=True,
+                             timeout=60)
+        q["compile_ok"] = out.returncode == 0 and out.stdout.strip() == "1"
+    return q, bridge
+
+
+def card_against_cpu(root: Path, models) -> dict:
+    """Each trained model's predictions on the card against the port's CPU
+    forward on the same weights and inputs: max |card - CPU| / max |CPU|."""
+    from xmipp3_tpu_torch.models import deep
+    out = {}
+    for label, (fn, kind, n_out, X) in models.items():
+        m = deep.KINDS[kind](**({} if n_out is None else {"n_out": n_out}))
+        deep.load_params(str(root / fn), m)
+        card = deep.predict(m, X, device=DEVICE)
+        cpu = deep.predict(m, X, device="cpu")
+        out[label] = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    return out
+
+
+def bridge_against_cpu(bridge) -> dict:
+    """The bridge functions that run on the card, again with --device cpu:
+    max |card - CPU| / max |CPU| over their float outputs (align2d: the
+    largest difference of psi in degrees and of the shifts in px)."""
+    from scipy.io import loadmat
+    from xmipp3_tpu_torch.programs import get_program
+    out = {}
+    for func, fin, fout in bridge:
+        if func not in TL_DEVICE_BRIDGE:
+            continue
+        fcpu = fout.replace(".mat", "_cpu.mat")
+        rc = get_program("matlab_bridge").run_with_args(
+            ["--func", func, "-i", fin, "-o", fcpu, "--device", "cpu",
+             "-v", "0"])
+        check(rc == 0, f"phase 17 bridge {func} on the CPU: rc {rc}")
+        a, b = (loadmat(x, squeeze_me=True) for x in (fout, fcpu))
+        if func == "align2d":
+            out[func] = max(abs(float(a[k]) - float(b[k]))
+                            for k in ("Psi", "Xoff", "Yoff"))
+            continue
+        err = 0.0
+        for k, v in b.items():
+            v = np.asarray(v)
+            if k.startswith("__") or v.dtype.kind not in "fc":
+                continue
+            err = max(err, float(np.abs(np.asarray(a[k]) - v).max()
+                                 / max(np.abs(v).max(), 1e-30)))
+        out[func] = err
+    return out
+
+
+def tail(seed, root: Path):
+    """Phase 17 in root: the 39 endpoints of the long tail through their
+    CLI on the card but sync_data (a network fetch) and compile (run when
+    the host has g++): the deep programs train and score held-out data,
+    then their models' predictions on the card are held against the
+    port's CPU forward; the other programs against numpy or their planned
+    limits; every matlab_bridge function, those that run on the card also
+    against its CPU run. No kernel may launch in it."""
+    from xmipp3_tpu_torch.core import timing
+    root.mkdir(parents=True)
+    report = {}
+    limit = Limits(17)
+
+    def run(label, name, args):
+        prog = run_program(17, report, label, name, args)
+        check(not report[label]["launches"], f"phase 17 {label}: launched "
+              f"{report[label]['launches']}, expected no kernel")
+        return prog
+
+    start = time.perf_counter()
+    timing.enable_timing(True)
+    (root / "deep").mkdir()
+    (root / "misc").mkdir()
+    try:
+        qa, models = tail_deep_readings(seed, root / "deep", run, DEVICE)
+        qb, bridge = tail_misc_readings(seed, root / "misc", run, DEVICE)
+    finally:
+        timing.take_timing()
+        timing.enable_timing(False)
+    t0 = time.perf_counter()
+    cpu = card_against_cpu(root / "deep", models)
+    bcpu = bridge_against_cpu(bridge)
+    report["checks_s"] = time.perf_counter() - t0
+    q = {**qa, **qb, "data_s": qa["data_s"] + qb["data_s"],
+         "card_vs_cpu": cpu, "bridge_card_vs_cpu": bcpu}
+    report["quality"] = q
+    report["phase_s"] = time.perf_counter() - start
+    log(f"  phase 17 took {report['phase_s']:.2f} s")
+    log("tail " + json.dumps(report))
+    L = TL_LIMITS
+    for k, v in cpu.items():
+        limit(v <= TL_TOL, f"phase 17 {k}: card {v:.2e} off the CPU forward")
+    for k, v in bcpu.items():
+        limit(v <= (0.05 if k == "align2d" else TL_TOL),
+              f"phase 17 bridge {k}: card {v:.2e} off the CPU")
+    for k in ("consensus_acc", "cleaner_acc", "misalign_acc", "hand_p",
+              "post_corr", "swift_purity", "cl2d_purity", "pca_avg_corr",
+              "maxcut_agree", "wiener_corr", "consensus_corr"):
+        limit(q[k] >= L[k], f"phase 17 {k}: {q[k]:.4f} (limit {L[k]})")
+    limit(q["hand_p_mirror"] <= L["hand_p_mirror"], f"phase 17 hand: "
+          f"mirror {q['hand_p_mirror']:.4f} (limit {L['hand_p_mirror']})")
+    for k in ("ga_median_err_deg", "deepres_err_A", "grey_err",
+              "volumeset_err_deg", "bridge_defocus_err"):
+        limit(q[k] <= L[k], f"phase 17 {k}: {q[k]:.4g} (limit {L[k]})")
+    limit(q["post_corr"] > q["post_input_corr"], f"phase 17 postprocessing: "
+          f"{q['post_corr']:.4f} against the input's "
+          f"{q['post_input_corr']:.4f}")
+    limit(q["wiener_corr"] > q["wiener_group_corr"], f"phase 17 wiener3d: "
+          f"{q['wiener_corr']:.4f} against the best group's "
+          f"{q['wiener_group_corr']:.4f}")
+    limit(q["compare_density"]["positive"] >= L["compare_positive"],
+          f"phase 17 compare_density: {q['compare_density']}")
+    limit(q["pdb_hist_diff"] == 0 and q["pdb_label_err"] <= 1e-2
+          and q["pdb_reduced_atoms"] == 50 and q["pdb_deform_zero_A"]
+          <= 1e-3 and q["pdb_center_A"] <= 1e-2
+          and q["pdb_selected"] == q["pdb_selected_want"],
+          "phase 17 pdb programs: " + json.dumps(
+              {k: v for k, v in q.items() if k.startswith("pdb_")}))
+    limit(q["zones"]["band_removed"] >= L["zones_band_removed"]
+          and q["zones"]["clear_kept"] >= L["zones_clear_kept"],
+          f"phase 17 noisy zones: {q['zones']}")
+    limit(q["consensus_picks"]["found"] == q["consensus_picks"]["want"],
+          f"phase 17 coordinates_consensus: {q['consensus_picks']}")
+    limit(q["pick_noise"]["picked"] == 200
+          and q["pick_noise"]["min_dist_box"] >= 1.5,
+          f"phase 17 pick_noise: {q['pick_noise']}")
+    limit(q["preprocess_vs_numpy"] <= TL_TOL, f"phase 17 preprocess_mics: "
+          f"{q['preprocess_vs_numpy']:.2e} off numpy")
+    limit(q["extract"]["differ"] == 0 and q["extract"]["boxes"]
+          == q["extract"]["want"], f"phase 17 extract_particles: "
+          f"{q['extract']}")
+    limit(q["wiener2d_vs_numpy"] <= TL_TOL, f"phase 17 swiftalign_wiener_"
+          f"2d: {q['wiener2d_vs_numpy']:.2e} off numpy")
+    limit(q["selfile_rows"]["got"] == q["selfile_rows"]["want"]
+          and q["xml_coordinates"] == q["extract"]["boxes"]
+          and q["split_rows"] > 0 and q["pca_eigen_finite"]
+          and q["import_ok"] and q.get("compile_ok", True)
+          and q["deepres_alias_same"] and q["pca_alias_rows"] == 200
+          and all(q["bridge_finite"].values()),
+          "phase 17 host programs: " + json.dumps(
+              {k: q.get(k) for k in ("selfile_rows", "xml_coordinates",
+                                     "split_rows", "pca_eigen_finite",
+                                     "import_ok", "compile_ok",
+                                     "deepres_alias_same", "pca_alias_rows",
+                                     "bridge_finite")}))
+    limit.check()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--mesh-rank"]:
@@ -7266,6 +8365,9 @@ def main(argv=None) -> int:
         log("phase 16: tomography, the tail of flex_misc_ext and the tilt "
             "programs")
         tomo_kernels = tomography(args.seed, root / "tomo")
+        log("phase 17: the long tail (deep programs, final_batch, "
+            "scripts_misc, matlab_bridge, infra)")
+        tail(args.seed, root / "tail")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

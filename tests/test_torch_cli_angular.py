@@ -759,6 +759,7 @@ def test_the_registry_holds_115_endpoints():
     import test_torch_cli_flex_tail as flex_tail
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
+    import test_torch_cli_tail as tail
     import test_torch_cli_tomo as tomo
     import test_torch_cli_volume as volume
     names = set(list_programs())
@@ -766,11 +767,11 @@ def test_the_registry_holds_115_endpoints():
     # the endpoints of later slices (tests/test_torch_cli_analysis.py,
     # tests/test_torch_cli_micrograph.py, tests/test_torch_cli_misc.py,
     # tests/test_torch_cli_volume.py, tests/test_torch_cli_flex.py,
-    # tests/test_torch_cli_flex_tail.py, tests/test_torch_cli_tomo.py)
-    # aside
+    # tests/test_torch_cli_flex_tail.py, tests/test_torch_cli_tomo.py,
+    # tests/test_torch_cli_tail.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
                           for m in (analysis, micrograph, misc, volume,
-                                    flex, flex_tail, tomo)))
+                                    flex, flex_tail, tomo, tail)))
     assert len(names - later) == 115 and len(set(ALIASES) - later) == 37
 
 

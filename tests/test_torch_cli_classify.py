@@ -262,11 +262,12 @@ def test_eighteen_aliases_and_six_programs_are_registered():
     import test_torch_cli_flex as flex
     import test_torch_cli_flex_tail as flex_tail
     import test_torch_cli_misc as misc
+    import test_torch_cli_tail as tail
     import test_torch_cli_tomo as tomo
     import test_torch_cli_volume as volume
     later |= set().union(*(set(m.NEW_ALIASES)
                            for m in (angular, analysis, misc, volume,
-                                     flex, flex_tail, tomo)))
+                                     flex, flex_tail, tomo, tail)))
     assert len(set(ALIASES) - {"ctf_correct_phase",
                                "cuda_movie_alignment_correlation"}
                - later) == 18

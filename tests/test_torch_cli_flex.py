@@ -438,14 +438,15 @@ def test_flags_that_change_nothing_stay_accepted(data, tmp_path, name, args):
 def test_the_registry_holds_185_endpoints():
     from xmipp3_tpu_torch.programs import list_programs
     import test_torch_cli_flex_tail as flex_tail
+    import test_torch_cli_tail as tail
     import test_torch_cli_tomo as tomo
     names = set(list_programs())
     assert set(NEW) | set(NEW_ALIASES) <= names
     assert len(NEW) == 16 and len(NEW_ALIASES) == 8
-    # the endpoints of the later slice (tests/test_torch_cli_flex_tail.py,
-    # tests/test_torch_cli_tomo.py) aside
+    # the endpoints of the later slices (tests/test_torch_cli_flex_tail.py,
+    # tests/test_torch_cli_tomo.py, tests/test_torch_cli_tail.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
-                          for m in (flex_tail, tomo)))
+                          for m in (flex_tail, tomo, tail)))
     assert len(names - later) == 185 and len(set(ALIASES) - later) == 54
 
 

@@ -349,6 +349,7 @@ def test_the_registry_holds_161_endpoints():
     import test_torch_cli_flex_tail as flex_tail
     import test_torch_cli_micrograph as micrograph
     import test_torch_cli_misc as misc
+    import test_torch_cli_tail as tail
     import test_torch_cli_tomo as tomo
     from xmipp3_tpu_torch.programs import list_programs
     names = set(list_programs())
@@ -357,10 +358,10 @@ def test_the_registry_holds_161_endpoints():
     assert len(new) == 18 and len(aliases) == 3
     assert new | aliases <= names
     # the endpoints of the later slices (tests/test_torch_cli_flex.py,
-    # tests/test_torch_cli_flex_tail.py, tests/test_torch_cli_tomo.py)
-    # aside
+    # tests/test_torch_cli_flex_tail.py, tests/test_torch_cli_tomo.py,
+    # tests/test_torch_cli_tail.py) aside
     later = set().union(*(set(m.NEW) | set(m.NEW_ALIASES)
-                          for m in (flex, flex_tail, tomo)))
+                          for m in (flex, flex_tail, tomo, tail)))
     assert len(names - later) == 161 and len(set(ALIASES) - later) == 46
 
 

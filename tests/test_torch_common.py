@@ -257,6 +257,13 @@ from xmipp3_tpu_torch.programs import (ctf_correct, ctf_estimate,
                                        transform_filter, transform_geometry,
                                        transform_normalize)
 from xmipp3_tpu_torch.models import cl2d, ctf_estimation, dimred, ml2d, som
+from xmipp3_tpu_torch.models import deep
+from xmipp3_tpu_torch import native
+from xmipp3_tpu_torch.core import funcs, numerics
+from xmipp3_tpu_torch.ops import basis, fringe, steerable
+from xmipp3_tpu_torch.programs import (deep_programs, infra_scripts,
+                                       matlab_bridge, scripts_misc)
+assert len(list_programs()) == 257, len(list_programs())
 from xmipp3_tpu_torch.programs import classify
 from xmipp3_tpu_torch.core import emx
 from xmipp3_tpu_torch.ops import art
@@ -321,8 +328,7 @@ for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              *ALIASES, *list_programs()):
     assert get_program(name) is not None, name
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "xmipp3_tpu"
-             or m.startswith("xmipp3_tpu."))
+             if m.split(".")[0] in ("jax", "flax", "optax", "xmipp3_tpu"))
 print("BAD", bad)
 """
 

@@ -8,9 +8,11 @@ check: the kernels are built, then
 - 15: chip_smoke.flexibility runs the 16 programs of the Zernike3D and
   NMA slice;
 - 16: chip_smoke.tomography runs the 28 programs of the tomography slice,
-  the tail of flex_misc_ext and the three tilt programs.
+  the tail of flex_misc_ext and the three tilt programs;
+- 17: chip_smoke.tail runs the long tail: the deep programs, the rest of
+  final_batch and scripts_misc, matlab_bridge and the infra programs.
 
-Phases 15 and 16 make their own data; they read nothing of the earlier
+Phases 15-17 make their own data; they read nothing of the earlier
 phases. On the card, from the repo root:
 
     python3 tools/phase_alone.py 16 [--keep rec_truth.mrc ...]
@@ -20,7 +22,8 @@ copies a volume of the data folder, as float16 (its high and low bytes
 apart, so that zlib packs the exponents), to
 chiprun_out/p<phase>_<name>.npz: tools/plan_tomo.py --tomogram reads it.
 The dry run of a phase's code on the CPU is its plan with --package port
-(tools/plan_volume_misc.py, tools/plan_flex.py, tools/plan_tomo.py).
+(tools/plan_volume_misc.py, tools/plan_flex.py, tools/plan_tomo.py,
+tools/plan_tail.py).
 """
 import argparse
 import json
@@ -55,7 +58,8 @@ def misc_volume(root: Path):
 
 PHASES = {14: misc_volume,
           15: lambda root: cs.flexibility(0, root),
-          16: lambda root: cs.tomography(0, root)}
+          16: lambda root: cs.tomography(0, root),
+          17: lambda root: cs.tail(0, root)}
 
 
 def keep(src: Path, dst: Path):

@@ -44,12 +44,16 @@ def as_tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:
 
 @contextmanager
 def fp32_products():
-    """Library matrix products inside the block run in full float32 (no
-    TF32): lower precision in the correlations and distances flips
-    argmax winners. The previous setting comes back on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """Library matrix products and cuDNN convolutions inside the block run
+    in full float32 (no TF32): lower precision in the correlations and
+    distances flips argmax winners, and moves the deep programs' scores
+    off the CPU's. The previous settings come back on exit."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

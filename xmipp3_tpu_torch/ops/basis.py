@@ -1,14 +1,27 @@
-"""Kaiser-Bessel blob profiles (the subset of the reference package's
-ops/basis.py that Fourier reconstruction needs).
+"""Kaiser-Bessel blob bases and reconstruction grids.
 
 Contract: reference data/blobs.{h,cpp} (kaiser_value /
-kaiser_Fourier_value). Host numpy/scipy: the reconstruction uses them to
-build the grid-sampled blob kernel and the deapodization table once.
+kaiser_Fourier_value, blob footprints, blobs<->voxels) and data/grids.h
+(CC/BCC/FCC SimpleGrid). Host numpy/scipy, as in the reference package's
+ops/basis.py: the reconstruction builds its grid-sampled blob kernel and
+deapodization table from the profiles once; the Blob family (footprints,
+lattices, blobs<->voxels) serves the tests and user scripts.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 from scipy import special
+
+
+@dataclass
+class Blob:
+    """Kaiser-Bessel blob parameters (reference struct blobtype,
+    blobs.h:112; defaults = the classic ART blob a=2, m=2, alpha=10.4)."""
+    radius: float = 2.0
+    order: int = 2
+    alpha: float = 10.4
 
 
 def kaiser_value(r, a=2.0, alpha=10.4, m=2):
@@ -49,3 +62,92 @@ def kaiser_fourier_value(w, a=2.0, alpha=10.4, m=2):
     v0 = c * (1 / (special.gamma(nu + 1) * 2 ** nu))   # limit t -> 0
     out = np.where(inside, vin, vout)
     return np.where(np.abs(t) < 1e-8, v0, out)
+
+
+def blob_footprint(blob: Blob, sampling: float = 1.0, oversample: int = 1):
+    """Cubic voxel footprint of a blob centered at the origin."""
+    r_vox = blob.radius / sampling
+    n = int(np.ceil(r_vox)) * 2 + 1
+    half = n // 2
+    g = (np.arange(n) - half) * sampling
+    zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+    r = np.sqrt(xx ** 2 + yy ** 2 + zz ** 2)
+    return kaiser_value(r, blob.radius, blob.alpha, blob.order
+                        ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# grids (reference data/grids.h: CC / BCC / FCC sample lattices)
+# ---------------------------------------------------------------------------
+
+def grid_points(kind: str, size: int, spacing: float = 1.0):
+    """Lattice points of a centered grid inside a cube of `size` voxels.
+
+    kind: "cc" (simple cubic), "bcc" (body-centered), "fcc" (face-centered).
+    Returns (N, 3) float coordinates in voxel units, origin at the center.
+    BCC uses the reference's convention: a second CC lattice offset by half
+    the spacing in all axes."""
+    half = size / 2.0
+    base = np.arange(-half, half + 1e-6, spacing)
+    zz, yy, xx = np.meshgrid(base, base, base, indexing="ij")
+    cc = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], axis=1)
+    if kind == "cc":
+        pts = cc
+    elif kind == "bcc":
+        pts = np.concatenate([cc, cc + spacing / 2.0])
+    elif kind == "fcc":
+        o = spacing / 2.0
+        pts = np.concatenate([cc, cc + [o, o, 0], cc + [o, 0, o],
+                              cc + [0, o, o]])
+    else:
+        raise ValueError(f"unknown grid kind {kind!r}")
+    keep = (np.abs(pts) <= half).all(axis=1)
+    return pts[keep]
+
+
+def blobs_to_voxels(coeffs, points, blob: Blob, size: int,
+                    sampling: float = 1.0):
+    """Voxelize a blob expansion: sum of footprints scaled by coefficients
+    (reference changeToVoxels role)."""
+    fp = blob_footprint(blob, sampling)
+    n = fp.shape[0]
+    half = n // 2
+    vol = np.zeros((size + 2 * half,) * 3, np.float64)
+    pts = np.asarray(points, np.float64) / sampling + size // 2 + half
+    for c, p in zip(np.asarray(coeffs, np.float64), pts):
+        iz, iy, ix = (int(round(v)) for v in (p[2], p[1], p[0]))
+        if not all(half <= v < size + half for v in (iz, iy, ix)):
+            continue
+        vol[iz - half:iz + half + 1, iy - half:iy + half + 1,
+            ix - half:ix + half + 1] += c * fp
+    return vol[half:half + size, half:half + size,
+               half:half + size].astype(np.float32)
+
+
+def voxels_to_blobs(vol, points, blob: Blob, sampling: float = 1.0,
+                    n_iters: int = 10, lam: float = 1.0):
+    """Fit blob coefficients reproducing a voxel volume (reference
+    voxels->blobs conversion) by damped Richardson iterations:
+    c <- c + lam * footprint-weighted residual sampling."""
+    vol = np.asarray(vol, np.float64)
+    size = vol.shape[0]
+    fp = blob_footprint(blob, sampling)
+    norm = float((fp ** 2).sum())
+    coeffs = np.zeros(len(points))
+    for _ in range(n_iters):
+        cur = blobs_to_voxels(coeffs, points, blob, size, sampling)
+        resid = vol - cur
+        # correlate residual with each footprint (gather local patches)
+        half = fp.shape[0] // 2
+        pad = np.pad(resid, half)
+        upd = np.zeros_like(coeffs)
+        pts = np.asarray(points, np.float64) / sampling + size // 2 + half
+        for i, p in enumerate(pts):
+            iz, iy, ix = (int(round(v)) for v in (p[2], p[1], p[0]))
+            if not all(half <= v < size + half for v in (iz, iy, ix)):
+                continue
+            patch = pad[iz - half:iz + half + 1, iy - half:iy + half + 1,
+                        ix - half:ix + half + 1]
+            upd[i] = (patch * fp).sum() / norm
+        coeffs = coeffs + lam * upd
+    return coeffs

@@ -96,3 +96,56 @@ def radial_average_half(power, nbins: int):
                              dtype=torch.float32, device=power.device)
     out = sums / torch.clamp(counts, min=1.0)
     return out.reshape(power.shape[:-2] + (nbins,))
+
+
+# ---------------------------------------------------------------------------
+# FFT sizes, index conversion, whole planes
+# ---------------------------------------------------------------------------
+
+def _is_smooth(n: int, primes=(2, 3, 5)) -> bool:
+    for p in primes:
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def next_good_fft_size(n: int) -> int:
+    """Smallest 5-smooth integer >= n (a static stand-in for cuFFTAdvisor)."""
+    while not _is_smooth(n):
+        n += 1
+    return n
+
+
+def good_fft_sizes(n: int, count: int = 8) -> list[int]:
+    out, m = [], n
+    while len(out) < count:
+        m = next_good_fft_size(m)
+        out.append(m)
+        m += 1
+    return out
+
+
+def fft_idx2digfreq(idx: int, dim: int) -> float:
+    """The reference FFT_IDX2DIGFREQ: w = idx/dim for idx <= dim/2 else
+    (idx-dim)/dim. The even-size Nyquist bin maps to +0.5 (numpy's fftfreq
+    gives -0.5 there)."""
+    return (idx if idx <= dim // 2 else idx - dim) / float(dim)
+
+
+def center_fft_2d(spec_full):
+    """fftshift of both last axes (xmipp CenterFFT, for display/PSD)."""
+    return torch.fft.fftshift(torch.as_tensor(spec_full), dim=(-2, -1))
+
+
+def hermitian_full_from_half(spec_half, w: int):
+    """The full complex plane from its rfft half (for algorithms that need
+    the whole plane, such as PSD display; reference half2whole,
+    psd_estimator.h:53)."""
+    spec_half = torch.as_tensor(spec_half)
+    H = spec_half.shape[-2]
+    cols = w - spec_half.shape[-1]
+    idx = torch.as_tensor(np.arange(1, cols + 1)[::-1].copy(),
+                          device=spec_half.device)
+    row_idx = torch.as_tensor((-np.arange(H)) % H, device=spec_half.device)
+    conj_part = torch.conj(spec_half[..., :, idx])[..., row_idx, :]
+    return torch.cat([spec_half, conj_part], dim=-1)

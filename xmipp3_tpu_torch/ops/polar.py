@@ -186,3 +186,75 @@ def best_rotation(ref, others, radius_min: int = 2,
     p_oth = cartesian_to_polar(others, radius_min, radius_max, n_angles)
     return best_rotation_from_ffts(ring_ffts(p_ref), ring_ffts(p_oth),
                                    radius_min)
+
+
+def polar_at_offsets(imgs, offsets, radius_min: int = 2,
+                     radius_max: int | None = None,
+                     n_angles: int | None = None, stride: int = 1,
+                     device=None):
+    """Polar resample around shifted centres without shifting the images:
+    sampling T(t)·img on the polar grid equals sampling img at grid - t.
+    imgs (B,H,W), offsets (T,2) as (tx,ty) -> (T,B,R,A), nearest
+    neighbour (the coarse-scan path), on the images' device."""
+    imgs = as_tensor(imgs, device)
+    B, H, W = imgs.shape
+    if radius_max is None:
+        radius_max = H // 2 - 2
+    yy, xx, _ = polar_grid(H, W, radius_min, radius_max, n_angles)
+    if stride > 1:
+        yy, xx = yy[::stride], xx[::stride]
+    t = np.asarray(offsets, np.float32).reshape(-1, 2)
+    # the reference's float32 round-half-even of the shifted grid
+    yi = np.clip(np.round(yy[None] - t[:, 1, None, None]).astype(np.int64),
+                 0, H - 1)
+    xi = np.clip(np.round(xx[None] - t[:, 0, None, None]).astype(np.int64),
+                 0, W - 1)
+    idx = torch.as_tensor(yi * W + xi, device=imgs.device)   # (T, R, A)
+    flat = imgs.reshape(B, -1)
+    return flat[:, idx.reshape(-1)].reshape(B, *idx.shape).permute(
+        1, 0, 2, 3)
+
+
+def polar_rings_reference(coeffs, first_ring: int, last_ring: int,
+                          xoff: float = 0.0, yoff: float = 0.0,
+                          mode: str = "full", device=None):
+    """Reference-exact polar ring sampling
+    (Polar::getPolarFromCartesianBSpline, data/polar.h:625-702): rings at
+    integer radii, 2·int(0.5·angle·r) samples per ring (min 1), sample
+    (x, y) = r·(sin phi, cos phi) evaluated by cubic B-spline on `coeffs`
+    (spline coefficients) with mirror-off-bounds extension and no
+    centring: the reference evaluates in the array's own coordinate frame.
+    Returns (rings, radii): a list of 1-D tensors and a list of radii."""
+    from xmipp3_tpu_torch.ops.geo import _gather_bspline3
+    coeffs = as_tensor(coeffs, device)
+    twopi = 2.0 * np.pi if mode == "full" else np.pi
+    rings, radii = [], []
+    for r in range(first_ring, last_ring + 1):
+        radius = float(r)
+        nsam = max(1, 2 * int(0.5 * twopi * radius))
+        phi = np.arange(nsam, dtype=np.float32) * np.float32(twopi / nsam)
+        xs = torch.as_tensor(np.sin(phi) * radius + xoff, device=coeffs.device)
+        ys = torch.as_tensor(np.cos(phi) * radius + yoff, device=coeffs.device)
+        rings.append(_gather_bspline3(coeffs, ys, xs, wrap=False,
+                                      zero_outside=False))
+        radii.append(radius)
+    return rings, radii
+
+
+def polar_weighted_stats(rings, radii, mode: str = "full"):
+    """Ring-area-weighted mean and stddev (Polar::computeAverageAndStddev,
+    data/polar.h:488-534): weight a sample = angle·radius/nsam (float64,
+    host)."""
+    twopi = 2.0 * np.pi if mode == "full" else np.pi
+    s = s2 = n = 0.0
+    for ring, radius in zip(rings, radii):
+        vals = np.asarray(ring.cpu() if isinstance(ring, torch.Tensor)
+                          else ring, np.float64)
+        w = twopi * radius / vals.size
+        s += w * vals.sum()
+        s2 += w * (vals ** 2).sum()
+        n += w * vals.size
+    if n > 0:
+        mean = s / n
+        return mean, float(np.sqrt(abs(s2 / n - mean * mean)))
+    return 0.0, 0.0

@@ -185,6 +185,15 @@ def best_shift_pairs(a, b, max_shift: int | None = None, device=None):
     return best_shift(a, b, max_shift=max_shift, device=device)
 
 
+def align_translationally(ref, others, max_shift: int | None = None,
+                          order: int = 1, device=None):
+    """Estimate and apply shifts; returns (aligned, sx, sy, corr)."""
+    from xmipp3_tpu_torch.ops.geo import shift_2d_real
+    others = as_tensor(others, device)
+    sx, sy, c = best_shift(ref, others, max_shift=max_shift)
+    return shift_2d_real(others, sx, sy, order=order), sx, sy, c
+
+
 def correlation_index(a, b, device=None):
     """Normalized cross-correlation of batches (the reference
     correlation_index / CorrelationComputer merit, amerit_computer.h)."""

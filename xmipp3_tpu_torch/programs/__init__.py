@@ -217,10 +217,53 @@ _REGISTRY: dict[str, str] = {
     "image_peak_high_contrast": _P + "final_batch:ProgImagePeakHighContrast",
     "image_assignment_tilt_pair":
         _P + "final_batch:ProgImageAssignmentTiltPair",
+    "metadata_xml": _P + "final_batch:ProgMetadataXML",
+    "metadata_split_3D": _P + "final_batch:ProgMetadataSplit3D",
+    "coordinates_noisy_zones_filter":
+        _P + "final_batch:ProgCoordinatesNoisyZonesFilter",
+    "volumeset_align": _P + "final_batch:ProgVolumesetAlign",
+    "pdb_analysis": _P + "final_batch:ProgPDBAnalysis",
+    "pdb_label_from_volume": _P + "final_batch:ProgPDBLabelFromVolume",
+    "pdb_reduce_pseudoatoms": _P + "final_batch:ProgPDBReducePseudoatoms",
+    "pdb_sph_deform": _P + "final_batch:ProgPDBSphDeform",
+    "compare_density": _P + "final_batch:ProgCompareDensity",
+    "ctf_correct_wiener3d": _P + "final_batch:ProgCTFCorrectWiener3D",
+    "transform_adjust_volume_grey_levels":
+        _P + "final_batch:ProgAdjustVolumeGreyLevels",
+    "sync_data": _P + "infra_scripts:ProgSyncData",
+    "compile": _P + "infra_scripts:ProgCompile",
+    "test_script_importing_module":
+        _P + "infra_scripts:ProgTestScriptImportingModule",
+    "matlab_bridge": _P + "matlab_bridge:ProgMatlabBridge",
+    "metadata_selfile_create": _P + "scripts_misc:ProgMetadataSelfileCreate",
+    "pdb_center": _P + "scripts_misc:ProgPdbCenter",
+    "pdb_select": _P + "scripts_misc:ProgPdbSelect",
+    "coordinates_consensus": _P + "scripts_misc:ProgCoordinatesConsensus",
+    "pick_noise": _P + "scripts_misc:ProgPickNoise",
+    "preprocess_mics": _P + "scripts_misc:ProgPreprocessMics",
+    "volume_consensus": _P + "scripts_misc:ProgVolumeConsensus",
+    "cl2d_clustering": _P + "scripts_misc:ProgCl2dClustering",
+    "align_pca_2d": _P + "scripts_misc:ProgAlignPCA2D",
+    "graph_max_cut": _P + "scripts_misc:ProgGraphMaxCut",
+    "extract_particles": _P + "scripts_misc:ProgExtractParticles",
+    "swiftalign_wiener_2d": _P + "scripts_misc:ProgSwiftalignWiener2D",
+    "swiftalign_aligned_2d_classification":
+        _P + "scripts_misc:ProgSwiftalignAligned2DClassification",
+    "deep_consensus": _P + "deep_programs:ProgDeepConsensus",
+    "deep_micrograph_cleaner": _P + "deep_programs:ProgDeepMicrographCleaner",
+    "deep_hand": _P + "deep_programs:ProgDeepHand",
+    "deepRes_resolution": _P + "deep_programs:ProgDeepResResolution",
+    "deep_global_assignment": _P + "deep_programs:ProgDeepGlobalAssignment",
+    "deep_global_assignment_predict":
+        _P + "deep_programs:ProgDeepGlobalAssignmentPredict",
+    "deep_misalignment_detection":
+        _P + "deep_programs:ProgDeepMisalignmentDetection",
+    "deep_volume_postprocessing":
+        _P + "deep_programs:ProgDeepVolumePostprocessing",
 }
 
 # the reference's aliases of these programs (programs/registry.py:177,
-# :216, :305, :311-350, :360): alias -> the program it runs
+# :216, :260, :274, :305, :311-350, :360): alias -> the program it runs
 ALIASES: dict[str, str] = {
     "ctf_correct_phase": "ctf_phase_flip",
     "cuda_movie_alignment_correlation": "movie_alignment_correlation",
@@ -282,6 +325,9 @@ ALIASES: dict[str, str] = {
     "mpi_performance_test": "performance_test",
     "mpi_write_test": "write_test",
     "mpi_subtomo_subtraction": "subtomo_subtraction",
+    "mpi_volumeset_align": "volumeset_align",
+    "alignPCA_2D": "align_pca_2d",
+    "deep_res_resolution": "deepRes_resolution",
 }
 _REGISTRY.update({alias: _REGISTRY[name] for alias, name in ALIASES.items()})
 

@@ -1,7 +1,19 @@
-"""Three programs of the reference package's programs/final_batch.py:
-xmipp_phantom_movie, xmipp_image_peak_high_contrast and
-xmipp_image_assignment_tilt_pair (its other programs are still to be
-ported, ROADMAP.md port queue item 14).
+"""The programs of the reference package's programs/final_batch.py:
+phantom_movie, image_peak_high_contrast, image_assignment_tilt_pair,
+metadata_xml, metadata_split_3D, coordinates_noisy_zones_filter,
+volumeset_align, pdb_analysis, pdb_label_from_volume,
+pdb_reduce_pseudoatoms, pdb_sph_deform, compare_density,
+ctf_correct_wiener3d and transform_adjust_volume_grey_levels.
+
+On the card unless `--device cpu` is given: the noisy zones' windows and
+variances, the alignments of volumeset_align (ProgVolumeAlign), the
+nearest-neighbour distances of pdb_analysis and the k-means of
+pdb_reduce_pseudoatoms (float64), compare_density's projections and
+low-pass, the 3-D Wiener filters and FFTs (float64), and the grey-level
+fit's projections and normal equations. The metadata programs, the PDB
+text, the atoms' labels and the Zernike deformation of a model, and the
+Otsu thresholds and connected components run on the host, as in the
+reference.
 
 image_peak_high_contrast's fiducial mode band-passes the tomogram's slices
 and thresholds them on the card; the connected components (scipy), the
@@ -10,12 +22,13 @@ the reference. image_assignment_tilt_pair is host geometry (scipy's
 Delaunay triangulations and k-d trees, numpy least squares) in both
 packages.
 
-phantom_movie: the scene (ice and content) is drawn with numpy from --seed exactly as the
-reference draws it, so both packages make the same reference frame; the
-ice low-pass, the per-frame displacement and bilinear resampling and the
-Poisson dose run on the card unless `--device cpu` is given. The dose is
-drawn with a torch.Generator seeded from --seed, so dosed frames match the
-reference's in distribution, not value for value.
+phantom_movie: the scene (ice and content) is drawn with numpy from
+--seed exactly as the reference draws it, so both packages make the same
+reference frame; the ice low-pass, the per-frame displacement and
+bilinear resampling and the Poisson dose run on the card unless
+`--device cpu` is given. The dose is drawn with a torch.Generator seeded
+from --seed, so dosed frames match the reference's in distribution, not
+value for value.
 """
 from __future__ import annotations
 
@@ -549,3 +562,731 @@ class ProgImageAssignmentTiltPair(XmippProgram):
         self.n_pairs = len(good)
         if self.verbose:
             print(f"Assigned {len(good)} tilt pairs")
+
+
+class ProgMetadataXML(XmippProgram):
+    name = "xmipp_metadata_xml"
+
+    def defineParams(self):
+        self.addUsageLine("Export a picking metadata as particlepicking XML "
+                          "(metadata_xml.cpp:56-120) or a generic table.")
+        self.addParamsLine("   -i <md_file> : Input metadata")
+        self.addParamsLine("   -o <xml>     : Output XML")
+        self.addParamsLine("  [--extractParticlesMD] : Input comes from the ExtractParticles protocol (single block, micrograph column, disabled rows dropped)")
+        self.addParamsLine("  [--root <name=metadata>] : Root element name (generic table mode)")
+
+    @staticmethod
+    def _coords(f, md):
+        for i in md:
+            r = md.getRow(i)
+            x = int(float(r.get("xcoor", 0) or 0))
+            y = int(float(r.get("ycoor", 0) or 0))
+            f.write(f'<coordinate x="{x}" y="{y}"/>\n')
+
+    def run(self):
+        import os
+        fn_in = self.getParam("-i")
+        md = MetaData(fn_in)
+        if self.checkParam("--extractParticlesMD"):
+            # one extract_particles table: its rows grouped by micrograph
+            md.removeDisabled()
+            md.sort("micrograph")
+            with open(self.getParam("-o"), "w") as f:
+                f.write("<particlepicking>\n")
+                cur = None
+                for i in md:
+                    r = md.getRow(i)
+                    mic = os.path.splitext(os.path.basename(
+                        str(r.get("micrograph", ""))))[0]
+                    if mic != cur:
+                        if cur is not None:
+                            f.write("</micrograph>\n")
+                        f.write(f'<micrograph id="{mic}">\n')
+                        cur = mic
+                    x = int(float(r.get("xcoor", 0) or 0))
+                    y = int(float(r.get("ycoor", 0) or 0))
+                    f.write(f'<coordinate x="{x}" y="{y}"/>\n')
+                if cur is not None:
+                    f.write("</micrograph>\n")
+                f.write("</particlepicking>\n")
+            return
+        try:
+            blocks = MetaData.blocksInFile(fn_in)
+        except Exception:
+            blocks = []
+        if blocks and md.containsLabel("xcoor"):
+            # one picking block a micrograph (the reference's default mode)
+            with open(self.getParam("-o"), "w") as f:
+                f.write("<particlepicking>\n")
+                for b in blocks:
+                    f.write(f'<micrograph id="{b.split("_", 1)[-1]}">\n')
+                    self._coords(f, MetaData(f"{b}@{fn_in}"))
+                    f.write("</micrograph>\n")
+                f.write("</particlepicking>\n")
+            return
+        root = self.getParam("--root")
+        with open(self.getParam("-o"), "w") as f:
+            f.write("<?xml version='1.0' encoding='utf-8'?>\n")
+            f.write(f"<{root}>\n")
+            for i in md:
+                f.write("  <ROW ")
+                for k, v in md.getRow(i).items():
+                    if isinstance(v, np.ndarray):
+                        v = " ".join(f"{x:g}" for x in v)
+                    f.write(f'{k}="{v}" ')
+                f.write("/>\n")
+            f.write(f"</{root}>\n")
+
+
+class ProgMetadataSplit3D(XmippProgram):
+    name = "xmipp_metadata_split_3d"
+
+    def defineParams(self):
+        self.addUsageLine("Split particles into correlates-well/-poorly "
+                          "halves per projection direction "
+                          "(metadata_split_3D.cpp:63-210): for each gallery "
+                          "direction the neighbouring images are split at "
+                          "their median maxCC and each imageIndex "
+                          "accumulates +-1 votes.")
+        self.addParamsLine("   -i <md_file> : Input with angles, imageIndex and maxCC")
+        self.addParamsLine("  [--vol <volume=\"\">] : Reference volume (directions are generated from --sym/--angSampling; the volume itself is not reprojected)")
+        self.addParamsLine("  [--oroot <root=split>] : Output rootname")
+        self.addParamsLine("  [--sym <symmetry_file=c1>] : Symmetry")
+        self.addParamsLine("  [--angSampling <a=5>] : Angular sampling (deg)")
+        self.addParamsLine("  [--maxDist <a=10>] : Maximum angular distance (deg)")
+
+    def run(self):
+        from xmipp3_tpu_torch.core.sampling import (compute_sampling_points,
+                                                    remove_redundant_points)
+        from xmipp3_tpu_torch.core.sym import SymList
+        md = MetaData(self.getParam("-i"))
+        md.removeDisabled()
+        rows = list(md.iterRows())
+        root = self.getParam("--oroot") or "split"
+        sym = self.getParam("--sym") if self.checkParam("--sym") else "c1"
+        samp = (self.getDoubleParam("--angSampling")
+                if self.checkParam("--angSampling") else 5.0)
+        max_dist = np.deg2rad(self.getDoubleParam("--maxDist")
+                              if self.checkParam("--maxDist") else 10.0)
+
+        def direction(rot, tilt):
+            r, t = np.deg2rad(rot), np.deg2rad(tilt)
+            return np.array([np.cos(r) * np.sin(t),
+                             np.sin(r) * np.sin(t), np.cos(t)])
+
+        dirs_in = np.stack([
+            direction(float(r.get("angleRot", 0) or 0),
+                      float(r.get("angleTilt", 0) or 0)) for r in rows])
+        refno = np.array([int(r.get("imageIndex", i) or i)
+                          for i, r in enumerate(rows)])
+        cc = np.array([float(r.get("maxCC", 0) or 0) for r in rows])
+        gal = remove_redundant_points(compute_sampling_points(samp, 0.0, 90.0),
+                                      SymList(sym))
+        gal_dirs = np.stack([direction(a[0], a[1]) for a in gal])
+        votes = np.zeros(int(refno.max()) + 1)
+        cosmax = np.cos(max_dist)
+        for gd in gal_dirs:
+            near = (dirs_in @ gd) > cosmax
+            if not near.any():
+                continue
+            # one vote per distinct imageIndex, at its best cc
+            best: dict[int, float] = {}
+            for k, c in zip(refno[near], cc[near]):
+                if c > best.get(int(k), -np.inf):
+                    best[int(k)] = float(c)
+            vals = np.array(sorted(best.values()))
+            med = vals[len(vals) // 2]
+            for k, c in best.items():
+                votes[k] += 1.0 if c > med else -1.0
+        upper, lower = [], []
+        for i, r in enumerate(rows):
+            d = dict(r)
+            d["cost"] = float(votes[refno[i]])
+            if votes[refno[i]] > 0:
+                upper.append(d)
+            elif votes[refno[i]] < 0:
+                lower.append(d)
+        for suffix, part in (("_upper", upper), ("_lower", lower),
+                             ("_1", upper), ("_2", lower)):
+            MetaData.fromRows(part or [{"image": ""}]).write(
+                root + suffix + ".xmd")
+
+
+class ProgCoordinatesNoisyZonesFilter(XmippProgram):
+    name = "xmipp_coordinates_noisy_zones_filter"
+
+    def defineParams(self):
+        self.addUsageLine("Remove picked coordinates that fall in noisy/"
+                          "contaminated micrograph zones (local variance "
+                          "screening).")
+        self.addParamsLine("   --pos <md>  : Coordinates (xcoor/ycoor)")
+        self.addParamsLine("   --mic <micrograph> : The micrograph")
+        self.addParamsLine("   -o <md>     : Filtered coordinates")
+        self.addParamsLine("  [--patchSize <p=64>] : Analysis window")
+        self.addParamsLine("  [--zmax <z=3>] : Max allowed variance zScore")
+
+    def run(self):
+        dev = resolve_device(self.getParam("--device"))
+        mic = as_tensor(np.squeeze(Image(self.getParam("--mic")).data)
+                        .astype(np.float32), dev)
+        rows = list(MetaData(self.getParam("--pos")).iterRows())
+        p = self.getIntParam("--patchSize")
+        H, W = mic.shape
+        x0 = np.clip([int(r["xcoor"]) - p // 2 for r in rows], 0, W - p)
+        y0 = np.clip([int(r["ycoor"]) - p // 2 for r in rows], 0, H - p)
+        # every window in one gather: (n, p, p)
+        ar = torch.arange(p, device=dev)
+        yy = torch.as_tensor(y0, device=dev)[:, None] + ar
+        xx = torch.as_tensor(x0, device=dev)[:, None] + ar
+        win = mic[yy[:, :, None], xx[:, None, :]].double()
+        v = win.var(dim=(1, 2), unbiased=False).cpu().numpy()
+        med = np.median(v)
+        z = np.abs(v - med) / max(1.4826 * np.median(np.abs(v - med)), 1e-12)
+        keep = [r for r, zz in zip(rows, z)
+                if zz <= self.getDoubleParam("--zmax")]
+        MetaData.fromRows(keep).write(self.getParam("-o"))
+        self.n_kept = len(keep)
+
+
+class ProgVolumesetAlign(XmippProgram):
+    name = "xmipp_volumeset_align"
+
+    def defineParams(self):
+        self.addUsageLine("Align every volume of a set to a reference "
+                          "volume (volumeset_align.cpp:40-49 surface).")
+        self.addParamsLine("   -i <md_file> : Metadata with volumes (image column)")
+        self.addParamsLine("   --ref <volume> : Reference")
+        self.addParamsLine("  [-o <md_file=\"\">] : Output with alignment "
+                           "angles (default <odir>/volumeset_align.xmd)")
+        self.addParamsLine("  [--odir <dir=.>] : Output directory")
+        self.addParamsLine("  [--resume] : Skip volumes already present in "
+                           "the output metadata")
+        self.addParamsLine("  [--step <s=30>] : Coarse angular step")
+        self.addParamsLine("  [--frm <L=24>]  : Use SO(3) Fast Rotational "
+                           "Matching instead of the grid")
+        self.addParamsLine("  [--frm_parameters <freq=0.25> <shift=10>] : "
+                           "FRM alignment with this max frequency and "
+                           "shift bound")
+        self.addParamsLine("  [--tilt_values <t0=-90> <tF=90>] : Missing-"
+                           "wedge compensation range for the FRM scoring")
+        self.addParamsLine("  [--mask <type=\"\"> <r=0>] : Mask applied "
+                           "during the alignment (circular <r> or a file)")
+
+    def run(self):
+        import os
+        from xmipp3_tpu_torch.programs.volume_programs import ProgVolumeAlign
+        md = MetaData(self.getParam("-i"))
+        fn_out = (self.getParam("-o")
+                  if self.checkParam("-o") and self.getParam("-o")
+                  else os.path.join(self.getParam("--odir"),
+                                    "volumeset_align.xmd"))
+        done = set()
+        rows = []
+        if self.checkParam("--resume") and os.path.exists(fn_out):
+            for r in MetaData(fn_out).iterRows():
+                done.add(str(r["image"]))
+                rows.append(dict(r))
+        for i in md:
+            r = md.getRow(i)
+            if str(r["image"]) in done:
+                continue
+            sub = ProgVolumeAlign()
+            args = [sub.name, "--i1", self.getParam("--ref"),
+                    "--i2", str(r["image"]), "--step", self.getParam("--step"),
+                    "--device", self.getParam("--device")]
+            if self.checkParam("--frm_parameters"):
+                args += ["--frm", *(self.getParam("--frm_parameters", k)
+                                    for k in (0, 1)),
+                         *(self.getParam("--tilt_values", k)
+                           for k in (0, 1))]
+            elif self.checkParam("--frm"):
+                args += ["--frm", self.getParam("--frm")]
+            if self.checkParam("--mask"):
+                args += ["--mask", self.getParam("--mask", 0),
+                         self.getParam("--mask", 1)]
+            sub.read(args)
+            sub.verbose = 0
+            sub.run()
+            r["angleRot"], r["angleTilt"], r["anglePsi"] = sub.angles
+            r["maxCC"] = sub.corr
+            rows.append(r)
+            MetaData.fromRows(rows).write(fn_out)   # checkpoint (--resume)
+        MetaData.fromRows(rows).write(fn_out)
+
+
+class ProgPDBAnalysis(XmippProgram):
+    name = "xmipp_pdb_analysis"
+
+    def defineParams(self):
+        self.addUsageLine("Report geometric statistics of an atomic model.")
+        self.addParamsLine("   -i <pdb> : Input model")
+        self.addParamsLine("  [--operation <op=stats>] : Operation to perform")
+        self.addParamsLine("    where <op>")
+        self.addParamsLine("      stats : Print geometric statistics")
+        self.addParamsLine("      distance_histogram <fileOut> <Nnearest=3> <MaxDistance=-1> : Histogram of distances between each atom and its N nearest neighbours (pdb_analysis.cpp:35-39)")
+
+    def run(self):
+        from collections import Counter
+        from xmipp3_tpu_torch.core.pdb import read_pdb
+        m = read_pdb(self.getParam("-i"))
+        c = m.coords
+        if self.checkParam("--operation") and \
+                self.getParam("--operation") == "distance_histogram":
+            dev = resolve_device(self.getParam("--device"))
+            n_near = self.getIntParam("--operation", 2)
+            max_d = self.getDoubleParam("--operation", 3)
+            # the N nearest distances of every atom, on the card (float64)
+            t = torch.as_tensor(np.asarray(c, np.float64), device=dev)
+            d = torch.cdist(t, t, compute_mode="donot_use_mm_for_euclid_dist")
+            d.fill_diagonal_(float("inf"))
+            k = min(n_near, len(c) - 1)
+            nearest = torch.topk(d, k, dim=1, largest=False).values \
+                .cpu().numpy().ravel()
+            if max_d > 0:
+                nearest = nearest[nearest <= max_d]
+            counts, edges = np.histogram(nearest, bins=200)
+            centers = 0.5 * (edges[:-1] + edges[1:])
+            with open(self.getParam("--operation", 1), "w") as f:
+                for x, v in zip(centers, counts):
+                    f.write(f"{x:12.6f} {v}\n")
+            self.hist = (centers, counts)
+            return
+        center = c.mean(axis=0)
+        extent = c.max(axis=0) - c.min(axis=0)
+        rg = float(np.sqrt(((c - center) ** 2).sum(axis=1).mean()))
+        comp = Counter(e.upper() for e in m.elements)
+        print(f"Atoms: {len(m)}")
+        print(f"Center of mass: {np.round(center, 2)}")
+        print(f"Extent (Å): {np.round(extent, 2)}")
+        print(f"Radius of gyration: {rg:.2f} Å")
+        print("Composition: " + " ".join(f"{k}:{v}"
+                                         for k, v in sorted(comp.items())))
+        self.radius_of_gyration = rg
+
+
+class ProgPDBLabelFromVolume(XmippProgram):
+    """Full reference surface (pdb_label_from_volume.cpp:36-238
+    ProgPdbValueToVol): per atom, average the volume values within
+    --radius of the atom position (always including the atom's own
+    voxel), restricted to --mask when given; occupancy = sign(signed
+    mean) * absolute mean; --md records the global mean and absolute
+    mean (MDL_VOLUME_SCORE1/2); --origin shifts the voxel indexing
+    (indices run from 0 unless --origin x y z is given). Host numpy, as
+    in the reference: a few voxels an atom."""
+    name = "xmipp_pdb_label_from_volume"
+
+    def defineParams(self):
+        self.addUsageLine("Put volume values (e.g. local resolution) on "
+                          "the atoms of a PDB.")
+        self.addParamsLine("   --pdb <file> : File to process")
+        self.addParamsLine("   --vol <volume> : Input volume")
+        self.addParamsLine("  [--mask <vol=\"\">] : Input mask (average "
+                           "only inside the mask)")
+        self.addParamsLine("   -o <file>    : Modified output PDB")
+        self.addParamsLine("  [--sampling <Ts=1>] : Pixel size (A/px)")
+        self.addParamsLine("  [--origin <x=0> <y=0> <z=0>] : Volume origin "
+                           "(voxels); without it indices start at 0")
+        self.addParamsLine("  [--radius <radius=0.8>] : Radius of the atom "
+                           "(A)")
+        self.addParamsLine("  [--md <output=params.xmd>] : Save mean and "
+                           "absolute mean of the atom values")
+
+    def run(self):
+        from xmipp3_tpu_torch.core.pdb import AtomicModel, read_pdb, write_pdb
+        m = read_pdb(self.getParam("--pdb"))
+        vol = np.squeeze(Image(self.getParam("--vol")).data
+                         ).astype(np.float64)
+        mask = None
+        if self.checkParam("--mask") and self.getParam("--mask"):
+            mask = np.squeeze(Image(self.getParam("--mask")).data) > 1e-5
+        Ts = self.getDoubleParam("--sampling")
+        radius = self.getDoubleParam("--radius")
+        orig = np.zeros(3)
+        if self.checkParam("--origin"):
+            orig = np.array([self.getDoubleParam("--origin", k)
+                             for k in range(3)])
+        D, H, W = vol.shape
+        vox = m.coords / Ts + orig[None, :]          # (N, 3) x, y, z
+        r2 = radius * radius
+        vals = np.zeros(len(m), np.float64)
+        absvals = np.zeros(len(m), np.float64)
+        for a, (x, y, z) in enumerate(vox):
+            k0, kF = max(int(np.floor(z - radius)), 0), \
+                min(int(np.ceil(z + radius)), D - 1)
+            i0, iF = max(int(np.floor(y - radius)), 0), \
+                min(int(np.ceil(y + radius)), H - 1)
+            j0, jF = max(int(np.floor(x - radius)), 0), \
+                min(int(np.ceil(x + radius)), W - 1)
+            if k0 > kF or i0 > iF or j0 > jF:
+                continue
+            kk, ii, jj = np.mgrid[k0:kF + 1, i0:iF + 1, j0:jF + 1]
+            sel = (z - kk) ** 2 + (y - ii) ** 2 + (x - jj) ** 2 < r2
+            # the atom's own (floor) voxel always counts
+            ka, ia, ja = (max(int(np.floor(z)), 0), max(int(np.floor(y)), 0),
+                          max(int(np.floor(x)), 0))
+            sel |= (kk == ka) & (ii == ia) & (jj == ja)
+            if mask is not None:
+                sel &= mask[kk, ii, jj]
+            if not sel.any():
+                continue
+            v = vol[kk[sel], ii[sel], jj[sel]]
+            absvals[a] = np.abs(v).mean()
+            vals[a] = (1.0 if v.mean() >= 0 else -1.0) * absvals[a]
+        mean = float(vals.mean()) if len(m) else 0.0
+        mean_abs = float(absvals.mean()) if len(m) else 0.0
+        if self.verbose:
+            print(f"mean value: = {mean}")
+            print(f"absolute mean value: = {mean_abs}")
+        MetaData.fromRows([{"scoreVolume1": mean,
+                            "scoreVolume2": mean_abs}]).write(
+            self.getParam("--md") if self.checkParam("--md")
+            else "params.xmd")
+        write_pdb(self.getParam("-o"),
+                  AtomicModel(m.coords, m.elements, m.bfactors,
+                              vals.astype(np.float32)))
+        self.mean, self.mean_abs = mean, mean_abs
+
+
+class ProgPDBReducePseudoatoms(XmippProgram):
+    name = "xmipp_pdb_reduce_pseudoatoms"
+
+    def defineParams(self):
+        self.addUsageLine("Reduce a pseudoatom model: keep the strongest "
+                          "atoms by intensity (pdb_reduce_pseudoatoms.cpp:"
+                          "43-46) or cluster to --num centers (k-means).")
+        self.addParamsLine("   -i <pdb>  : Input model")
+        self.addParamsLine("   -o <pdb>  : Reduced model")
+        self.addParamsLine("  [--number <num=-1>] : Keep this many pseudoatoms with highest intensity")
+        self.addParamsLine("  [--threshold <thresh=0.0>] : Remove pseudoatoms below this intensity")
+        self.addParamsLine("  [--num <n=100>] : Target pseudoatom count (k-means clustering mode)")
+
+    def run(self):
+        from xmipp3_tpu_torch.core.pdb import AtomicModel, read_pdb, write_pdb
+        m = read_pdb(self.getParam("-i"))
+        if self.checkParam("--number") or self.checkParam("--threshold"):
+            # the reference's intensity (occupancy) selection
+            inten = np.asarray(m.occupancies, np.float64)
+            keep = np.ones(len(m), bool)
+            if self.checkParam("--threshold"):
+                keep &= inten >= self.getDoubleParam("--threshold")
+            if self.checkParam("--number"):
+                num = self.getIntParam("--number")
+                if 0 < num < int(keep.sum()):
+                    chosen = [i for i in np.argsort(-inten) if keep[i]][:num]
+                    keep = np.zeros(len(m), bool)
+                    keep[chosen] = True
+            sel = np.where(keep)[0]
+            write_pdb(self.getParam("-o"), AtomicModel(
+                m.coords[sel], [m.elements[i] for i in sel],
+                np.asarray(m.bfactors)[sel], np.asarray(m.occupancies)[sel]))
+            return
+        # weighted k-means of the atoms on the card (float64), its start
+        # drawn by the reference's Generator
+        dev = resolve_device(self.getParam("--device"))
+        n = min(self.getIntParam("--num"), len(m))
+        rng = np.random.default_rng(0)
+        X = torch.as_tensor(np.asarray(m.coords, np.float64), device=dev)
+        w = torch.as_tensor(m.weights, dtype=torch.float64, device=dev)
+        C = X[torch.as_tensor(rng.choice(len(m), n, replace=False),
+                              device=dev)].clone()
+        for _ in range(20):
+            assign = ((X[:, None] - C[None]) ** 2).sum(-1).argmin(dim=1)
+            wsum = torch.zeros(n, dtype=torch.float64, device=dev) \
+                .index_add_(0, assign, w)
+            acc = torch.zeros_like(C).index_add_(0, assign, X * w[:, None])
+            hit = wsum > 0
+            C[hit] = acc[hit] / wsum[hit, None]
+        write_pdb(self.getParam("-o"), AtomicModel(
+            C.cpu().numpy(), ["C"] * n, np.zeros(n, np.float32),
+            np.ones(n, np.float32)))
+
+
+class ProgPDBSphDeform(XmippProgram):
+    name = "xmipp_pdb_sph_deform"
+
+    def defineParams(self):
+        self.addUsageLine("Deform an atomic model with Zernike3D "
+                          "coefficients.")
+        self.addParamsLine("   --pdb <file> : Input model")
+        self.addParamsLine("   -o <file>    : Deformed model")
+        self.addParamsLine("   --clnm <md>  : Metadata with sphCoefficients")
+        self.addParamsLine("  [--l1 <l=3>] : Zernike radial depth")
+        self.addParamsLine("  [--l2 <l=2>] : Spherical harmonic depth")
+        self.addParamsLine("  [--radius <r=-1>] : Normalization radius (Å)")
+        self.addParamsLine("  [--center_mass] : Center the PDB at its center of mass first")
+        self.addParamsLine("  [--boxsize <b=0>] : Box size (px) of the volume the coefficients were fitted in")
+        self.addParamsLine("  [--sr <s=1>] : Sampling rate (Å/px) of that volume")
+
+    def run(self):
+        from xmipp3_tpu_torch.core.pdb import AtomicModel, read_pdb, write_pdb
+        from xmipp3_tpu_torch.ops.zernike import (real_sph_harm,
+                                                  zernike_indices,
+                                                  zernike_radial)
+        m = read_pdb(self.getParam("--pdb"))
+        if self.checkParam("--center_mass"):
+            m = m.centered()
+        md = MetaData(self.getParam("--clnm"))
+        coeffs = np.asarray(md.getValue("sphCoefficients", md.firstObject()),
+                            np.float64).reshape(3, -1)
+        radius = self.getDoubleParam("--radius")
+        boxsize = (self.getIntParam("--boxsize")
+                   if self.checkParam("--boxsize") else 0)
+        sr = self.getDoubleParam("--sr") if self.checkParam("--sr") else 1.0
+        if radius <= 0 and boxsize > 0:
+            # the fitting volume's normalisation radius in A
+            # (pdb_sph_deform.cpp:36-38)
+            radius = 0.5 * boxsize * sr
+        if radius <= 0:
+            radius = np.linalg.norm(m.coords, axis=1).max() + 1e-6
+        r = np.linalg.norm(m.coords, axis=1) / radius
+        rs = np.where(r > 0, r, 1e-9)
+        theta = np.arccos(np.clip(m.coords[:, 2] / (rs * radius), -1, 1))
+        phi = np.arctan2(m.coords[:, 1], m.coords[:, 0])
+        idx = zernike_indices(self.getIntParam("--l1"),
+                              self.getIntParam("--l2"))
+        disp = np.zeros_like(m.coords)
+        for k, (l, n, mm) in enumerate(idx[: coeffs.shape[1]]):
+            B = zernike_radial(n, l, r) * real_sph_harm(l, mm, theta, phi)
+            B = np.where(r <= 1.0, B, 0.0)
+            for c in range(3):
+                disp[:, c] += coeffs[c, k] * B
+        write_pdb(self.getParam("-o"), AtomicModel(
+            m.coords + disp, m.elements, m.bfactors, m.occupancies))
+
+
+class ProgCompareDensity(XmippProgram):
+    """Full reference surface (compare_density.cpp:119-126): -v1/-v2,
+    --degstep grid; for each (rot, tilt) cell project both volumes,
+    low-pass filter (w1=1/12, raised 0.02), Otsu-binarize, subtract the
+    biggest connected component, and record the SIGN of the residual
+    pixel-wise density difference (+1 where v1's residual mass dominates,
+    -1 where v2's does, 0 when equal). The projections and the filter run
+    on the card, the whole grid in one batch; the thresholds and the
+    connected components (scipy.ndimage.label) on the host, as in the
+    reference."""
+    name = "xmipp_compare_density"
+
+    def defineParams(self):
+        self.addUsageLine("Compare the segmented densities of two volumes "
+                          "over a (rot, tilt) projection grid.")
+        self.addParamsLine("   -v1 <volume>  : First volume to compare")
+        self.addParamsLine("   -v2 <volume>  : Second volume to compare")
+        self.addParamsLine("  [-o <image=\"\">] : Output correlation image")
+        self.addParamsLine("  [--degstep <d=5.0>] : Degrees step size for "
+                           "rot and tilt angles")
+        self.addParamsLine("  [--thr <N=-1>] : Max processing threads "
+                           "(device batching replaces the thread pool)")
+
+    def run(self):
+        from scipy import ndimage
+        from xmipp3_tpu_torch.core.funcs import otsu_threshold
+        from xmipp3_tpu_torch.ops.fourier_filter import (
+            apply_fourier_mask_2d, low_pass_mask)
+        from xmipp3_tpu_torch.programs.angular_misc import \
+            project_both_on_grid
+        dev = resolve_device(self.getParam("--device"))
+        with timed_phase("project_filter"):
+            p1, p2, n_rot, n_tilt = project_both_on_grid(
+                self.getParam("-v1"), self.getParam("-v2"),
+                self.getDoubleParam("--degstep"), device=dev)
+            mask = low_pass_mask(*p1.shape[-2:], 1.0 / 12.0, raised_w=0.02)
+            p1 = apply_fourier_mask_2d(p1, mask).cpu().numpy()
+            p2 = apply_fourier_mask_2d(p2, mask).cpu().numpy()
+        corr = np.zeros(len(p1), np.float32)
+        with timed_phase("segment"):
+            for i in range(len(p1)):
+                b1 = (p1[i] > otsu_threshold(p1[i])).astype(np.float64)
+                b2 = (p2[i] > otsu_threshold(p2[i])).astype(np.float64)
+                for b in (b1, b2):
+                    lab, n = ndimage.label(b)
+                    if n > 0:
+                        sizes = ndimage.sum(b, lab, range(1, n + 1))
+                        b -= (lab == (1 + int(np.argmax(sizes))))
+                corr[i] = np.sign(np.sign(b1 - b2).sum())
+        cc = corr.reshape(n_rot, n_tilt)
+        save_image(self.getParam("-o") or "Rot_tilt_corr_map.xmp", cc)
+        self.corr_image = cc
+        if self.verbose:
+            print(f"fraction of differing views: {(cc != 0).mean():.3f}")
+
+
+class ProgCTFCorrectWiener3D(XmippProgram):
+    """3-D Wiener deconvolution of defocus-group volumes on the card: the
+    radial CTFs, the shared Wiener denominator, the volumes' FFTs and the
+    refiltered groups in float64."""
+    name = "xmipp_ctf_correct_wiener3d"
+
+    def defineParams(self):
+        self.addUsageLine("3D Wiener deconvolution of defocus-group volumes "
+                          "(ctf_correct_wiener3d.cpp:61-69): combines the "
+                          "group volumes with image-count-weighted Wiener "
+                          "filters and writes the per-group refiltered "
+                          "volumes.")
+        self.addParamsLine("   -i <input>  : Metadata with _image (group volume), _CTFModel and _class_count columns, or a single volume")
+        self.addParamsLine("  [--oroot <root=wiener3d>] : Output rootname (root_deconvolved.vol + root_ctffiltered_groupNN.vol)")
+        self.addParamsLine("  [--minFreq <Ang=-1>] : Apply the Wiener filter only beyond this resolution (A)")
+        self.addParamsLine("  [--phase_flipped] : Volumes were reconstructed from phase-corrected images")
+        self.addParamsLine("  [--wienerConstant <K=0.05>] : Wiener constant (multiplied by the total image count)")
+        self.addParamsLine("  [--ctf <ctfparam=\"\">] : Representative CTF (single-volume mode)")
+        self.addParamsLine("  [-o <out=\"\">] : Output (single-volume mode)")
+        self.addParamsLine("  [--sampling <Ts=0>] : Override pixel size")
+        self.addParamsLine("  [--wc <w=0.05>] : Wiener constant (single-volume mode)")
+
+    @staticmethod
+    def _radial_ctf(ctf, shape, phase_flipped, dev):
+        """The CTF at each rfftn frequency's radius (float32, as the
+        reference evaluates it) as float64, and the radius (1/A)."""
+        from xmipp3_tpu_torch.ops.fourier import freq_grid_3d
+        fz, fy, fx = freq_grid_3d(*shape)
+        r = np.sqrt(fz ** 2 + fy ** 2 + fx ** 2) / np.float32(
+            ctf.sampling_rate)
+        r = torch.as_tensor(r, device=dev)
+        c = ctf.pure_at(r, torch.zeros_like(r)).double()
+        return (c.abs() if phase_flipped else c), r.double()
+
+    def run(self):
+        from xmipp3_tpu_torch.core.metadata_program import is_metadata_file
+        from xmipp3_tpu_torch.ops.ctf import CTFDescription
+        dev = resolve_device(self.getParam("--device"))
+        fn_in = self.getParam("-i")
+        Ts = self.getDoubleParam("--sampling")
+        flipped = self.checkParam("--phase_flipped")
+        rfft = lambda v: torch.fft.rfftn(v)
+        irfft = lambda f, s: torch.fft.irfftn(f, s=s).cpu().numpy() \
+            .astype(np.float32)
+        if is_metadata_file(fn_in):
+            root = (self.getParam("--oroot")
+                    if self.checkParam("--oroot") else "wiener3d")
+            K = self.getDoubleParam("--wienerConstant")
+            min_freq = self.getDoubleParam("--minFreq")
+            vols, ctfs, counts = [], [], []
+            for r in MetaData(fn_in).iterRows():
+                vols.append(torch.as_tensor(np.squeeze(
+                    Image(str(r["image"])).data).astype(np.float64),
+                    device=dev))
+                ctf = CTFDescription.from_metadata(str(r["ctfModel"]))
+                if Ts > 0:
+                    ctf.sampling_rate = Ts
+                ctfs.append(ctf)
+                counts.append(float(r.get("classCount", 1) or 1))
+            shape = tuple(vols[0].shape)
+            cs = []
+            for ctf in ctfs:
+                c, freq = self._radial_ctf(ctf, shape, flipped, dev)
+                if min_freq > 0:
+                    # below the resolution limit the CTF is 1 inside the
+                    # shared denominator (generateCTF1D), so the weights
+                    # change continuously: w = n / (K Ntot + sum n_g)
+                    c = torch.where(freq < 1.0 / min_freq, 1.0, c)
+                cs.append(c)
+            denom = K * sum(counts) + sum(n * c * c
+                                          for n, c in zip(counts, cs))
+            num = sum(rfft(v) * (n * c / denom)
+                      for n, c, v in zip(counts, cs, vols))
+            dec = torch.fft.irfftn(num, s=shape)
+            save_image(root + "_deconvolved.vol",
+                       dec.cpu().numpy().astype(np.float32))
+            fdec = rfft(dec)
+            for g, c in enumerate(cs, start=1):
+                save_image(f"{root}_ctffiltered_group{g:02d}.vol",
+                           irfft(fdec * c, shape))
+            return
+        # single-volume mode
+        vol = np.squeeze(Image(fn_in).data).astype(np.float32)
+        ctf = CTFDescription.from_metadata(self.getParam("--ctf"))
+        if Ts > 0:
+            ctf.sampling_rate = Ts
+        c, _ = self._radial_ctf(ctf, vol.shape, flipped, dev)
+        c = c.float()
+        wien = (c / (c * c + np.float32(self.getDoubleParam("--wc")))).double()
+        out = irfft(rfft(torch.as_tensor(vol, device=dev).double()) * wien,
+                    vol.shape)
+        save_image(self.getParam("-o") or "wiener3d.vol", out)
+
+
+class ProgAdjustVolumeGreyLevels(XmippProgram):
+    """Full reference surface (adjust_volume_grey_levels.cpp:40-236):
+    adjust the volume's grey range so its projections match a set of
+    experimental projections (-m): first guess a = stddevF/stddev0,
+    b = avgF - a*avg0 with avgF = avg_pict/r, stddevF = stddev_pict/
+    sqrt(r), r = cbrt(#voxels); --optimize refines (a, b) on the
+    projection-mismatch cost over a random image subset (--probb_eval
+    selection probability). proj(a*V + b) = a*proj(V) + b*proj(1), so one
+    batched projection of V and of the unit volume on the card turns the
+    reference's per-evaluation reprojection into a closed-form 2x2 least
+    squares. -r adjusts against a reference volume directly."""
+    name = "xmipp_transform_adjust_volume_grey_levels"
+
+    def defineParams(self):
+        self.addUsageLine("Adjust the grey level range of a volume to "
+                          "its experimental projections.")
+        self.addParamsLine("   -i <volume>  : Volume to adjust")
+        self.addParamsLine("  [-m <metadata=\"\">] : Set of projections of "
+                           "the volume (with angles)")
+        self.addParamsLine("   alias --metadata;")
+        self.addParamsLine("  [-r <volume=\"\">]  : Reference volume "
+                           "(direct voxel least-squares mode)")
+        self.addParamsLine("  [-o <out=\"\">] : Output (default in-place)")
+        self.addParamsLine("  [--optimize] : Refine the linear transform "
+                           "on the projection-mismatch cost")
+        self.addParamsLine("  [--probb_eval <p=0.2>] : Probability of "
+                           "each image entering the goal function")
+        self.addParamsLine("  [--seed <s=0>] : Random subset seed")
+
+    def run(self):
+        dev = resolve_device(self.getParam("--device"))
+        v = np.squeeze(Image(self.getParam("-i")).data).astype(np.float32)
+        fn_out = self.getParam("-o") or self.getParam("-i")
+        if self.checkParam("-r") and self.getParam("-r"):
+            ref = np.squeeze(Image(self.getParam("-r")).data
+                             ).astype(np.float32)
+            A = np.stack([v.ravel(), np.ones(v.size, np.float32)], axis=1)
+            coef, *_ = np.linalg.lstsq(A, ref.ravel(), rcond=None)
+            save_image(fn_out, coef[0] * v + coef[1])
+            return
+        from xmipp3_tpu_torch.core.metadata_program import load_image_rows
+        rows = list(MetaData(self.getParam("-m")).iterRows())
+        imgs = load_image_rows(rows)
+        # first estimate (the reference's apply()): ray statistics
+        avg_pict = float(np.mean([i.mean() for i in imgs]))
+        stddev_pict = float(np.sqrt(np.mean([i.std() ** 2 for i in imgs])))
+        r = v.size ** (1.0 / 3.0)
+        avgF = avg_pict / r
+        stddevF = stddev_pict / np.sqrt(r)
+        avg0, stddev0 = float(v.mean()), float(max(v.std(), 1e-12))
+        a = stddevF / stddev0
+        b = avgF - a * avg0
+        if self.verbose:
+            print(f"First Linear transformation: y={a}*x+{b}")
+        if self.checkParam("--optimize"):
+            from xmipp3_tpu_torch.ops.project import project_real_space
+            rng = np.random.default_rng(
+                self.getIntParam("--seed") if self.checkParam("--seed")
+                else 0)
+            p = self.getDoubleParam("--probb_eval") \
+                if self.checkParam("--probb_eval") else 0.2
+            sel = rng.uniform(0, 1, len(rows)) <= p
+            if not sel.any():
+                sel[rng.integers(len(rows))] = True
+            idx = np.nonzero(sel)[0]
+            ang = {k: np.array([float(rows[i].get(k, 0.0)) for i in idx],
+                               np.float32)
+                   for k in ("angleRot", "angleTilt", "anglePsi")}
+            with timed_phase("project"):
+                P, T = (project_real_space(
+                    x, ang["angleRot"], ang["angleTilt"], ang["anglePsi"],
+                    device=dev).double() for x in (v, np.ones_like(v)))
+            I = torch.as_tensor(imgs[idx], device=dev).double()
+            # normal equations of min ||I - aP - bT||^2
+            M = torch.stack([torch.stack([(P * P).sum(), (P * T).sum()]),
+                             torch.stack([(P * T).sum(), (T * T).sum()])]) \
+                .cpu().numpy()
+            rhs = torch.stack([(P * I).sum(), (T * I).sum()]).cpu().numpy()
+            try:
+                a, b = np.linalg.solve(M, rhs)
+            except np.linalg.LinAlgError:
+                pass
+            if self.verbose:
+                print(f"Optimized transformation: y={a}*x+{b}")
+        save_image(fn_out, (a * v + b).astype(np.float32))
+        self.ab = (float(a), float(b))
