@@ -478,7 +478,37 @@ Phases; any failure exits non-zero before the result line is printed:
    Limits planned with tools/plan_tail.py. A `tail {...}` line gives each
    program's wall, phases, untimed rest, launches and peak device memory,
    and the quality.
-18. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
+18. The binding surface, driven as a Scipion protocol drives it: the
+   port's xmippLib, xmipp_base and xmippPyModules (binding/), with the
+   launch counts at 0 around each call and no kernel allowed to launch.
+   (a) FourierProjector on phase 4's 8-blob phantom (padding 2: a 256^3
+   cube), one projectVolume for each of the 1,652 directions of phase 4's
+   5-degree gallery, held against the port's batched project_euler at the
+   same angles (1e-5 * max); projectVolumeDouble at 16 of them, against
+   those views by phase 12's median-correlation limit. (b) readApplyGeo on
+   1,000 rows of phase 4's assignment and applyCTF (the method and the
+   function, in turns) on a view of each of phase 6's 20 CTFs, each against
+   the port's batched read_apply_geo / apply_ctf on the same images (1e-5
+   * max); the CTF error functions and getPSF against device="cpu". (c)
+   image_align on 64 pairs of phase 7's recipe (clean view, planted view):
+   each aligned image registered back onto the clean view must hold phase
+   7's limits (psi within 2 degrees for >= 95 %, median shift <= 0.5 px,
+   no mirror left). (d) The four preview filters and
+   fastEstimateEnhancedPSD on phase 8's 4096^2 micrograph A (which phase 8
+   keeps) at dim 512, against device="cpu" (1e-4 * max). (e) swiftalign (the affine
+   matrices and warp, InPlaneTransformCorrector, the CTF image,
+   aligned_2d_classification) and bnb_gpu's band projections of the 16
+   clean views and trial-grid match on 2,000 views of those 16 directions
+   at 64^2, against device="cpu" (1e-4 * max; >= 99 % of the classes and
+   matches the same). The device="cpu" runs of (d) and (e) go to a worker
+   thread at the phase's start and overlap the card's calls. (f) Started
+   first, an XmippScript in a process of its own, with binding/site on
+   PYTHONPATH, projects the phantom: its result must come from the card,
+   equal the in-process view (1e-5 * max), and neither jax, xmipp3_tpu nor
+   the root xmippLib, xmipp_base or xmippPyModules may be loaded in it. A
+   `binding {...}` line gives each call's wall, ms a call, launches and
+   peak device memory, and the quality.
+19. A line {"kernels": [...]} (K4 at ML2D's shape as cross_spectrum_ml2d,
    with phase 10's ML2D launches; K2 at a pSART block and a SIRT pass as
    tri_scatter_art_block and tri_scatter_sirt_pass, K3 at WBP's launch as
    kb_scatter_3ch_wbp, with phase 11's pSART, SIRT and WBP launches; K4 at
@@ -2517,6 +2547,8 @@ def ctf_estimation(seed, root: Path):
     finally:
         timing.take_timing()
         timing.enable_timing(False)
+        if (root / "A.mrc").is_file():      # phase 18 previews it
+            shutil.move(str(root / "A.mrc"), str(root.parent / BD_MIC))
         shutil.rmtree(root, ignore_errors=True)
     log("ctfest " + json.dumps(report))
     limit.check()
@@ -8278,6 +8310,392 @@ def tail(seed, root: Path):
     limit.check()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the binding surface (xmippLib, xmipp_base, xmippPyModules) as a
+# Scipion protocol drives it, in this process and in a script of its own
+# ---------------------------------------------------------------------------
+
+BD_DOUBLE = 16                 # projectVolumeDouble's gallery directions
+BD_GEO_ROWS = 1000             # readApplyGeo: rows of phase 4's assignment
+BD_CTF_STEP = VIEWS // CTF_GROUPS   # applyCTF: a row of each micrograph
+BD_PAIRS = 64                  # image_align: phase 7's planted pairs
+BD_MIC = "micrograph_A.mrc"    # phase 8's micrograph A, kept by phase 8
+BD_PREVIEW = 512               # the preview filters' dim
+BD_FILTERS = (("bandPassFilter", (0.02, 0.2, 0.02)),
+              ("gaussianFilter", (0.1,)), ("realGaussianFilter", (1.0,)),
+              ("badPixelFilter", (3.0,)),
+              ("fastEstimateEnhancedPSD", (1.0,)))
+BD_SWIFT = (64, 2000, 16)      # swiftalign's views: n, count, directions
+BD_BNB = (4, (0.0, 360.0, 30.0), (1.0, 1.0))   # bands, angles, shifts
+BD_TOL = 1e-5                  # the binding against the port's batched ops
+BD_CPU_TOL = 1e-4              # the card against device="cpu"
+BD_CPU_THREADS = 4             # the device="cpu" runs' share of 8 cores
+BD_SAME = 0.99                 # labels and matches the card shares with the
+#                                CPU (a near tie may fall either way)
+BD_SITE = ROOT / "xmipp3_tpu_torch" / "binding" / "site"
+BD_SCRIPT = '''"""A Scipion-style script: an XmippScript projecting a volume through
+xmippLib, run with the port's binding/site ahead on PYTHONPATH."""
+import json
+import sys
+
+import xmippLib
+import xmipp_base
+
+
+class ProjectVolume(xmipp_base.XmippScript):
+    def defineParams(self):
+        self.addUsageLine("Project a volume at one direction")
+        self.addParamsLine(" -i <volume> : the volume")
+        self.addParamsLine(" -o <image> : its projection")
+        self.addParamsLine(" --rot <rot> : first Euler angle")
+        self.addParamsLine(" --tilt <tilt> : second Euler angle")
+        self.addParamsLine(" --psi <psi> : third Euler angle")
+
+    def readParams(self):
+        self.vol, self.out = self.getParam("-i"), self.getParam("-o")
+        self.angles = [self.getDoubleParam(p)
+                       for p in ("--rot", "--tilt", "--psi")]
+
+    def run(self):
+        projector = xmippLib.FourierProjector(xmippLib.Image(self.vol))
+        projector.projectVolume(*self.angles).write(self.out)
+        print("device", projector._p.vf.device.type)
+
+
+rc = ProjectVolume().tryRun()
+names = ("jax", "xmipp3_tpu", "xmippLib", "xmipp_base", "xmippPyModules")
+print("modules", json.dumps({
+    m: getattr(sys.modules[m], "__file__", None) for m in sorted(sys.modules)
+    if m.split(".")[0] in names}))
+sys.exit(rc)
+'''
+
+
+def swift_views(n: int, views: int, dirs: int, seed: int, device):
+    """Phase 17's swiftalign recipe: noisy views of `dirs` directions of
+    BLOBS8 at n with psi uniform and shifts in +-2 px (numpy's draws, the
+    views made on `device`). Returns (views, psi, sx, sy, refs), refs the
+    clean view of each direction (bnb_gpu's references)."""
+    rng = np.random.default_rng(seed + 18)
+    d = rng.uniform(0, 1, (dirs, 2))
+    rot, tilt = 360 * d[:, 0], np.degrees(np.arccos(1 - 2 * d[:, 1]))
+    lab = rng.integers(0, dirs, views)
+    psi = rng.uniform(0, 360, views)
+    sx, sy = rng.uniform(-2, 2, (2, views))
+    blobs = scaled_blobs(BLOBS8, n)
+    clean = projections(n, rot[lab], tilt[lab], psi, sx, sy, blobs,
+                        device=device)
+    noisy = clean + np.float32(0.5 * float(clean.std())) * \
+        rng.standard_normal(clean.shape, dtype=np.float32)
+    zero = np.zeros(dirs)
+    refs = projections(n, rot, tilt, zero, zero, zero, blobs, device=device)
+    return noisy, psi, sx, sy, refs
+
+
+def swift_pass(views, psi, sx, sy, refs, seed, device, run):
+    """Phase 18's swiftalign and bnb_gpu calls on `device`, each through
+    run(label, fn): the affine matrices and warp, InPlaneTransformCorrector,
+    a CTF image, aligned_2d_classification of the registered views into
+    len(refs) classes, and bnb_gpu's band projections of refs on its trial
+    grid, the views' bands and their match."""
+    from xmipp3_tpu_torch.binding.xmippPyModules.classifyPcaFuntion import \
+        bnb_gpu
+    from xmipp3_tpu_torch.binding.xmippPyModules.swiftalign import (
+        alignment, classification, ctf, transform)
+    out = {}
+    out["A"] = run("affine_matrix_2d", lambda: transform.affine_matrix_2d(
+        psi, np.stack([sx, sy], 1), device=device))
+    out["warped"] = run("affine_2d", lambda: transform.affine_2d(
+        views, out["A"], device=device))
+    out["reg"] = run("InPlaneTransformCorrector", lambda: (
+        alignment.InPlaneTransformCorrector(device=device)(views, psi, sx,
+                                                           sy)))
+    out["ctfs"] = run("compute_ctf_image_2d", lambda: (
+        ctf.compute_ctf_image_2d(15000.0, 14000.0, 30.0, views.shape[-1],
+                                 2.0, device=device)))
+    out["cls"] = run("aligned_2d_classification", lambda: (
+        classification.aligned_2d_classification(
+            out["reg"], n_classes=len(refs), seed=seed, device=device)))
+    bnb = bnb_gpu.BnBgpu(BD_BNB[0], device=device)
+    bnb.setRotAndShift(*BD_BNB[1:])
+    out["bands"] = run("precalculate_projection",
+                       lambda: bnb.precalculate_projection(refs))
+    out["exp"] = run("create_batchExp", lambda: bnb.create_batchExp(views))
+    out["match"] = run("match_batch",
+                       lambda: bnb.match_batch(out["exp"], out["bands"]))
+    return out
+
+
+def binding_on_cpu(mic: Path, swift, seed):
+    """The device="cpu" runs that phase 18 holds the card against (a worker
+    thread runs them while the card's calls go on): the preview filters of
+    the micrograph and swift_pass on the views, on BD_CPU_THREADS of the
+    host's cores (the rest are the card's calls' and the script's)."""
+    import torch
+    from xmipp3_tpu_torch.binding import xmippLib as xl
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(BD_CPU_THREADS)
+    try:
+        previews = {}
+        for name, args in BD_FILTERS:
+            img = xl.Image()
+            getattr(xl, name)(img, str(mic), *args, BD_PREVIEW, device="cpu")
+            previews[name] = img.getData()
+        out = {"previews": previews, "previews_s": time.perf_counter() - t0}
+        out["swift"] = swift_pass(*swift, seed, "cpu",
+                                  lambda label, fn: fn())
+    finally:
+        torch.set_num_threads(threads)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def binding_surface(seed, root: Path, cycle: Path, ctf_dir: Path,
+                    mic: Path):
+    """Phase 18 in root: the port's binding driven as a Scipion protocol
+    drives it, on phase 4's phantom, gallery directions and assignment
+    (in cycle), phase 6's CTF views (in ctf_dir) and phase 8's micrograph
+    A (mic); a script run with binding/site on PYTHONPATH at the same
+    time. No kernel may launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from xmipp3_tpu_torch.binding import xmippLib as xl
+    from xmipp3_tpu_torch.core.filename import FileName
+    from xmipp3_tpu_torch.core.image import Image
+    from xmipp3_tpu_torch.ops.align import align_considering_mirrors
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription, apply_ctf
+    from xmipp3_tpu_torch.ops.geo import read_apply_geo
+    from xmipp3_tpu_torch.ops.project import FourierProjector
+    root.mkdir(parents=True)
+    report, q = {}, {}
+    limit = Limits(18)
+    start = time.perf_counter()
+
+    # the script starts first: its ~8 s to reach the card overlap the rest,
+    # as the worker thread's CPU runs do
+    vol_fn = cycle / "phantom.vol"
+    gal = md_rows(cycle / "gallery.doc")
+    rot, tilt, psi = (np.array([r.get(k, 0.0) for r in gal], np.float64)
+                      for k in ("angleRot", "angleTilt", "anglePsi"))
+    script = root / "project_volume.py"
+    script.write_text(BD_SCRIPT)
+    env = {**os.environ, "PYTHONPATH": str(BD_SITE)}
+    proc = subprocess.Popen(
+        [sys.executable, str(script), "-i", str(vol_fn), "-o",
+         str(root / "script.xmp"), "--rot", str(rot[7]), "--tilt",
+         str(tilt[7]), "--psi", str(psi[7])], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    pool = ThreadPoolExecutor(1)
+
+    def part(label, calls, fn):
+        """Run fn() with the launch counts at 0: its wall, ms a call, the
+        kernels it launched (none expected) and its peak device memory."""
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = report[label] = {
+            "calls": calls, "wall_s": wall, "ms_per_call": 1e3 * wall / calls,
+            "launches": {k: v for k, v in launch_counts().items() if v},
+            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {label}: {calls} calls in {wall:.3f} s "
+            f"({r['ms_per_call']:.3f} ms a call), peak "
+            f"{r['peak_device_GB']:.2f} GB, launches {r['launches']}")
+        check(not r["launches"], f"phase 18 {label}: launched "
+              f"{r['launches']}, expected no kernel")
+        return out
+
+    try:
+        # the device="cpu" runs go to the worker as soon as their data exist
+        t0 = time.perf_counter()
+        swift = swift_views(*BD_SWIFT, seed, DEVICE)
+        q["swift_data_s"] = time.perf_counter() - t0
+        on_cpu = pool.submit(binding_on_cpu, mic, swift, seed)
+
+        # (a) FourierProjector: one projectVolume a gallery direction
+        vol = xl.Image(str(vol_fn))
+        proj = part("FourierProjector", 1, lambda: xl.FourierProjector(vol))
+        views = part("projectVolume", len(rot), lambda: np.stack([
+            proj.projectVolume(a, b, c).getData()
+            for a, b, c in zip(rot, tilt, psi)]))
+        batched = FourierProjector(np.squeeze(vol.getData()), 2.0, DEVICE)
+        want = np.concatenate([
+            batched.project_euler(rot[s:s + 256], tilt[s:s + 256],
+                                  psi[s:s + 256]).cpu().numpy()
+            for s in range(0, len(rot), 256)])
+        q["projectVolume_vs_batched"] = max_rel(views, want)
+        del batched, want
+        pick = np.linspace(0, len(rot) - 1, BD_DOUBLE).astype(int)
+        real = part("projectVolumeDouble", BD_DOUBLE, lambda: np.stack([
+            xl.projectVolumeDouble(vol, rot[i], tilt[i], psi[i]).getData()
+            for i in pick]))
+        q["double_vs_fourier_corr_median"] = float(np.median(
+            image_corrs(real, views[pick])))
+
+        # (b) readApplyGeo on phase 4's assigned rows, applyCTF on phase 6's
+        md = xl.MetaData(str(cycle / "assigned.xmd"))
+        ids = list(md)[:BD_GEO_ROWS]
+        geo = part("readApplyGeo", len(ids), lambda: np.stack([
+            xl.Image().readApplyGeo(md.getValue("image", i), md, i)
+            .getData() for i in ids]))
+        rows = [md.getRow(i) for i in ids]
+        stk = FileName(rows[0]["image"]).path
+        imgs = Image.read_slices(stk, [FileName(r["image"]).slice_index - 1
+                                       for r in rows])
+        g = lambda k: np.array([float(r.get(k, 0.0) or 0.0) for r in rows])
+        want = read_apply_geo(imgs, g("anglePsi"), g("shiftX"), g("shiftY"),
+                              np.array([bool(r.get("flip", False))
+                                        for r in rows]), device=DEVICE)
+        q["readApplyGeo_vs_batched"] = max_rel(geo, want.cpu().numpy())
+        crows = md_rows(ctf_dir / "true_model.xmd")[::BD_CTF_STEP]
+
+        def apply_rows():
+            out = []
+            for k, r in enumerate(crows):
+                img = xl.Image(r["image"])
+                if k % 2:
+                    xl.applyCTF(img, r["ctfModel"], CTF_TS)
+                else:
+                    img.applyCTF(r["ctfModel"], CTF_TS)
+                out.append(img.getData())
+            return np.stack(out)
+        got = part("applyCTF", len(crows), apply_rows)
+        descs = []
+        for r in crows:
+            descs.append(CTFDescription.from_metadata(r["ctfModel"]))
+            descs[-1].sampling_rate = CTF_TS
+        cimgs = Image.read_slices(
+            FileName(crows[0]["image"]).path,
+            [FileName(r["image"]).slice_index - 1 for r in crows])
+        q["applyCTF_vs_batched"] = max_rel(
+            got, apply_ctf(cimgs, descs, device=DEVICE).cpu().numpy())
+        m0, m1 = crows[0]["ctfModel"], crows[len(crows) // 2]["ctfModel"]
+        ctf_fns = part("ctf_errors_and_psf", 3, lambda: (
+            xl.errorBetween2CTFs(m0, m1, 256), xl.errorMaxFreqCTFs2D(
+                m0, m1, 256), xl.getPSF(m0, CTF_TS)))
+        cpu_fns = (xl.errorBetween2CTFs(m0, m1, 256, device="cpu"),
+                   xl.errorMaxFreqCTFs2D(m0, m1, 256, device="cpu"),
+                   xl.getPSF(m0, CTF_TS, device="cpu"))
+        q["ctf_errors_card_vs_cpu"] = max(
+            max_rel(np.atleast_1d(a), np.atleast_1d(b))
+            for a, b in zip(ctf_fns, cpu_fns))
+
+        # (c) image_align on phase 7's planted pairs, read back against the
+        # truth by registering each aligned image onto the clean view
+        clean, pairs, _, _ = align2d_views(N, BD_PAIRS, seed, DEVICE)
+        aligned = part("image_align", BD_PAIRS, lambda: np.stack([
+            xl.image_align(clean, p).getData() for p in pairs]))
+        rpsi, rsx, rsy, rflip, _, _ = align_considering_mirrors(
+            clean, aligned, device=DEVICE)
+        rpsi = (rpsi.cpu().numpy() + 180.0) % 360.0 - 180.0
+        q["align_psi_within"] = float(np.mean(np.abs(rpsi)
+                                              <= ALIGN_PSI_DEG))
+        q["align_shift_median_px"] = float(np.median(np.hypot(
+            rsx.cpu().numpy(), rsy.cpu().numpy())))
+        q["align_mirror_right"] = float(1.0 - rflip.float().mean())
+
+        # (d) the preview filters on phase 8's 4096^2 micrograph A and (e)
+        # swiftalign and classifyPcaFuntion on 2,000 views at 64^2, then
+        # the same on the CPU (run by the worker meanwhile)
+        previews = {}
+        for name, args in BD_FILTERS:
+            previews[name] = xl.Image()
+            f = getattr(xl, name)
+            part(name, 1, lambda: f(previews[name], str(mic), *args,
+                                    BD_PREVIEW))
+        c = swift_pass(*swift, seed, DEVICE, lambda label, fn: part(
+            label, 1, fn))
+        t0 = time.perf_counter()
+        cpu = on_cpu.result()
+        report["cpu_side"] = {"wait_s": time.perf_counter() - t0,
+                              "wall_s": cpu["wall_s"],
+                              "previews_s": cpu["previews_s"]}
+        q["preview_card_vs_cpu"] = {}
+        for name, img in previews.items():
+            want = cpu["previews"][name]
+            check(img.getData().shape == want.shape
+                  and np.isfinite(img.getData()).all(), f"phase 18 {name}: "
+                  f"preview {img.getData().shape}, CPU {want.shape}")
+            q["preview_card_vs_cpu"][name] = max_rel(img.getData(), want)
+        h = cpu["swift"]
+        q["swift_card_vs_cpu"] = {k: max_rel(c[k], h[k]) for k in (
+            "A", "warped", "reg", "ctfs", "bands", "exp")}
+        q["classes_same"] = float(np.mean(c["cls"][0] == h["cls"][0]))
+        sign = np.sign((c["cls"][2] * h["cls"][2]).sum(0))
+        q["swift_card_vs_cpu"]["pca"] = max_rel(c["cls"][2] * sign,
+                                                h["cls"][2])
+        whole = [k for k in range(len(swift[4])) if np.array_equal(
+            c["cls"][0] == k, h["cls"][0] == k)]
+        q["swift_card_vs_cpu"]["averages"] = max_rel(
+            c["cls"][1][whole], h["cls"][1][whole]) if whole else np.inf
+        q["match_same"] = float(np.mean((c["match"][0] == h["match"][0])
+                                        & (c["match"][1] == h["match"][1])))
+        q["swift_card_vs_cpu"]["match_dist"] = max_rel(c["match"][2],
+                                                       h["match"][2])
+
+        # (f) the script's result
+        t0 = time.perf_counter()
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure("phase 18 script: no exit in 300 s")
+        report["script"] = {"wait_s": time.perf_counter() - t0,
+                            "rc": proc.returncode}
+        check(proc.returncode == 0, f"phase 18 script: rc {proc.returncode}"
+              f"\n{out}\n{err}")
+        lines = dict(ln.split(" ", 1) for ln in out.splitlines()
+                     if ln.startswith(("device ", "modules ")))
+        mods = json.loads(lines.get("modules", "{}"))
+        q["script_device"] = lines.get("device", "").strip()
+        q["script_foreign_modules"] = sorted(
+            m for m, f in mods.items() if m.split(".")[0] in ("jax",
+                                                             "xmipp3_tpu")
+            or f is None or "xmipp3_tpu_torch" not in f)
+        q["script_vs_in_process"] = max_rel(
+            np.squeeze(Image(str(root / "script.xmp")).data), views[7])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        pool.shutdown(wait=True)
+    report["phase_s"] = time.perf_counter() - start
+    report["quality"] = q
+    log(f"  phase 18 took {report['phase_s']:.2f} s")
+    log("binding " + json.dumps(report))
+    limit(q["projectVolume_vs_batched"] <= BD_TOL, "phase 18 projectVolume: "
+          f"{q['projectVolume_vs_batched']:.2e} off the batched projector")
+    limit(q["double_vs_fourier_corr_median"] >= ANG_REAL_CORR,
+          f"phase 18 projectVolumeDouble: median correlation "
+          f"{q['double_vs_fourier_corr_median']:.5f} (limit {ANG_REAL_CORR})")
+    for k in ("readApplyGeo_vs_batched", "applyCTF_vs_batched",
+              "script_vs_in_process"):
+        limit(q[k] <= BD_TOL, f"phase 18 {k}: {q[k]:.2e}")
+    limit(q["ctf_errors_card_vs_cpu"] <= BD_CPU_TOL, f"phase 18 CTF errors "
+          f"and PSF: card {q['ctf_errors_card_vs_cpu']:.2e} off the CPU")
+    limit(q["align_psi_within"] >= ALIGN_PSI_OK
+          and q["align_shift_median_px"] <= ALIGN_SHIFT_MEDIAN_PX
+          and q["align_mirror_right"] >= ALIGN_FLIP_OK,
+          f"phase 18 image_align: psi within {ALIGN_PSI_DEG} deg for "
+          f"{q['align_psi_within']:.4f}, median shift "
+          f"{q['align_shift_median_px']:.3f} px, mirror right for "
+          f"{q['align_mirror_right']:.4f}")
+    for group in ("preview_card_vs_cpu", "swift_card_vs_cpu"):
+        for k, v in q[group].items():
+            limit(v <= BD_CPU_TOL, f"phase 18 {k}: card {v:.2e} off the CPU")
+    limit(q["classes_same"] >= BD_SAME and q["match_same"] >= BD_SAME,
+          f"phase 18: classes {q['classes_same']:.4f} and matches "
+          f"{q['match_same']:.4f} the same on the card and the CPU")
+    limit(q["script_device"] == "cuda" and not q["script_foreign_modules"],
+          f"phase 18 script: device {q['script_device']!r}, foreign "
+          f"modules {q['script_foreign_modules']}")
+    limit.check()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--mesh-rank"]:
@@ -8368,6 +8786,10 @@ def main(argv=None) -> int:
         log("phase 17: the long tail (deep programs, final_batch, "
             "scripts_misc, matlab_bridge, infra)")
         tail(args.seed, root / "tail")
+        log("phase 18: the binding surface (xmippLib, xmipp_base, "
+            "xmippPyModules) as a script drives it")
+        binding_surface(args.seed, root / "binding", root / "cycle",
+                        root / "ctf", root / BD_MIC)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -327,8 +327,21 @@ for name in ("ctf_estimate_from_micrograph", "ctf_estimate_from_psd",
              "transform_symmetrize", "volume_to_pseudoatoms",
              *ALIASES, *list_programs()):
     assert get_program(name) is not None, name
+from xmipp3_tpu_torch.binding import xmippLib, xmipp_base
+from xmipp3_tpu_torch.binding.xmippPyModules import (
+    coordinatesTools, deepLearningToolkitUtils, example_module, swiftalign)
+from xmipp3_tpu_torch.binding.xmippPyModules.classifyPcaFuntion import (
+    assessment, bnb_gpu, pca_gpu)
+from xmipp3_tpu_torch.binding.xmippPyModules.deepLearningToolkitUtils import \
+    utils
+for sub in ("alignment", "classification", "ctf", "fourier", "image",
+            "metadata", "operators", "transform", "utils"):
+    __import__("xmipp3_tpu_torch.binding.xmippPyModules.swiftalign." + sub)
+assert get_program("test_script_importing_module").run_with_args([]) == 0
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "optax", "xmipp3_tpu"))
+             if m.split(".")[0] in ("jax", "flax", "optax", "xmipp3_tpu",
+                                    "xmippLib", "xmipp_base",
+                                    "xmippPyModules"))
 print("BAD", bad)
 """
 

@@ -15,7 +15,8 @@ without a host sync; K3 and K2 at the shapes of the two first splits, the
 analysis ops (features, TV, FRM, helical map, filter bank, LTSA) on the
 card against the CPU, the first splits' launches on the card, and the
 Zernike3D and NMA warps, the splats and a batched forward fit on the card
-against the CPU.
+against the CPU, and the binding's per-image CUDA graphs (projectVolume,
+readApplyGeo, image_align) against the same calls on the CPU.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -1282,3 +1283,36 @@ def test_flexibility_ops_on_the_card_match_the_cpu():
     assert rel_err(g["grad"], c_["grad"]) <= 1e-4
     assert rel_err(g["fit_c"], c_["fit_c"]) <= 1e-3
     assert np.abs(g["fit_cc"] - c_["fit_cc"]).max() <= 1e-4
+
+
+
+@pytest.mark.cuda
+def test_binding_card_graphs_match_the_cpu(tmp_path):
+    """The binding's per-image calls, which replay one CUDA graph a call on
+    the card (projectVolume, readApplyGeo, image_align), against the same
+    calls with device="cpu", four calls in a row so that each replay takes
+    new values."""
+    require_cuda()
+    from xmipp3_tpu_torch.binding import xmippLib as xl
+    from xmipp3_tpu_torch.core.image import save_image
+    b = phantom_batch(3, 4, 48)
+    z, y, x = np.mgrid[0:48, 0:48, 0:48].astype(np.float32) - 24
+    vol = np.exp(-((z - 4) ** 2 + y ** 2 + (x + 6) ** 2) / 18.0) + np.exp(
+        -((z + 5) ** 2 + (y - 7) ** 2 + x ** 2) / 8.0)
+    card, cpu = (xl.FourierProjector(vol, device=d) for d in ("cuda", "cpu"))
+    stk = str(tmp_path / "s.mrcs")
+    save_image(stk, b["imgs"])
+    md = xl.MetaData.fromRows(
+        {"image": f"{i + 1}@{stk}", "anglePsi": float(b["psi"][i]),
+         "shiftX": float(b["sx"][i]), "shiftY": float(b["sy"][i]),
+         "flip": bool(b["flip"][i])} for i in range(4))
+    for i, oid in enumerate(md):
+        ang = (b["rot"][i], b["tilt"][i], b["psi"][i])
+        assert rel_err(card.projectVolume(*ang).getData(),
+                       cpu.projectVolume(*ang).getData()) <= 1e-5
+        geo = [xl.Image().readApplyGeo(f"{i + 1}@{stk}", md, oid, device=d)
+               .getData() for d in ("cuda", "cpu")]
+        assert rel_err(*geo) <= 1e-5
+        aligned = [xl.image_align(b["imgs"][0], b["imgs"][i], device=d)
+                   .getData() for d in ("cuda", "cpu")]
+        assert rel_err(*aligned) <= 1e-4

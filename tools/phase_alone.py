@@ -10,7 +10,12 @@ check: the kernels are built, then
 - 16: chip_smoke.tomography runs the 28 programs of the tomography slice,
   the tail of flex_misc_ext and the three tilt programs;
 - 17: chip_smoke.tail runs the long tail: the deep programs, the rest of
-  final_batch and scripts_misc, matlab_bridge and the infra programs.
+  final_batch and scripts_misc, matlab_bridge and the infra programs;
+- 18: the inputs that phase 18 reads of phases 4 and 6 are made as those
+  phases make them, the assignment being the true poses (phase 4's
+  phantom, 5-degree gallery and views; phase 6's 20 .ctfparam files and
+  CTF views with their rows; phase 8's micrograph A), and
+  chip_smoke.binding_surface drives the binding.
 
 Phases 15-17 make their own data; they read nothing of the earlier
 phases. On the card, from the repo root:
@@ -56,10 +61,55 @@ def misc_volume(root: Path):
     cs.misc_and_volumes(0, root / "misc", cls, clean, p4)
 
 
+def binding(root: Path):
+    from xmipp3_tpu_torch.core.image import save_image
+    from xmipp3_tpu_torch.core.metadata import MetaData
+    from xmipp3_tpu_torch.ops.ctf import CTFDescription
+    from xmipp3_tpu_torch.programs import get_program
+    cycle, ctf = root / "cycle", root / "ctf"
+    cycle.mkdir(parents=True)
+    ctf.mkdir()
+    t0 = time.perf_counter()
+    save_image(str(cycle / "phantom.vol"), cs.phantom(cs.N, cs.BLOBS8))
+    rc = get_program("angular_project_library").run_with_args([
+        "-i", str(cycle / "phantom.vol"), "-o", str(cycle / "gallery"),
+        "--sampling_rate", str(cs.GALLERY_RATE), "--device", cs.DEVICE,
+        "-v", "0"])
+    cs.check(rc == 0, f"phase 18's gallery: rc {rc}")
+    p, rng = cs.cycle_poses(0)
+    clean = cs.projections(cs.N, p["rot"], p["tilt"], p["psi"], p["sx"],
+                           p["sy"], cs.BLOBS8, device=cs.DEVICE)
+    save_image(str(cycle / "views.mrcs"), clean)
+    MetaData.fromRows(
+        {"image": f"{i + 1}@{cycle / 'views.mrcs'}", "itemId": i + 1,
+         "angleRot": float(p["rot"][i]), "angleTilt": float(p["tilt"][i]),
+         "anglePsi": float(p["psi"][i]), "shiftX": float(p["sx"][i]),
+         "shiftY": float(p["sy"][i]), "flip": False}
+        for i in range(cs.VIEWS)).write(str(cycle / "assigned.xmd"))
+    per = cs.VIEWS // cs.CTF_GROUPS
+    models = []
+    for g, (u, v, az) in enumerate(zip(*cs.ctf_recipe())):
+        models.append(str(ctf / f"mic{g:02d}.ctfparam"))
+        CTFDescription(sampling_rate=cs.CTF_TS, voltage=cs.CTF_KV,
+                       defocusU=float(u), defocusV=float(v),
+                       azimuthal_angle=float(az), Cs=cs.CTF_CS,
+                       Q0=cs.CTF_Q0).write(models[-1])
+    save_image(str(ctf / "ctf_clean.mrcs"), cs.ctf_stack(clean))
+    MetaData.fromRows(
+        {"image": f"{i + 1}@{ctf / 'ctf_clean.mrcs'}",
+         "ctfModel": models[i // per]} for i in range(cs.VIEWS)).write(
+        str(ctf / "true_model.xmd"))
+    save_image(str(root / cs.BD_MIC), cs.est_plant(
+        cs.EST_SIZE, cs.EST_TS, *cs.EST_A, np.random.default_rng(0)))
+    print(f"inputs in {time.perf_counter() - t0:.2f} s", flush=True)
+    cs.binding_surface(0, root / "binding", cycle, ctf, root / cs.BD_MIC)
+
+
 PHASES = {14: misc_volume,
           15: lambda root: cs.flexibility(0, root),
           16: lambda root: cs.tomography(0, root),
-          17: lambda root: cs.tail(0, root)}
+          17: lambda root: cs.tail(0, root),
+          18: binding}
 
 
 def keep(src: Path, dst: Path):

@@ -108,9 +108,10 @@ def _mirror_off(idx, n: int):
 
 def _gather_bspline3(coeffs, yy, xx, wrap: bool, zero_outside: bool = True):
     """Cubic B-spline samples of coefficient images (B,H,W) at array
-    coordinates yy, xx (B, ...), tap by tap (16 gathers of one index tensor
-    each). wrap=True: periodic taps. wrap=False: mirror-off-bounds taps,
-    with the OUTPUT zeroed wherever the sample point itself falls outside
+    coordinates yy, xx (B, ...): a row of taps at a time (4 gathers of the
+    4 x taps each), summed in the order of a tap at a time. wrap=True:
+    periodic taps. wrap=False: mirror-off-bounds taps, with the OUTPUT
+    zeroed wherever the sample point itself falls outside
     [0, N-1] (the reference applyGeometry DONT_WRAP contract: outside
     points are 0, near-edge points use the mirrored extension — not
     zero-padded taps). A single (H,W) image with (...) coordinates is
@@ -119,24 +120,27 @@ def _gather_bspline3(coeffs, yy, xx, wrap: bool, zero_outside: bool = True):
     if single:
         coeffs, yy, xx = coeffs[None], yy[None], xx[None]
     B, H, W = coeffs.shape
-    flat = coeffs.reshape(B, -1)
-    y0 = torch.floor(yy).to(torch.int64)
-    x0 = torch.floor(xx).to(torch.int64)
+    flat = coeffs.reshape(-1)
+    base = (torch.arange(B, device=coeffs.device) * (H * W)).reshape(
+        B, *([1] * (yy.dim() - 1)))
+    d = torch.arange(-1, 3, device=coeffs.device).reshape(
+        4, *([1] * yy.dim()))
 
-    def taps(c0, c, n):
-        for d in range(-1, 3):
-            i = c0 + d
-            w = _bspline3_weight(c - i.to(c.dtype))
-            yield w, (torch.remainder(i, n) if wrap else
-                      _mirror_off(i.clamp(-n, 2 * n - 1), n))
+    def taps(c, n):
+        """The 4 taps along one axis: weights and indices, (4, B, ...)."""
+        i = torch.floor(c).to(torch.int64) + d
+        w = _bspline3_weight(c - i.to(c.dtype))
+        return w, (torch.remainder(i, n) if wrap else
+                   _mirror_off(i.clamp(-n, 2 * n - 1), n))
 
-    x_taps = list(taps(x0, xx, W))
+    wx, xi = taps(xx, W)
+    wy, yi = taps(yy, H)
+    xi = xi + base
     out = torch.zeros_like(yy)
-    for wy, yi in taps(y0, yy, H):
-        row = yi * W
-        for wx, xi in x_taps:
-            val = flat.gather(1, (row + xi).reshape(B, -1)).reshape(yy.shape)
-            out = out + val * wy * wx
+    for k in range(4):
+        terms = flat[yi[k] * W + xi] * wy[k] * wx
+        for j in range(4):
+            out = out + terms[j]
     if not wrap and zero_outside:
         eps = 1e-4
         inside = ((yy >= -eps) & (yy <= H - 1 + eps) &
@@ -164,7 +168,10 @@ def apply_affine_2d(imgs, mats, order: int = 1, wrap: bool = False,
     if mats.ndim == 2:
         mats = mats[None].expand(imgs.shape[0], 3, 3)
     B, H, W = imgs.shape
-    M = (mats if inverse else torch.linalg.inv(mats))[:, :, :, None, None]
+    # inv_ex: linalg.inv without its host check of the factorisation, so
+    # that a CUDA graph can hold the warp (the binding's image_align)
+    M = (mats if inverse else torch.linalg.inv_ex(mats)[0])[:, :, :, None,
+                                                             None]
     yy, xx = _out_coords(H, W, imgs.device)
     xs = M[:, 0, 0] * xx + M[:, 0, 1] * yy + M[:, 0, 2]
     ys = M[:, 1, 0] * xx + M[:, 1, 1] * yy + M[:, 1, 2]

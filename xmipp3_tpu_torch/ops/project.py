@@ -71,20 +71,22 @@ def extract_central_slices(vf, mats, out_n: int):
     flat = vf.reshape(-1)
     base = 0 if vf.dim() == 3 else (
         torch.arange(len(vf), device=dev) * P ** 3)[:, None, None]
-    out = torch.zeros(zi.shape, dtype=vf.dtype, device=dev)
-    for dz in range(2):
-        wz = fz if dz else 1 - fz
-        for dy in range(2):
-            wy = fy if dy else 1 - fy
-            for dx in range(2):
-                wx = fx if dx else 1 - fx
-                zj, yj, xj = z0 + dz, y0 + dy, x0 + dx
-                inside = ((zj >= 0) & (zj < P) & (yj >= 0) & (yj < P)
-                          & (xj >= 0) & (xj < P))
-                w = torch.where(inside, wz * wy * wx, 0.0)
-                idx = ((zj.clamp(0, P - 1) * P + yj.clamp(0, P - 1)) * P
-                       + xj.clamp(0, P - 1)) + base
-                out = out + w * flat[idx]
+    # the 8 corners in one gather (a few launches a call, not ~150),
+    # summed in corner order as one at a time would be: corner k is
+    # offset (k >> 2, k >> 1 & 1, k & 1) from (z0, y0, x0)
+    k = torch.arange(8, device=dev).reshape(8, 1, 1, 1)
+    dz, dy, dx = k >> 2, (k >> 1) & 1, k & 1
+    w = (torch.where(dz == 1, fz, 1 - fz) * torch.where(dy == 1, fy, 1 - fy)
+         * torch.where(dx == 1, fx, 1 - fx))
+    zj, yj, xj = z0 + dz, y0 + dy, x0 + dx
+    inside = ((zj >= 0) & (zj < P) & (yj >= 0) & (yj < P)
+              & (xj >= 0) & (xj < P))
+    idx = ((zj.clamp(0, P - 1) * P + yj.clamp(0, P - 1)) * P
+           + xj.clamp(0, P - 1)) + base
+    terms = torch.where(inside, w, 0.0) * flat[idx]
+    out = terms[0]
+    for j in range(1, 8):
+        out = out + terms[j]
     return out
 
 

@@ -236,11 +236,12 @@ class ProgTestScriptImportingModule(XmippProgram):
 
     def run(self):
         print("[ RUN      ] test_script_importing_module")
-        from xmippPyModules import example_module
+        from xmipp3_tpu_torch.binding.xmippPyModules import example_module
         print(example_module.anyFunction())
         print(example_module.anyClass.getFromClassMethod())
         print(example_module.anyClass().getFromObjectMethod())
-        from xmippPyModules.example_module2 import example_inmodule2
+        from xmipp3_tpu_torch.binding.xmippPyModules.example_module2 import \
+            example_inmodule2
         print(example_inmodule2.anyFunction2())
         print(example_inmodule2.anyClass2.getFromClassMethod2())
         print(example_inmodule2.anyClass2().getFromObjectMethod2())

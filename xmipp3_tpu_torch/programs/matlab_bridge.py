@@ -1,14 +1,14 @@
 """MATLAB/Octave binding bridge: the port of the reference package's
 programs/matlab_bridge.py (the `bindings/matlab/` role).
 
-The .m wrappers in bindings/matlab/ marshal their arguments into a
-MAT-file, shell out to `xmipp matlab_bridge --func <name> -i in.mat -o
-out.mat`, and load the result MAT-file. MATLAB and Octave read and write
-v7 MAT-files natively; on the Python side scipy.io reads and writes them
-exactly as the reference does. Function surface and argument contracts
-follow the reference wrappers one to one (reference files cited per
-function). Arrays cross the boundary in MATLAB memory order; scipy.io
-preserves logical (i, j, k) indexing.
+The .m wrappers in xmipp3_tpu_torch/binding/matlab/ marshal their
+arguments into a MAT-file, shell out to `xmipp_torch matlab_bridge --func
+<name> -i in.mat -o out.mat`, and load the result MAT-file. MATLAB and
+Octave read and write v7 MAT-files natively; on the Python side scipy.io
+reads and writes them exactly as the reference does. Function surface
+and argument contracts follow the reference wrappers one to one
+(reference files cited per function). Arrays cross the boundary in MATLAB
+memory order; scipy.io preserves logical (i, j, k) indexing.
 
 The image work runs on the card unless `--device cpu` is given: the
 rotations, Fourier and spline resizes, the pyramid, the normalisations,
@@ -608,7 +608,7 @@ FUNCS = {
 
 
 class ProgMatlabBridge(XmippProgram):
-    """`xmipp matlab_bridge --func <name> -i <in.mat> -o <out.mat>`.
+    """`xmipp_torch matlab_bridge --func <name> -i <in.mat> -o <out.mat>`.
 
     One call per wrapper invocation: loads the argument MAT-file, runs the
     named bridge function, saves the result MAT-file (v5 format — readable
@@ -616,7 +616,8 @@ class ProgMatlabBridge(XmippProgram):
     name = "xmipp_matlab_bridge"
 
     def defineParams(self):
-        self.addUsageLine("MATLAB/Octave binding bridge (bindings/matlab).")
+        self.addUsageLine("MATLAB/Octave binding bridge "
+                          "(xmipp3_tpu_torch/binding/matlab).")
         self.addParamsLine("   --func <name> : Bridge function "
                            f"({', '.join(sorted(FUNCS))})")
         self.addParamsLine("   -i <inmat> : Input MAT-file with the "
