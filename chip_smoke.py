@@ -1112,6 +1112,17 @@ def launch_counts(reset=False):
     return counts
 
 
+def take_phases():
+    """The program's span seconds by name since the last take (its device
+    seconds and counters left out), and the seconds of the spans opened at
+    top level, each of which the run's wall holds once."""
+    from xmipp3_tpu_torch.core import timing
+    top = timing.top_level_s()
+    took = timing.take_timing()
+    return {k: v[0] for k, v in took.items()
+            if not k.startswith((timing.DEVICE, timing.COUNT))}, top
+
+
 class Limits:
     """A phase's quality limits: every one is read and reported before the
     phase fails on any (check())."""
@@ -1128,12 +1139,11 @@ class Limits:
               f"phase {self.phase}: " + "; ".join(self.failed))
 
 
-def run_program(phase: int, report: dict, label, name, args, rc_want=0,
-                nested=()):
+def run_program(phase: int, report: dict, label, name, args, rc_want=0):
     """Run one program of the port through its CLI entry on the card, with
     every launch count set to 0 just before; fails unless it exits with
     rc_want. report[label] gets its wall, its phases, the untimed rest
-    (the phases named in `nested` are timed inside others), the kernels it
+    (the wall less the phases opened at top level), the kernels it
     launched and its peak device memory. Returns the program."""
     import torch
     from xmipp3_tpu_torch.core import timing
@@ -1151,11 +1161,10 @@ def run_program(phase: int, report: dict, label, name, args, rc_want=0,
     wall = time.perf_counter() - t0
     check(rc == rc_want, f"phase {phase} {label} ({name}): rc {rc}, "
           f"expected {rc_want}")
-    phases = {k: v[0] for k, v in timing.take_timing().items()}
+    phases, timed = take_phases()
     r = report[label] = {
         "program": name, "wall_s": wall, "phases_s": phases,
-        "rest_s": wall - sum(v for k, v in phases.items()
-                             if k not in nested),
+        "rest_s": wall - timed,
         "launches": {k: v for k, v in launch_counts().items() if v},
         "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  {label} ({name}): {wall:.3f} s, peak "
@@ -1229,7 +1238,7 @@ def end_to_end(seed, root: Path):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counts()
-            phases = timing.take_timing()
+            phases, _ = take_phases()
             check(rc == 0, f"reconstruct_fourier --interp {label}: rc {rc}")
             launches[kname] = counts[kname]
             check(counts[kname] > 0, f"--interp {label} never launched "
@@ -1240,11 +1249,11 @@ def end_to_end(seed, root: Path):
                    "wall_s": wall, "images_per_s": VIEWS / wall,
                    "fsc_min_to_half_nyquist": float(half.min()),
                    "corr": corr,
-                   "phases_s": {k: v[0] for k, v in phases.items()}}
+                   "phases_s": phases}
             log(f"  --interp {label}: {wall:.3f} s, {VIEWS / wall:.1f} "
                 f"images/s, launches {counts}, min FSC to Nyquist/2 "
                 f"{half.min():.4f}, corr {corr:.4f}, phases "
-                + ", ".join(f"{k} {v[0]:.3f} s" for k, v in phases.items()))
+                + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
             if interp == "nn" or extra:
                 check(corr >= 0.9, f"--interp {label}: correlation "
                       f"{corr:.4f} with the phantom < 0.9")
@@ -1336,7 +1345,7 @@ def matching_cycle(seed, root: Path):
             check(rc == 0, f"{name}: rc {rc}")
             report[name] = {
                 "wall_s": wall, "launches": launch_counts(),
-                "phases_s": {k: v[0] for k, v in timing.take_timing().items()},
+                "phases_s": take_phases()[0],
                 "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
             torch.cuda.reset_peak_memory_stats()
             log(f"  {name}: {wall:.3f} s")
@@ -1451,7 +1460,7 @@ def mesh_rank() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rep = {"rc": rc, "wall_s": wall, "launches": launch_counts(),
-           "phases_s": {k: v[0] for k, v in timing.take_timing().items()},
+           "phases_s": take_phases()[0],
            "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
     if getattr(program, "field", None) is not None:
         rep["field"] = np.asarray(program.field).tolist()
@@ -1812,10 +1821,7 @@ def ctf_cycle(seed, root: Path, clean, poses, cycle: Path):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             check(rc == 0, f"phase 6 {label} ({name}): rc {rc}")
-            phases = {k: v[0] for k, v in timing.take_timing().items()}
-            # scan and refine are timed inside match_to_gallery
-            timed = sum(v for k, v in phases.items()
-                        if k not in ("scan", "refine"))
+            phases, timed = take_phases()
             report[label] = {
                 "program": name, "wall_s": wall,
                 "launches": {k: v for k, v in launch_counts().items() if v},
@@ -2103,11 +2109,11 @@ def align_2d(seed, root: Path):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             check(rc == 0, f"phase 7 {label} ({name}): rc {rc}")
-            phases = {k: v[0] for k, v in timing.take_timing().items()}
+            phases, timed = take_phases()
             report[label] = {
                 "program": name, "wall_s": wall, "images_per_s": VIEWS / wall,
                 "launches": {k: v for k, v in launch_counts().items() if v},
-                "phases_s": phases, "rest_s": wall - sum(phases.values()),
+                "phases_s": phases, "rest_s": wall - timed,
                 "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9}
             torch.cuda.reset_peak_memory_stats()
             log(f"  {label} ({name}): {wall:.3f} s, {VIEWS / wall:.1f} "
@@ -2418,11 +2424,11 @@ def ctf_estimation(seed, root: Path):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             check(rc == 0, f"phase 8 {label} ({name}): rc {rc}")
-            phases = {k: v[0] for k, v in timing.take_timing().items()}
+            phases, timed = take_phases()
             compass = phases.pop("compass rounds", 0.0)
             report[label] = {
                 "program": name, "wall_s": wall, "phases_s": phases,
-                "rest_s": wall - sum(phases.values()),
+                "rest_s": wall - timed,
                 "compass_s": compass,
                 "compass_rounds": ce.compass_stats["rounds"],
                 "compass_calls": ce.compass_stats["calls"],
@@ -3365,8 +3371,7 @@ def classify_2d(seed, root: Path):
     report, quality = {}, {}
     limit = Limits(10)
 
-    # scan and refine are timed inside match_to_gallery's calls
-    run = partial(run_program, 10, report, nested=("scan", "refine"))
+    run = partial(run_program, 10, report)
 
     def mesh_run(label, name, args):
         for r, rep in enumerate(run_mesh(report, root, label, name, args)):

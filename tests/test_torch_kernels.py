@@ -16,7 +16,8 @@ analysis ops (features, TV, FRM, helical map, filter bank, LTSA) on the
 card against the CPU, the first splits' launches on the card, and the
 Zernike3D and NMA warps, the splats and a batched forward fit on the card
 against the CPU, and the binding's per-image CUDA graphs (projectVolume,
-readApplyGeo, image_align) against the same calls on the CPU.
+readApplyGeo, image_align) against the same calls on the CPU; and the
+program's spans (core/timing.py) timing the card without a synchronise.
 
 This file imports neither jax nor the reference package, so that it also
 runs where only the port is installed:
@@ -122,6 +123,58 @@ def test_profiler_trace_shows_the_kernel_on_the_card(tmp_path):
         run(cubes)
         torch.cuda.synchronize()
     assert "kb_scatter_kernel" in (tmp_path / "trace.json").read_text()
+
+
+@pytest.mark.cuda
+def test_spans_time_the_card_without_a_synchronise():
+    """With timing on, the program's spans (core/timing.py) take the card's
+    time from CUDA events on the stream: nothing inside a span synchronises
+    (torch.cuda's sync debug mode raises on a synchronise), take_timing
+    resolves the events, and a span that only queues a long product reads
+    more device than host time. A span inside a CUDA graph's capture
+    records no events."""
+    require_cuda()
+    from xmipp3_tpu_torch.core import timing
+    n = 4096
+    a = torch.randn(n, n, device="cuda")
+    (a @ a).sum().item()
+    timing.take_timing()
+    timing.enable_timing(True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            with timing.timed_phase("mm"):
+                with timing.timed_phase("mm.inner"):
+                    a @ a
+                timing.count("mm.flop", 2 * n ** 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        timing.enable_timing(False)
+    took = timing.take_timing()
+    assert took["device:mm"][1] == took["device:mm.inner"][1] == 3
+    assert took["device:mm"][0] >= took["device:mm.inner"][0] > 0
+    assert took["device:mm"][0] > took["mm"][0]
+    assert took["count:mm.flop"] == (3 * 2 * n ** 3, 3)
+    # a span inside a CUDA graph's capture records no events; the replay
+    # gives the product
+    b = a[:64, :64].clone()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        b @ b
+    torch.cuda.current_stream().wait_stream(side)
+    timing.enable_timing(True)
+    try:
+        with torch.cuda.graph(graph):
+            with timing.timed_phase("captured"):
+                out = b @ b
+    finally:
+        timing.enable_timing(False)
+    graph.replay()
+    took = timing.take_timing()
+    assert took["captured"][1] == 1 and "device:captured" not in took
+    assert torch.allclose(out, b @ b)
 
 
 @pytest.mark.cuda

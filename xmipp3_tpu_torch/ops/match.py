@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import as_tensor
 from xmipp3_tpu_torch.ops.cross import cross_spectrum
 from xmipp3_tpu_torch.ops.dft_mm import irfft_mm_last
@@ -106,22 +107,23 @@ def best_rotation_matrix(f_refs, f_imgs, radius_min: int = 2,
         # the inverse rFFT of the Hermitian spectrum; its 1/A and the
         # normalization are applied to the three samples the parabola
         # needs, not to the whole (B, R, A) curve
-        corr = irfft_mm_last(spec, A)
-        scale = A / norm
-        if psi_allow is not None:
-            # large finite negative (not -inf): the winner's parabola
-            # neighbors may be masked and -inf arithmetic would NaN psi
-            corr = torch.where(psi_allow[:, None, :] > 0,
-                               corr * scale[:, :, None], -1e30)
-            scale = 1.0
-        idx = corr.argmax(dim=-1, keepdim=True)
-        y0 = corr.gather(-1, idx)[..., 0] * scale
-        ym1 = corr.gather(-1, (idx - 1) % A)[..., 0] * scale
-        yp1 = corr.gather(-1, (idx + 1) % A)[..., 0] * scale
-        off = _parabola_peak_1d(ym1, y0, yp1)
-        ang = (idx[..., 0].to(torch.float32) + off) * (360.0 / A)
-        ang = torch.where(ang > 180.0, ang - 360.0, ang)
-        return ang, y0
+        with timed_phase("match.peaks"):
+            corr = irfft_mm_last(spec, A)
+            scale = A / norm
+            if psi_allow is not None:
+                # large finite negative (not -inf): the winner's parabola
+                # neighbors may be masked and -inf arithmetic would NaN psi
+                corr = torch.where(psi_allow[:, None, :] > 0,
+                                   corr * scale[:, :, None], -1e30)
+                scale = 1.0
+            idx = corr.argmax(dim=-1, keepdim=True)
+            y0 = corr.gather(-1, idx)[..., 0] * scale
+            ym1 = corr.gather(-1, (idx - 1) % A)[..., 0] * scale
+            yp1 = corr.gather(-1, (idx + 1) % A)[..., 0] * scale
+            off = _parabola_peak_1d(ym1, y0, yp1)
+            ang = (idx[..., 0].to(torch.float32) + off) * (360.0 / A)
+            ang = torch.where(ang > 180.0, ang - 360.0, ang)
+            return ang, y0
 
     psi, peak = peaks(cross)
     del cross
@@ -312,7 +314,6 @@ def _match(refs, imgs, trials, max_shift: int, radius_min: int,
            psi_allow=None):
     """Gallery match: the scan over the trials, then the winner's
     refinement."""
-    from xmipp3_tpu_torch.core.timing import timed_phase
     with timed_phase("scan", sync=imgs):
         peak0, psi0, best_ref, trial_idx, flip = _scan_trials(
             refs, imgs, trials, radius_min, radius_max, check_mirror,
@@ -334,7 +335,6 @@ def _match_topn(refs, imgs, trials, allowed, max_shift: int,
     allowed: (B, R) float mask (1 = candidate, 0 = excluded) — the per-image
     neighborhood restriction, consumed as a score mask over the dense
     gallery correlation."""
-    from xmipp3_tpu_torch.core.timing import timed_phase
     with timed_phase("scan", sync=imgs):
         peak, psi, trial, flip = _scan_trials_full(
             refs, imgs, trials, radius_min, radius_max, check_mirror,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from xmipp3_tpu_torch.core.geometry import euler_matrix
+from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import as_tensor, resolve_device
 from xmipp3_tpu_torch.ops.fourier import shift_spec_2d
 
@@ -107,10 +108,11 @@ class FourierProjector:
 
     def __init__(self, vol, pad_factor: float = 2.0, device=None):
         self.device = resolve_device(device)
-        vol = as_tensor(vol, self.device)
-        self.N = vol.shape[-1]
-        self.vf, self.pad_n = prepare_fourier_volume(vol, pad_factor,
-                                                     self.device)
+        with timed_phase("project.volume"):
+            vol = as_tensor(vol, self.device)
+            self.N = vol.shape[-1]
+            self.vf, self.pad_n = prepare_fourier_volume(vol, pad_factor,
+                                                         self.device)
 
     @classmethod
     def from_jax_state(cls, vf, N: int, pad_n: int, device=None):
@@ -130,16 +132,17 @@ class FourierProjector:
     def project_euler(self, rot, tilt, psi, shifts=None):
         """Batched projection at Euler angles (degrees). Optional (B,2) shifts
         applied in Fourier space. Returns a (B, N, N) float32 tensor."""
-        rot = np.atleast_1d(np.asarray(rot, np.float32))
-        tilt = np.atleast_1d(np.asarray(tilt, np.float32))
-        psi = np.atleast_1d(np.asarray(psi, np.float32))
-        mats = np.asarray(euler_matrix(rot, tilt, psi), np.float32)
-        slices = extract_central_slices(self.vf, mats, self.N)
-        if shifts is not None:
-            shifts = as_tensor(shifts, self.device)
-            slices = shift_spec_2d(slices, shifts[:, 0], shifts[:, 1],
-                                   self.N, self.N)
-        return slices_to_projections(slices, self.N)
+        with timed_phase("project.slices"):
+            rot = np.atleast_1d(np.asarray(rot, np.float32))
+            tilt = np.atleast_1d(np.asarray(tilt, np.float32))
+            psi = np.atleast_1d(np.asarray(psi, np.float32))
+            mats = np.asarray(euler_matrix(rot, tilt, psi), np.float32)
+            slices = extract_central_slices(self.vf, mats, self.N)
+            if shifts is not None:
+                shifts = as_tensor(shifts, self.device)
+                slices = shift_spec_2d(slices, shifts[:, 0], shifts[:, 1],
+                                       self.N, self.N)
+            return slices_to_projections(slices, self.N)
 
 
 def project_real_space(vol, rot, tilt, psi, order: int = 1, device=None,

@@ -47,6 +47,7 @@ from scipy import special as ss
 
 from xmipp3_tpu_torch.core.geometry import euler_matrix
 from xmipp3_tpu_torch.core.sym import SymList
+from xmipp3_tpu_torch.core.timing import timed_phase
 from xmipp3_tpu_torch.device import resolve_device
 from xmipp3_tpu_torch.ops import scatter, scatter_kb, scatter_tri
 from xmipp3_tpu_torch.ops.basis import kaiser_fourier_value, kaiser_value
@@ -227,25 +228,26 @@ def backproject_chunk(data_r, data_i, weights, imgs, mats, sx, sy, img_w,
     imgs, mats, sx, sy, img_w = (torch.as_tensor(a, **f32)
                                  for a in (imgs, mats, sx, sy, img_w))
     C, N, _ = imgs.shape
-    # 2-D FFT with centered-origin phase convention + shift correction
-    spec = torch.fft.rfft2(torch.fft.ifftshift(imgs, dim=(-2, -1)))
-    spec = shift_spec_2d(spec, sx, sy, N, N)
+    with timed_phase("grid.spectra"):
+        # 2-D FFT with centered-origin phase convention + shift correction
+        spec = torch.fft.rfft2(torch.fft.ifftshift(imgs, dim=(-2, -1)))
+        spec = shift_spec_2d(spec, sx, sy, N, N)
 
-    # resolution cutoff: samples outside the disk are dropped by a static
-    # index set, since gridding updates dominate the cost
-    spec = spec.reshape(C, -1)[:, _keep_index(N, max_freq, dev)]  # (C, S)
-    wimg = img_w[:, None].expand(spec.shape)
-    zi, yi, xi = _slice_tap_coords(mats, N, P, max_freq)
-
-    sr = spec.real * wimg
-    si = spec.imag * wimg
-    wstream = wimg
-    if ctf_data is not None:
-        sr = sr * ctf_data
-        si = si * ctf_data
-        wstream = wimg * ctf_w
-    samples = [a.contiguous().reshape(-1)
-               for a in (zi, yi, xi, sr, si, wstream)]
+        # resolution cutoff: samples outside the disk are dropped by a
+        # static index set, since gridding updates dominate the cost
+        spec = spec.reshape(C, -1)[:, _keep_index(N, max_freq, dev)]
+        wimg = img_w[:, None].expand(spec.shape)                  # (C, S)
+        sr = spec.real * wimg
+        si = spec.imag * wimg
+        wstream = wimg
+        if ctf_data is not None:
+            sr = sr * ctf_data
+            si = si * ctf_data
+            wstream = wimg * ctf_w
+    with timed_phase("grid.coords"):
+        zi, yi, xi = _slice_tap_coords(mats, N, P, max_freq)
+        samples = [a.contiguous().reshape(-1)
+                   for a in (zi, yi, xi, sr, si, wstream)]
     cubes = (data_r, data_i, weights)
     radius, order, alpha = float(blob[0]), int(blob[1]), float(blob[2])
 
@@ -346,41 +348,42 @@ def finalize_volume(data_r, data_i, weights, N: int, P: int,
     gridding window cancels, so dividing by the window's IFT over-corrects;
     deapodize=True reproduces the windowed correction for parity studies."""
     blob = tuple(blob)
-    if interp == "tri+kb":
-        kern = _blob_grid_kernel(blob)
-        data_r = _conv3(data_r, kern)
-        data_i = _conv3(data_i, kern)
-        weights = _conv3(weights, kern)
-    dr = data_r + _conj_mirror(data_r)
-    di = data_i - _conj_mirror(data_i)
-    w = weights + _conj_mirror(weights)
-    if niter_weight == 0:
-        V = torch.complex(dr, di)
-    else:
-        c = torch.where(w > min_weight,
-                        1.0 / torch.clamp(w, min=min_weight), 0.0)
-        if niter_weight > 1 and interp in ("kb", "tri+kb"):
+    with timed_phase("finalize"):
+        if interp == "tri+kb":
             kern = _blob_grid_kernel(blob)
-            for _ in range(niter_weight - 1):
-                denom = _conv3(c * w, kern)
-                c = torch.where(denom > min_weight,
-                                c / torch.clamp(denom, min=min_weight), c)
-        V = torch.complex(dr * c, di * c)
-        del c
-    # each step drops the cube it came from (a 1024^3 complex cube is 8.6
-    # GB); the shift of the real part equals the real part of the shift
-    del dr, di, w
-    V = torch.fft.ifftn(torch.fft.ifftshift(V))
-    vol = torch.fft.fftshift(V.real)
-    del V
-    # crop padding (centered)
-    lo = (P - N) // 2 + (P - N) % 2
-    vol = vol[lo:lo + N, lo:lo + N, lo:lo + N]
-    if deapodize:
-        comp = torch.as_tensor(_deapodization(N, P, interp, blob),
-                               device=vol.device)
-        vol = vol / torch.clamp(comp, min=1e-3)
-    return vol.contiguous()
+            data_r = _conv3(data_r, kern)
+            data_i = _conv3(data_i, kern)
+            weights = _conv3(weights, kern)
+        dr = data_r + _conj_mirror(data_r)
+        di = data_i - _conj_mirror(data_i)
+        w = weights + _conj_mirror(weights)
+        if niter_weight == 0:
+            V = torch.complex(dr, di)
+        else:
+            c = torch.where(w > min_weight,
+                            1.0 / torch.clamp(w, min=min_weight), 0.0)
+            if niter_weight > 1 and interp in ("kb", "tri+kb"):
+                kern = _blob_grid_kernel(blob)
+                for _ in range(niter_weight - 1):
+                    denom = _conv3(c * w, kern)
+                    c = torch.where(denom > min_weight,
+                                    c / torch.clamp(denom, min=min_weight), c)
+            V = torch.complex(dr * c, di * c)
+            del c
+        # each step drops the cube it came from (a 1024^3 complex cube is 8.6
+        # GB); the shift of the real part equals the real part of the shift
+        del dr, di, w
+        V = torch.fft.ifftn(torch.fft.ifftshift(V))
+        vol = torch.fft.fftshift(V.real)
+        del V
+        # crop padding (centered)
+        lo = (P - N) // 2 + (P - N) % 2
+        vol = vol[lo:lo + N, lo:lo + N, lo:lo + N]
+        if deapodize:
+            comp = torch.as_tensor(_deapodization(N, P, interp, blob),
+                                   device=vol.device)
+            vol = vol / torch.clamp(comp, min=1e-3)
+        return vol.contiguous()
 
 
 class FourierReconstructor:
@@ -441,39 +444,43 @@ class FourierReconstructor:
         table is computed once per batch and reused across the symmetry
         loop (the CTF lives in the image frame; symmetry only rotates the
         3-D insertion coordinates)."""
-        imgs = torch.as_tensor(imgs, dtype=torch.float32, device=self.device)
-        if imgs.ndim == 2:
-            imgs = imgs[None]
-        C = imgs.shape[0]
-        z = np.zeros(C, np.float32)
-        sx = z if sx is None else np.asarray(sx, np.float32)
-        sy = z if sy is None else np.asarray(sy, np.float32)
-        if flip is not None and np.any(flip):
-            # stored flip: shift(img, s) = M_x proj(pose). Backproject the
-            # x-mirrored image with negated shiftX instead.
-            f = np.asarray(flip).astype(bool)
-            fj = torch.as_tensor(f, device=self.device)
-            imgs = torch.where(fj[:, None, None], imgs.flip(-1), imgs)
-            sx = np.where(f, -sx, sx)
-        w = np.ones(C, np.float32) if weights is None else \
-            np.asarray(weights, np.float32)
-        A = np.asarray(euler_matrix(np.asarray(rot, np.float32),
-                                    np.asarray(tilt, np.float32),
-                                    np.asarray(psi, np.float32)), np.float32)
-        if A.ndim == 2:
-            A = np.broadcast_to(A[None], (C, 3, 3))
-        ctf_data = ctf_w = None
-        if ctfp is not None:
-            ctf_data, ctf_w = ctf_gridding_multipliers(
-                ctfp, self.sampling, self.min_ctf, int(imgs.shape[-1]),
-                self.max_freq, self.phase_flipped, device=self.device)
-        for S in self.sym.sym_matrices():
-            # symmetry-equivalent pose: volume rotated by S ~ slice at A·S
-            Asym = np.einsum("cij,jk->cik", A, S.astype(np.float32))
-            backproject_chunk(self.data_r, self.data_i, self.weights, imgs,
-                              Asym, sx, sy, w, self.P, self.max_freq,
-                              interp=self.interp, blob=self.blob,
-                              ctf_data=ctf_data, ctf_w=ctf_w)
+        with timed_phase("grid"):
+            imgs = torch.as_tensor(imgs, dtype=torch.float32,
+                                   device=self.device)
+            if imgs.ndim == 2:
+                imgs = imgs[None]
+            C = imgs.shape[0]
+            z = np.zeros(C, np.float32)
+            sx = z if sx is None else np.asarray(sx, np.float32)
+            sy = z if sy is None else np.asarray(sy, np.float32)
+            if flip is not None and np.any(flip):
+                # stored flip: shift(img, s) = M_x proj(pose). Backproject the
+                # x-mirrored image with negated shiftX instead.
+                f = np.asarray(flip).astype(bool)
+                fj = torch.as_tensor(f, device=self.device)
+                imgs = torch.where(fj[:, None, None], imgs.flip(-1), imgs)
+                sx = np.where(f, -sx, sx)
+            w = np.ones(C, np.float32) if weights is None else \
+                np.asarray(weights, np.float32)
+            A = np.asarray(euler_matrix(np.asarray(rot, np.float32),
+                                        np.asarray(tilt, np.float32),
+                                        np.asarray(psi, np.float32)),
+                           np.float32)
+            if A.ndim == 2:
+                A = np.broadcast_to(A[None], (C, 3, 3))
+            ctf_data = ctf_w = None
+            if ctfp is not None:
+                with timed_phase("grid.ctf"):
+                    ctf_data, ctf_w = ctf_gridding_multipliers(
+                        ctfp, self.sampling, self.min_ctf, int(imgs.shape[-1]),
+                        self.max_freq, self.phase_flipped, device=self.device)
+            for S in self.sym.sym_matrices():
+                # symmetry-equivalent pose: volume rotated by S ~ slice at A·S
+                Asym = np.einsum("cij,jk->cik", A, S.astype(np.float32))
+                backproject_chunk(self.data_r, self.data_i, self.weights, imgs,
+                                  Asym, sx, sy, w, self.P, self.max_freq,
+                                  interp=self.interp, blob=self.blob,
+                                  ctf_data=ctf_data, ctf_w=ctf_w)
 
     def finish(self):
         return finalize_volume(self.data_r, self.data_i, self.weights,

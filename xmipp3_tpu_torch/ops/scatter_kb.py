@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from scipy import special as ss
 
+from xmipp3_tpu_torch.core import timing
 from xmipp3_tpu_torch.ops import _cuda_build as cb
 from xmipp3_tpu_torch.ops.scatter import expand_taps, scatter_add_3ch_plain
 
@@ -132,6 +133,7 @@ def kb_scatter_3ch(c0, c1, c2, zi, yi, xi, v0, v1, v2, P: int,
                              v0=v0, v1=v1, v2=v2)
     if dev != sdev:
         raise ValueError(f"{what}: cubes on {dev}, samples on {sdev}")
+    timing.count("k3.samples", M)
     if dev.type == "cpu":
         return kb_scatter_plain(c0, c1, c2, zi, yi, xi, v0, v1, v2, P,
                                 radius, alpha, order, zdim, z_lo)
